@@ -1,0 +1,43 @@
+"""MSTG core of the port: the index, the planner and the search engines.
+
+* predicate algebra  — :mod:`repro_torch.core.predicates`
+* typed requests     — :class:`SearchRequest` -> :class:`SearchResult` with
+  :class:`RouteReport` diagnostics (:mod:`repro_torch.core.api`)
+* index lifecycle    — :class:`IndexSpec`, ``MSTGIndex.build/save/load``
+  (host NumPy; the same ``mstg-index`` v1 ``.npz`` as the reference)
+* execution          — :class:`QueryEngine` with an :class:`EngineConfig`,
+  on an explicit device (auto-routed graph / pruned / flat)
+"""
+from . import build, intervals, segment_tree
+from .intervals import (LEFT_OVERLAP, QUERY_CONTAINED, RIGHT_OVERLAP,
+                        QUERY_CONTAINING, BEFORE, AFTER, ANY_OVERLAP,
+                        RFANN_MASK, IFANN_MASK, TSANN_MASK,
+                        AttributeDomain, SearchTask, PlanSlot, plan_searches,
+                        plan_batch_ranked, eval_predicate, mask_name,
+                        parse_mask, SelectivityIndex)
+from .predicates import (Predicate, LeftOverlap, RightOverlap, QueryContained,
+                         QueryContaining, Contains, ContainedBy, Overlaps,
+                         Before, After, as_predicate, as_mask)
+from .api import (IndexSpec, QueryHit, RouteReport, SearchRequest,
+                  SearchResult)
+from .mstg import MSTGIndex, FrozenVariant, build_variant
+from .search import (device_variant, mstg_graph_search,
+                     mstg_graph_search_chunked, merge_topk)
+from .flat import flat_search
+from .engine import EngineConfig, QueryEngine, resolve_device
+
+__all__ = [
+    "Predicate", "LeftOverlap", "RightOverlap", "QueryContained",
+    "QueryContaining", "Contains", "ContainedBy", "Overlaps", "Before",
+    "After", "as_predicate", "as_mask",
+    "SearchRequest", "SearchResult", "QueryHit", "RouteReport", "IndexSpec",
+    "MSTGIndex", "QueryEngine", "EngineConfig", "FrozenVariant",
+    "build_variant", "AttributeDomain", "device_variant", "resolve_device",
+    "mstg_graph_search", "mstg_graph_search_chunked", "merge_topk",
+    "flat_search",
+    "SearchTask", "PlanSlot", "plan_searches", "plan_batch_ranked",
+    "eval_predicate", "mask_name", "parse_mask", "SelectivityIndex",
+    "LEFT_OVERLAP", "QUERY_CONTAINED", "RIGHT_OVERLAP", "QUERY_CONTAINING",
+    "BEFORE", "AFTER", "ANY_OVERLAP", "RFANN_MASK", "IFANN_MASK", "TSANN_MASK",
+    "build", "intervals", "segment_tree",
+]

@@ -1,0 +1,112 @@
+"""Exact predicate-filtered search engines.
+
+* ``flat_search`` — the fused predicate + pairwise squared L2 kernel over
+  the whole corpus, then a top-k (the ground truth of the other routes).
+* ``_pruned_search_variant`` — uses the MSTG segment-tree decomposition to
+  touch only qualifying *member slices*: every decomposition node stores its
+  members grouped contiguously in insertion (= version) order, so the valid
+  candidates of a node at version x are a PREFIX of its slice. Work scales
+  with selectivity instead of n. Exact (recall 1.0) by construction.
+
+Both return squared-L2 top-k as ``(ids, dists)`` tensors.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels import ops
+from . import intervals as iv
+from . import segment_tree as st
+from .hnsw import NO_EDGE
+
+INF = float("inf")
+
+
+def flat_search(corpus, lo, hi, queries, ql, qh, *, mask: int, k: int):
+    """Exact filtered k-NN: (Q, k) int32 ids + float32 squared distances
+    (+inf / NO_EDGE pad when fewer than k objects qualify)."""
+    d = ops.pairwise_l2_masked(queries, corpus, lo, hi, ql, qh, mask)
+    # torch.topk does not promise lax.top_k's lowest-index order among equal
+    # values. The +inf ties (non-qualifying rows) all become NO_EDGE, so
+    # only exact ties of finite distances could order ids differently.
+    vals, idx = torch.topk(d, k, dim=1, largest=False, sorted=True)
+    ids = torch.where(torch.isfinite(vals), idx, NO_EDGE).to(torch.int32)
+    return ids, vals
+
+
+def _prefix_len(member_ver, lvl, off, cnt, ver, iters: int):
+    """Length of the valid prefix of each (Q, P) member slice at ``ver``:
+    member versions ascend within a slice, so a binary search, vectorised
+    over (Q, P)."""
+    width = member_ver.shape[1]
+    lo_i = torch.zeros_like(cnt)
+    hi_i = cnt.clone()
+    for _ in range(iters):
+        mid = (lo_i + hi_i) // 2
+        v = member_ver[lvl, (off + mid).clamp(0, width - 1)]
+        go_right = (mid < cnt) & (v <= ver)
+        lo_i = torch.where(go_right, mid + 1, lo_i)
+        hi_i = torch.where(go_right, hi_i, mid)
+    return lo_i
+
+
+def _pruned_search_variant(arrays: dict, lo_attr, hi_attr, queries, ql, qh,
+                           version, key_lo, key_hi, *, pred_mask_bits: int,
+                           k: int, Kpad: int, block: int, max_blocks: int):
+    """One variant's pruned scan: decomposition -> member prefixes -> blocked
+    distance + running top-k. ``pred_mask_bits`` re-checks the exact
+    predicate on gathered candidates (guards rank-boundary ties and lets one
+    variant serve any sub-mask of its plan)."""
+    vectors = arrays["vectors"]
+    members, member_ver = arrays["members"], arrays["member_ver"]
+    node_off = arrays["node_off"]
+    Q = queries.shape[0]
+    dev = queries.device
+    levels, idxs, valid = st.decompose_batched(key_lo, key_hi, Kpad)
+    levels = levels.to(torch.int64)
+    idxs = idxs.to(torch.int64)
+    P = levels.shape[1]
+
+    off = node_off[levels, idxs].to(torch.int64)                # (Q, P)
+    cnt = node_off[levels, idxs + 1].to(torch.int64) - off
+    cnt = torch.where(valid, cnt, 0)
+    iters = int(np.ceil(np.log2(max(int(members.shape[1]), 2)))) + 1
+    plen = _prefix_len(member_ver, levels, off, cnt,
+                       version.to(torch.int64)[:, None], iters)
+    plen = torch.where(valid, plen, 0)                          # (Q, P)
+
+    # blocked scan over candidate prefixes
+    cum = plen.cumsum(dim=1)
+    starts = cum - plen                                         # candidate space
+    total = cum[:, -1]
+
+    top_d = torch.full((Q, k), INF, dtype=torch.float32, device=dev)
+    top_i = torch.full((Q, k), NO_EDGE, dtype=torch.int32, device=dev)
+    width = members.shape[1]
+    lvl_max = members.shape[0] - 1
+    for blk in range(max_blocks):
+        pos = blk * block + torch.arange(block, device=dev)     # (B,)
+        # map candidate position -> (node slot, offset within prefix)
+        slot = (pos[None, :, None] >= cum[:, None, :]).sum(dim=2)
+        slot = slot.clamp(0, P - 1)                             # (Q, B)
+        inner = pos[None, :] - starts.gather(1, slot)
+        ok = pos[None, :] < total[:, None]
+        lvl_b = levels.gather(1, slot)
+        off_b = off.gather(1, slot)
+        midx = (off_b + inner).clamp(0, width - 1)
+        cand = members[lvl_b.clamp(0, lvl_max), midx]           # (Q, B)
+        cand_safe = torch.where(ok, cand, 0).to(torch.int64)
+        # exact predicate re-check on raw endpoints
+        sel = iv.eval_predicate(pred_mask_bits, lo_attr[cand_safe],
+                                hi_attr[cand_safe], ql[:, None],
+                                qh[:, None]) & ok
+        diff = vectors[cand_safe] - queries[:, None, :]
+        dist = (diff * diff).sum(dim=-1)
+        dist = torch.where(sel, dist, INF)
+        cat_d = torch.cat([top_d, dist], dim=1)
+        cat_i = torch.cat([top_i, torch.where(sel, cand, NO_EDGE)], dim=1)
+        top_d, order = torch.sort(cat_d, dim=1, stable=True)
+        top_d = top_d[:, :k]
+        top_i = cat_i.gather(1, order[:, :k])
+    return top_i, top_d

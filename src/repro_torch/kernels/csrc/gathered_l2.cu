@@ -1,0 +1,57 @@
+// Squared L2 between each query and its S gathered candidate rows.
+//
+// Replaces: src/repro/kernels/gathered_l2.py, gathered_l2 (the pallas_call
+// at line 49, VPU form), used for the beam search's entry-point distances.
+//
+// Bound on an H100: device-memory bytes. The (Q, S, d) candidate tile is
+// read once and reduced to (Q, S); each element costs 3 flops, far below
+// the card's ~20 flops per byte balance point for fp32.
+//
+// Design: one warp per (q, s) pair. Lanes stride over d, so a warp reads
+// one candidate row as contiguous 128-byte segments, and the partial sums
+// are combined with a shuffle reduction. Accumulation is fp32, as a
+// diff-square-sum (the reference's form, not the |q|^2 - 2q.c + |c|^2
+// expansion), so results match the plain version to rounding order.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+__global__ void gathered_l2_kernel(const float* __restrict__ queries,
+                                   const float* __restrict__ cand,
+                                   float* __restrict__ out, int Q, int S,
+                                   int d) {
+  const long long pair =
+      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (pair >= static_cast<long long>(Q) * S) return;
+  const long long qi = pair / S;
+  const float* q = queries + qi * d;
+  const float* c = cand + pair * d;
+  float acc = 0.f;
+  for (int k = lane; k < d; k += 32) {
+    const float diff = c[k] - q[k];
+    acc = fmaf(diff, diff, acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) out[pair] = acc;
+}
+
+}  // namespace
+
+extern "C" int gathered_l2(const void* queries, const void* cand, void* out,
+                           int Q, int S, int d, void* stream) {
+  const long long pairs = static_cast<long long>(Q) * S;
+  if (pairs == 0) return 0;
+  const long long blocks = (pairs + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  gathered_l2_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(queries), static_cast<const float*>(cand),
+      static_cast<float*>(out), Q, S, d);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,155 @@
+// Fused RR-predicate + pairwise squared L2: the flat route's full scan.
+//
+// Replaces: src/repro/kernels/pairwise_l2.py, pairwise_l2_masked (the
+// pallas_call at line 64).
+//
+// Bound on an H100: operations. At Q = 256, N = 1M, d = 128 the product is
+// 2*Q*N*d = 67 GFLOP, ~1.0 ms at the 67 TFLOP/s of fp32 outside the tensor
+// cores, against ~0.46 ms for its 1.5 GB of traffic (the corpus once and
+// the (Q, N) output once). TF32 tensor cores would be faster but keep only
+// ~10 mantissa bits and change the numbers against the reference, so this
+// kernel stays on fp32 FMAs.
+//
+// Design: a tiled SIMT product. Each 256-thread block owns a 64 x 64 tile
+// of the output. Per step over d it stages a (64, 32) slice of the queries
+// and of the corpus in shared memory (transposed, padded by one column so
+// neither the stores nor the loads conflict on banks), and each thread
+// accumulates a 4 x 4 register tile of q.c. The squared norms |q|^2 and
+// |c|^2 are summed from the same staged slices by 128 of the threads. The
+// epilogue evaluates the RR predicate from lo/hi/ql/qh with the six mask
+// bits of intervals.eval_predicate (a NaN endpoint fails every comparison,
+// so padded rows never qualify) and writes +inf where it fails. Output
+// columns are spread over the threads of a half-warp so that stores are
+// contiguous.
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+constexpr int BQ = 64;
+constexpr int BN = 64;
+constexpr int DK = 32;
+constexpr int kThreads = 256;
+
+constexpr int LEFT_OVERLAP = 1;
+constexpr int QUERY_CONTAINED = 2;
+constexpr int RIGHT_OVERLAP = 4;
+constexpr int QUERY_CONTAINING = 8;
+constexpr int BEFORE = 16;
+constexpr int AFTER = 32;
+
+__device__ __forceinline__ bool rr_predicate(int mask, float lo, float hi,
+                                             float ql, float qh) {
+  bool out = false;
+  if (mask & LEFT_OVERLAP) out |= (lo <= ql) && (ql <= hi) && (hi <= qh);
+  if (mask & QUERY_CONTAINED) out |= (lo <= ql) && (qh <= hi);
+  if (mask & RIGHT_OVERLAP) out |= (ql <= lo) && (lo <= qh) && (qh <= hi);
+  if (mask & QUERY_CONTAINING) out |= (ql <= lo) && (hi <= qh);
+  if (mask & BEFORE) out |= qh < lo;
+  if (mask & AFTER) out |= hi < ql;
+  return out;
+}
+
+__global__ void __launch_bounds__(kThreads)
+pairwise_l2_kernel(const float* __restrict__ queries,
+                   const float* __restrict__ corpus,
+                   const float* __restrict__ lo, const float* __restrict__ hi,
+                   const float* __restrict__ ql, const float* __restrict__ qh,
+                   float* __restrict__ out, int Q, int N, int d, int mask) {
+  __shared__ float q_s[DK][BQ + 1];
+  __shared__ float c_s[DK][BN + 1];
+  __shared__ float qn_s[BQ];
+  __shared__ float cn_s[BN];
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;   // output columns tx + 16*j
+  const int ty = tid >> 4;   // output rows 4*ty + i
+  const int n0 = blockIdx.x * BN;
+  const int q0 = blockIdx.y * BQ;
+
+  if (tid < BQ) qn_s[tid] = 0.f;
+  else if (tid < BQ + BN) cn_s[tid - BQ] = 0.f;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < d; k0 += DK) {
+    // stage: consecutive threads read consecutive k of one row
+    for (int e = tid; e < BQ * DK; e += kThreads) {
+      const int r = e / DK, k = e % DK;
+      const int gq = q0 + r, gk = k0 + k;
+      q_s[k][r] = (gq < Q && gk < d)
+                      ? queries[static_cast<long long>(gq) * d + gk] : 0.f;
+    }
+    for (int e = tid; e < BN * DK; e += kThreads) {
+      const int r = e / DK, k = e % DK;
+      const int gn = n0 + r, gk = k0 + k;
+      c_s[k][r] = (gn < N && gk < d)
+                      ? corpus[static_cast<long long>(gn) * d + gk] : 0.f;
+    }
+    __syncthreads();
+    if (tid < BQ) {
+      float s = qn_s[tid];
+      for (int k = 0; k < DK; ++k) s = fmaf(q_s[k][tid], q_s[k][tid], s);
+      qn_s[tid] = s;
+    } else if (tid < BQ + BN) {
+      const int r = tid - BQ;
+      float s = cn_s[r];
+      for (int k = 0; k < DK; ++k) s = fmaf(c_s[k][r], c_s[k][r], s);
+      cn_s[r] = s;
+    }
+#pragma unroll 8
+    for (int k = 0; k < DK; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = q_s[k][4 * ty + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = c_s[k][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * ty + i;
+    const int gq = q0 + r;
+    if (gq >= Q) continue;
+    const float qli = ql[gq], qhi = qh[gq], qn = qn_s[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+      const int gn = n0 + c;
+      if (gn >= N) continue;
+      const float dist = qn - 2.0f * acc[i][j] + cn_s[c];
+      const bool sel = rr_predicate(mask, lo[gn], hi[gn], qli, qhi);
+      out[static_cast<long long>(gq) * N + gn] = sel ? dist : CUDART_INF_F;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int pairwise_l2_masked(const void* queries, const void* corpus,
+                                  const void* lo, const void* hi,
+                                  const void* ql, const void* qh, void* out,
+                                  int Q, int N, int d, int mask, void* stream) {
+  if (Q == 0 || N == 0) return 0;
+  const long long gx = (static_cast<long long>(N) + BN - 1) / BN;
+  const long long gy = (static_cast<long long>(Q) + BQ - 1) / BQ;
+  if (gx > 0x7fffffffLL || gy > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
+  pairwise_l2_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(queries), static_cast<const float*>(corpus),
+      static_cast<const float*>(lo), static_cast<const float*>(hi),
+      static_cast<const float*>(ql), static_cast<const float*>(qh),
+      static_cast<float*>(out), Q, N, d, mask);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,41 @@
+"""Unified observability: metrics registry, trace spans, logs.
+
+One subsystem, three pillars, shared by core / serving / streaming /
+distributed (and the benchmark drivers):
+
+* **metrics** (:mod:`repro_torch.obs.metrics`) — process-local
+  :class:`MetricsRegistry` of labeled :class:`Counter` / :class:`Gauge` /
+  :class:`Histogram` families with a typed, round-trippable ``snapshot()``
+  schema and Prometheus text exposition
+  (:func:`start_metrics_server`, ``repro.launch.serve --metrics-port``).
+  :class:`StreamingHistogram` (formerly ``repro.serving.scheduler``) is the
+  shared percentile structure.
+* **traces** (:mod:`repro_torch.obs.trace`) — per-request span trees. Library
+  code calls :func:`span` unconditionally; with no tracer installed it
+  returns a no-op singleton (one thread-local read, zero allocation), so
+  instrumentation-off is the fast path. ``SearchRequest(trace=True)``
+  (or ``EngineConfig(trace_sample=...)``) rides a finished :class:`Trace`
+  back on ``SearchResult.trace`` — export Chrome-trace JSON with
+  ``.save()`` or print ``result.explain()``; ``with obs.capture() as tr:``
+  scopes a trace around arbitrary code (serving steps, flush/compact).
+* **logs** (:mod:`repro_torch.obs.log`) — rate-limited structured progress
+  logging (:func:`get_logger`). The reference's ``profile`` module (a
+  ``jax.profiler`` wrapper and TPU peak constants) is not part of the port.
+"""
+from .metrics import (Counter, Gauge, Histogram, MetricsRegistry, REGISTRY,
+                      StreamingHistogram, get_registry, start_metrics_server)
+from .trace import (NULL_SPAN, Span, Trace, Tracer, active_tracer,
+                    begin_request_trace, capture, end_request_trace, span,
+                    tracing)
+from .log import StructuredLogger, get_logger
+
+__all__ = [
+    # metrics
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
+    "StreamingHistogram", "get_registry", "start_metrics_server",
+    # traces
+    "NULL_SPAN", "Span", "Trace", "Tracer", "active_tracer",
+    "begin_request_trace", "capture", "end_request_trace", "span", "tracing",
+    # logs
+    "StructuredLogger", "get_logger",
+]
