@@ -25,13 +25,17 @@ One object owns everything a request needs:
   slots whose tasks are all empty, and chunks wide batches through
   :func:`repro_torch.core.search.mstg_graph_search_chunked`;
 * **padding** — query batches are padded to power-of-two sizes; padded
-  queries carry empty tasks and cost no search steps.
+  queries carry empty tasks and cost no search steps;
+* **storage tier** — with ``storage_dtype="int8"`` or ``"float16"`` every
+  route scans or walks the code table (staged once, shared by the routes),
+  carries the top ``rerank_k`` approximate candidates through the slot
+  merge and re-ranks them exactly against the float32 rows, which stay on
+  the host: the float32 corpus is never staged on the device.
 
 Precedence of knobs, as in the reference: request wins over config wins
 over the device default. Every entry point runs on an explicit device:
 ``device=None`` means ``"cuda"`` and raises when no card is present; it
-never falls back to the CPU. Quantized storage tiers are not ported yet
-(see ROADMAP.md) and raise ``NotImplementedError``.
+never falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -44,12 +48,15 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..kernels import ops
 from . import intervals as iv
 from .api import RouteReport, SearchRequest, SearchResult
+from .compressed import exact_rerank, topr_from_dists
 from .flat import _pruned_search_variant, flat_search
 from .hnsw import NO_EDGE
 from .mstg import MSTGIndex
 from .predicates import as_mask
+from .quant import QuantizedStore, check_storage_dtype
 from .search import (as_tensor, device_variant, merge_topk, mstg_graph_search,
                      mstg_graph_search_chunked)
 
@@ -64,9 +71,6 @@ _ROUTES = (ROUTE_AUTO, ROUTE_GRAPH, ROUTE_PRUNED, ROUTE_FLAT)
 # its graph shapes (n = 50k, d = 128, Q = 256, ef = 64) on an H100 (PERF.md,
 # "Fanout sweep").
 CUDA_DEFAULT_FANOUT = 4
-
-_NOT_PORTED = ("is not ported to repro_torch yet; see ROADMAP.md, "
-               "section 1 (quantized tier)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -96,10 +100,17 @@ class EngineConfig:
 
     Fields mean what they mean in the reference's ``EngineConfig``. The
     reference's ``use_kernel`` switch is gone: the port always runs its
-    kernels (the plain versions on the CPU). ``storage_dtype`` other than
-    ``None``/``"float32"`` raises ``NotImplementedError``. ``graph_fanout``
-    ``None`` means :data:`CUDA_DEFAULT_FANOUT` on a CUDA device and 1 on the
-    CPU, as the reference uses 1 off the TPU.
+    kernels (the plain versions on the CPU). ``graph_fanout`` ``None`` means
+    :data:`CUDA_DEFAULT_FANOUT` on a CUDA device and 1 on the CPU, as the
+    reference uses 1 off the TPU.
+
+    ``storage_dtype`` is the tier the engine scans: ``"float32"`` (exact),
+    ``"float16"`` or ``"int8"``; ``None`` inherits the index's own tier, and
+    an explicit value overrides it, quantizing on the fly when the index
+    holds no store of that type. ``rerank_k`` is how many approximate
+    candidates per query reach the exact float32 re-rank on a compressed
+    tier: ``None`` means ``max(4k, 32)``, always clamped to [k, n] and, on
+    the graph route, to ``ef``.
     """
 
     route: str = ROUTE_AUTO
@@ -113,6 +124,7 @@ class EngineConfig:
     packed_visited: bool = True
     trace_sample: float = 0.0
     storage_dtype: Optional[str] = None
+    rerank_k: Optional[int] = None
 
     def __post_init__(self):
         if self.route not in _ROUTES:
@@ -134,9 +146,11 @@ class EngineConfig:
         if not (0.0 <= self.trace_sample <= 1.0):
             raise ValueError("trace_sample must be in [0, 1], got "
                              f"{self.trace_sample!r}")
-        if self.storage_dtype not in (None, "float32"):
-            raise NotImplementedError(
-                f"storage_dtype={self.storage_dtype!r} {_NOT_PORTED}")
+        if self.storage_dtype is not None:
+            check_storage_dtype(self.storage_dtype)
+        if self.rerank_k is not None and self.rerank_k < 1:
+            raise ValueError("rerank_k must be >= 1 (or None: max(4k, 32)), "
+                             f"got {self.rerank_k!r}")
 
     def replace(self, **overrides) -> "EngineConfig":
         """A copy with ``overrides`` applied (re-validated)."""
@@ -149,7 +163,7 @@ class QueryEngine:
     Parameters
     ----------
     index : MSTGIndex
-        Built or loaded index (float32 storage).
+        Built or loaded index, at any storage tier.
     config : EngineConfig, optional
         Engine-lifetime tuning; defaults to ``EngineConfig()``.
     device : str | torch.device, optional
@@ -163,10 +177,6 @@ class QueryEngine:
         if not isinstance(config, EngineConfig):
             raise TypeError("config must be an EngineConfig, got "
                             f"{type(config).__name__}")
-        sd = getattr(index.spec, "storage_dtype", "float32")
-        if sd != "float32":
-            raise NotImplementedError(f"an index with storage_dtype={sd!r} "
-                                      f"{_NOT_PORTED}")
         self.device = resolve_device(device)
         self.config = config
         self.index = index
@@ -181,6 +191,21 @@ class QueryEngine:
         self.graph_chunk = config.graph_chunk
         self.packed_visited = bool(config.packed_visited)
 
+        # storage tier: an explicit config value wins over the index's own
+        sd = check_storage_dtype(config.storage_dtype
+                                 or getattr(index.spec, "storage_dtype",
+                                            "float32"))
+        self.storage_dtype = sd
+        store = getattr(index, "storage", None)
+        if sd == "float32":
+            store = None
+        elif store is None or store.dtype != sd:
+            store = QuantizedStore.from_vectors(index.vectors, sd)
+        self._store: Optional[QuantizedStore] = store
+        self._store_dev: Optional[dict] = None
+        # router work model: scanning 1-byte codes streams 1/4 the bytes of
+        # a float32 scan, so scan work is weighed by the tier's itemsize
+        self._scan_cost_ratio = (store.itemsize / 4.0) if store else 1.0
         self._corpus_dev = None
         # the predicate runs on float32 endpoints, as in the reference
         self.lo = as_tensor(index.lo, self.device, torch.float32)
@@ -234,16 +259,34 @@ class QueryEngine:
     # ---- device staging (lazy, cached per variant) ----
     @property
     def corpus(self) -> torch.Tensor:
-        """The float32 corpus on the engine's device, staged on first use."""
+        """The float32 corpus on the engine's device, staged on first use.
+        A compressed tier never touches it: its exact rows stay on the host
+        for the re-rank gather."""
         if self._corpus_dev is None:
             self._corpus_dev = as_tensor(self.index.vectors, self.device,
                                          torch.float32).contiguous()
         return self._corpus_dev
 
+    def store_dev(self) -> dict:
+        """The quantized store on the engine's device, staged on first use:
+        the row-major (n, d) ``codes`` every route reads, the (d,)
+        ``scale`` and ``offset``, and the (n,) ``sq_norm``."""
+        if self._store_dev is None:
+            st = self._store
+            self._store_dev = {
+                "codes": as_tensor(st.codes, self.device),
+                "scale": as_tensor(st.scale, self.device, torch.float32),
+                "offset": as_tensor(st.offset, self.device, torch.float32),
+                "sq_norm": as_tensor(st.sq_norm, self.device, torch.float32)}
+        return self._store_dev
+
     def graph_dev(self, variant: str) -> dict:
         if variant not in self._graph_dev:
-            self._graph_dev[variant] = device_variant(
-                self.index.variants[variant], self.corpus, self.device)
+            fv = self.index.variants[variant]
+            self._graph_dev[variant] = (
+                device_variant(fv, None, self.device, store=self.store_dev())
+                if self._store is not None
+                else device_variant(fv, self.corpus, self.device))
         return self._graph_dev[variant]
 
     def pruned_dev(self, variant: str) -> dict:
@@ -251,7 +294,13 @@ class QueryEngine:
             fv = self.index.variants[variant]
             dev = {f: as_tensor(getattr(fv, f), self.device)
                    for f in ("members", "member_ver", "node_off")}
-            dev["vectors"] = self.corpus
+            if self._store is not None:
+                sd = self.store_dev()
+                dev.update(codes=sd["codes"], code_scale=sd["scale"],
+                           code_offset=sd["offset"],
+                           code_sq_norm=sd["sq_norm"])
+            else:
+                dev["vectors"] = self.corpus
             self._pruned_dev[variant] = dev
         return self._pruned_dev[variant]
 
@@ -321,12 +370,14 @@ class QueryEngine:
         """The work-model router: the pruned scan evaluates ~``est * n``
         candidate distances per query, the beam search ~``ef * S``; route to
         the exact scan while its work is below ``route_work_ratio`` times
-        the beam's. An explicit ``flat_threshold`` is the fixed-fraction
-        rule instead."""
+        the beam's. Scan work is weighed by the storage tier's bytes per
+        component (``_scan_cost_ratio``: 1/4 for int8 codes). An explicit
+        ``flat_threshold`` is the fixed-fraction rule instead."""
         if self.flat_threshold is not None:
             return (ROUTE_PRUNED if float(est.mean()) <= self.flat_threshold
                     else ROUTE_GRAPH)
-        scan_work = float(est.mean()) * self.index.vectors.shape[0]
+        scan_work = (float(est.mean()) * self.index.vectors.shape[0]
+                     * self._scan_cost_ratio)
         beam_work = float(ef) * self._max_slots
         return (ROUTE_PRUNED if scan_work <= self.route_work_ratio * beam_work
                 else ROUTE_GRAPH)
@@ -470,6 +521,28 @@ class QueryEngine:
     def _queries(self, queries: np.ndarray) -> torch.Tensor:
         return as_tensor(queries, self.device, torch.float32).contiguous()
 
+    def _rerank_width(self, k: int, upper: Optional[int] = None) -> int:
+        """Approximate candidates per query that reach the exact re-rank:
+        ``rerank_k`` (default ``max(4k, 32)``) clamped to [k, n] and to
+        ``upper`` (the graph pool width ``ef``) when given."""
+        n = self.index.vectors.shape[0]
+        R = self.config.rerank_k or max(4 * k, 32)
+        if upper is not None:
+            R = min(R, upper)
+        return max(k, min(R, n))
+
+    def _rerank_exact(self, qdev, cand_ids, k: int):
+        """Exact float32 re-rank of approximate top-R candidate ids: the
+        (Q, R, d) rows are gathered on the host (a compressed tier never
+        stages the float32 corpus) and re-ranked on the device."""
+        cand = _host(cand_ids)
+        rows = self.index.vectors[np.clip(cand, 0, None)]
+        with obs.span("rerank") as rsp:
+            if obs.tracing():
+                rsp.set("R", int(cand.shape[1]))
+            return exact_rerank(qdev, as_tensor(rows, self.device),
+                                as_tensor(cand, self.device), k=k)
+
     def _run_graph(self, queries, qlo, qhi, mask, k, ef, max_steps, fanout,
                    slots: List[iv.PlanSlot], chunk=None):
         F = self._resolve_fanout(fanout)
@@ -480,6 +553,9 @@ class QueryEngine:
         slots = self._padded_slots(slots, queries_p.shape[0])
         steps = max_steps or ((4 * ef + 64) // F + 8)
         qdev = self._queries(queries_p)
+        # compressed tier: the beam ranks approximate (dequantized) distances,
+        # so carry the top R of the pool through the merge and re-rank once
+        kq = k if self._store is None else self._rerank_width(k, upper=ef)
         res = None
         for s in slots:
             # skip slots where every query's task is empty (they would give
@@ -488,7 +564,7 @@ class QueryEngine:
                 continue
             arrays = self.graph_dev(s.variant)
             Kpad = self.index.variants[s.variant].Kpad
-            common = dict(k=k, ef=ef, max_steps=steps, Kpad=Kpad, fanout=F,
+            common = dict(k=kq, ef=ef, max_steps=steps, Kpad=Kpad, fanout=F,
                           packed=self.packed_visited)
             with obs.span("slot") as ssp:
                 ssp.set("variant", s.variant).set("ef", ef).set("fanout", F)
@@ -503,9 +579,11 @@ class QueryEngine:
                     ids, d = mstg_graph_search(arrays, qdev, s.version,
                                                s.key_lo, s.key_hi, **common)
             res = (ids, d) if res is None else merge_topk(res[0], res[1], ids,
-                                                          d, k)
+                                                          d, kq)
         if res is None:
             return _empty_result(queries_p.shape[0], k)
+        if self._store is not None:
+            return self._rerank_exact(qdev, res[0], k)
         return res
 
     def _run_pruned(self, queries, qlo, qhi, mask, k,
@@ -516,6 +594,9 @@ class QueryEngine:
         qdev = self._queries(queries_p)
         qlo_t = as_tensor(qlo_p, self.device, torch.float32)
         qhi_t = as_tensor(qhi_p, self.device, torch.float32)
+        # compressed tier: scan distances are approximate, so keep the top R
+        # per slot and through the merge, then re-rank exactly once
+        kq = k if self._store is None else self._rerank_width(k)
         res = None
         for s in slots:
             fv = self.index.variants[s.variant]
@@ -535,21 +616,37 @@ class QueryEngine:
                     qlo_t, qhi_t, as_tensor(s.version, self.device),
                     as_tensor(s.key_lo, self.device),
                     as_tensor(s.key_hi, self.device),
-                    pred_mask_bits=mask, k=k, Kpad=fv.Kpad, block=block,
+                    pred_mask_bits=mask, k=kq, Kpad=fv.Kpad, block=block,
                     max_blocks=-(-cap // block))
             res = (ids, d) if res is None else merge_topk(res[0], res[1], ids,
-                                                          d, k)
+                                                          d, kq)
         if res is None:
             return _empty_result(queries_p.shape[0], k)
+        if self._store is not None:
+            return self._rerank_exact(qdev, res[0], k)
         return res
 
     def _run_flat(self, queries, qlo, qhi, mask, k):
         queries_p, qlo_p, qhi_p = self._padded(queries, qlo, qhi)
-        return flat_search(self.corpus, self.lo, self.hi,
-                           self._queries(queries_p),
-                           as_tensor(qlo_p, self.device, torch.float32),
-                           as_tensor(qhi_p, self.device, torch.float32),
-                           mask=mask, k=k)
+        qdev = self._queries(queries_p)
+        qlo_t = as_tensor(qlo_p, self.device, torch.float32)
+        qhi_t = as_tensor(qhi_p, self.device, torch.float32)
+        if self._store is None:
+            return flat_search(self.corpus, self.lo, self.hi, qdev, qlo_t,
+                               qhi_t, mask=mask, k=k)
+        sd = self.store_dev()
+        if self._store.dtype == "int8":
+            approx = ops.pairwise_l2_int8(qdev, sd["codes"], sd["scale"],
+                                          sd["offset"], sd["sq_norm"],
+                                          self.lo, self.hi, qlo_t, qhi_t,
+                                          mask)
+        else:
+            # float16 codes are affine-trivial (scale 1, offset 0): the
+            # scan's widening of each code is exactly the dequantization
+            approx = ops.pairwise_l2_masked(qdev, sd["codes"], self.lo,
+                                            self.hi, qlo_t, qhi_t, mask)
+        cand_ids, _ = topr_from_dists(approx, rerank=self._rerank_width(k))
+        return self._rerank_exact(qdev, cand_ids, k)
 
 
 def _host(a) -> np.ndarray:

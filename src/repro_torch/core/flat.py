@@ -57,8 +57,19 @@ def _pruned_search_variant(arrays: dict, lo_attr, hi_attr, queries, ql, qh,
     """One variant's pruned scan: decomposition -> member prefixes -> blocked
     distance + running top-k. ``pred_mask_bits`` re-checks the exact
     predicate on gathered candidates (guards rank-boundary ties and lets one
-    variant serve any sub-mask of its plan)."""
-    vectors = arrays["vectors"]
+    variant serve any sub-mask of its plan).
+
+    ``arrays`` holds a float32 ``vectors`` table, or on a quantized tier
+    ``codes`` with ``code_scale``, ``code_offset`` and ``code_sq_norm``:
+    then the distances are approximate, ``cq - 2 wq.code + sq_norm`` with
+    the scale folded into ``wq = q * scale`` and the offset into
+    ``cq = |q|^2 - 2 q.offset``, and the engine re-ranks the merged top-k
+    exactly."""
+    quantized = "codes" in arrays
+    if quantized:
+        wq = queries * arrays["code_scale"][None, :]              # (Q, d)
+        cq = ((queries * queries).sum(dim=1)
+              - 2.0 * (queries @ arrays["code_offset"]))          # (Q,)
     members, member_ver = arrays["members"], arrays["member_ver"]
     node_off = arrays["node_off"]
     Q = queries.shape[0]
@@ -101,8 +112,14 @@ def _pruned_search_variant(arrays: dict, lo_attr, hi_attr, queries, ql, qh,
         sel = iv.eval_predicate(pred_mask_bits, lo_attr[cand_safe],
                                 hi_attr[cand_safe], ql[:, None],
                                 qh[:, None]) & ok
-        diff = vectors[cand_safe] - queries[:, None, :]
-        dist = (diff * diff).sum(dim=-1)
+        if quantized:
+            cb = arrays["codes"][cand_safe].to(torch.float32)   # (Q, B, d)
+            dist = (cq[:, None]
+                    - 2.0 * torch.einsum("qd,qbd->qb", wq, cb)
+                    + arrays["code_sq_norm"][cand_safe])
+        else:
+            diff = arrays["vectors"][cand_safe] - queries[:, None, :]
+            dist = (diff * diff).sum(dim=-1)
         dist = torch.where(sel, dist, INF)
         cat_d = torch.cat([top_d, dist], dim=1)
         cat_i = torch.cat([top_i, torch.where(sel, cand, NO_EDGE)], dim=1)

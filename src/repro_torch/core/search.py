@@ -10,8 +10,10 @@ unexpanded pool vertices per query with
     2. label masking ``b <= version <= e`` (edges only connect qualifying
        members: the paper's "never traverse a non-qualifying vertex"),
     3. a packed visited bitmap and a first-occurrence dedupe, and
-    4. the fused step kernel (:func:`repro_torch.kernels.ops.gathered_topk`):
-       gather + squared L2 + label mask + sorted beam merge.
+    4. the fused step kernel (:func:`repro_torch.kernels.ops.gathered_topk`,
+       or :func:`~repro_torch.kernels.ops.gathered_topk_quant` over an int8
+       or float16 code table): gather + squared L2 + label mask + sorted
+       beam merge.
 
 Termination matches Algorithm 4: a query is done when its L best are all
 expanded. A converged row's step is the identity, so the drivers check for
@@ -25,7 +27,7 @@ Ties follow the reference: every pick that ``lax.top_k`` or the stable
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -53,13 +55,41 @@ def as_tensor(a, device, dtype=None) -> torch.Tensor:
     return t.to(device)
 
 
-def device_variant(fv: FrozenVariant, vectors, device) -> Dict[str, torch.Tensor]:
+def device_variant(fv: FrozenVariant, vectors, device,
+                   store: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Dict[str, torch.Tensor]:
     """A :class:`FrozenVariant`'s arrays staged on ``device`` as a dict of
     tensors (the reference's ``DeviceVariant.tree()``). ``vectors`` is the
-    staged float32 corpus, shared by every variant."""
+    staged float32 corpus, shared by every variant. With ``store`` (the
+    engine's staged quantized store: ``codes``, ``scale``, ``offset`` on
+    ``device``) the table is the int8 or float16 code matrix instead, with
+    its (d,) dequant params as ``vec_scale`` / ``vec_offset``; the float32
+    corpus is not needed (``vectors`` may be None)."""
     arrays = {f: as_tensor(getattr(fv, f), device) for f in _FV_TENSORS}
-    arrays["vectors"] = vectors
+    if store is not None:
+        arrays["vectors"] = store["codes"]
+        arrays["vec_scale"] = store["scale"]
+        arrays["vec_offset"] = store["offset"]
+    else:
+        arrays["vectors"] = vectors
     return arrays
+
+
+def _quant(arrays: dict):
+    """(scale, offset) when ``arrays`` holds a code table, else None."""
+    if "vec_scale" in arrays:
+        return arrays["vec_scale"], arrays["vec_offset"]
+    return None
+
+
+def _gather_dequant(vectors, idx, quant):
+    """Gather rows by index and, on a code table, dequantize the gathered
+    rows only, in the reference's order: widen, multiply, then add."""
+    rows = vectors[idx]
+    if quant is None:
+        return rows
+    scale, offset = quant
+    return rows.to(torch.float32) * scale + offset
 
 
 # ---- bit-packed visited sets ------------------------------------------------
@@ -126,8 +156,9 @@ def _plan_nodes(key_lo, key_hi, Kpad: int):
 
 
 def _init_state(vectors, entry_ids, entry_ver, queries, version,
-                levels, idxs, valid, *, L: int, packed: bool):
-    """Initial pool from per-node entry points + visited marking."""
+                levels, idxs, valid, *, L: int, packed: bool, quant=None):
+    """Initial pool from per-node entry points + visited marking.
+    ``quant`` is the code table's (scale, offset), or None."""
     Q = queries.shape[0]
     n = vectors.shape[0]
     dev = queries.device
@@ -138,7 +169,8 @@ def _init_state(vectors, entry_ids, entry_ver, queries, version,
               & (ever <= version[:, None, None]))
     ent = torch.where(ent_ok, ent, 0).reshape(Q, -1)
     ent_ok = ent_ok.reshape(Q, -1)
-    ed = ops.gathered_l2(queries, vectors[ent.to(torch.int64)])
+    ed = ops.gathered_l2(queries,
+                         _gather_dequant(vectors, ent.to(torch.int64), quant))
     ed = torch.where(ent_ok, ed, INF)
     ent = torch.where(ent_ok, ent, NO_EDGE)
 
@@ -204,8 +236,15 @@ def _step(arrays, queries, version, nodes, state, *, F: int, packed: bool):
         ok = ok & _first_occurrence(torch.where(ok, tg, n + cols))
     new = ok & ~seen
     visited = _visited_set(visited, tg_safe, new, packed)
-    pool_ids, pool_d, expanded = ops.gathered_topk(
-        queries, vectors, tg, new, b, e, version, pool_ids, pool_d, expanded)
+    quant = _quant(arrays)
+    if quant is not None:
+        pool_ids, pool_d, expanded = ops.gathered_topk_quant(
+            queries, vectors, quant[0], quant[1], tg, new, b, e, version,
+            pool_ids, pool_d, expanded)
+    else:
+        pool_ids, pool_d, expanded = ops.gathered_topk(
+            queries, vectors, tg, new, b, e, version, pool_ids, pool_d,
+            expanded)
     return pool_ids, pool_d, expanded, visited, alive_steps
 
 
@@ -222,7 +261,7 @@ def _graph_init(arrays, queries, version, nodes, *, ef: int, packed: bool):
     levels, idxs, valid = nodes[:3]
     return _init_state(arrays["vectors"], arrays["entry_ids"],
                        arrays["entry_ver"], queries, version, levels, idxs,
-                       valid, L=ef, packed=packed)
+                       valid, L=ef, packed=packed, quant=_quant(arrays))
 
 
 # ---- single-loop driver (runs to global convergence) -------------------------

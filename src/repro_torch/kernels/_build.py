@@ -31,8 +31,12 @@ _I = ctypes.c_int
 # C signature of each entry point: pointers, then ints, then the stream.
 SIGNATURES = {
     "gathered_topk": [_P] * 13 + [_I] * 5 + [_P],
+    "gathered_topk_quant_int8": [_P] * 15 + [_I] * 5 + [_P],
+    "gathered_topk_quant_f16": [_P] * 15 + [_I] * 5 + [_P],
     "gathered_l2": [_P] * 3 + [_I] * 3 + [_P],
     "pairwise_l2_masked": [_P] * 7 + [_I] * 4 + [_P],
+    "pairwise_l2_masked_f16": [_P] * 7 + [_I] * 4 + [_P],
+    "pairwise_l2_int8": [_P] * 10 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -66,8 +70,9 @@ def _sources():
 
 
 def source_hash() -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _sources():
+    for p in sorted(_sources() + list(CSRC.glob("*.cuh"))):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

@@ -1,7 +1,9 @@
 // Fused RR-predicate + pairwise squared L2: the flat route's full scan.
 //
 // Replaces: src/repro/kernels/pairwise_l2.py, pairwise_l2_masked (the
-// pallas_call at line 64).
+// pallas_call at line 64), over a float32 corpus or, for the float16
+// storage tier's flat scan, over the float16 codes (the Pallas body takes
+// any corpus type and upcasts it; so does this one, at load time).
 //
 // Bound on an H100: operations. At Q = 256, N = 1M, d = 128 the product is
 // 2*Q*N*d = 67 GFLOP, ~1.0 ms at the 67 TFLOP/s of fp32 outside the tensor
@@ -21,8 +23,17 @@
 // so padded rows never qualify) and writes +inf where it fails. Output
 // columns are spread over the threads of a half-warp so that stores are
 // contiguous.
+//
+// float16 corpus (pairwise_l2_masked_f16): the same kernel, instantiated for
+// __half rows. Each element is widened with __half2float as it is staged;
+// the query, the products and the norms stay float32, so the arithmetic is
+// the float32 kernel's. Only the corpus bytes halve (N*d*2), which leaves
+// the kernel bound by operations at the main path's shape.
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "rr_predicate.cuh"
 
 namespace {
 
@@ -31,28 +42,13 @@ constexpr int BN = 64;
 constexpr int DK = 32;
 constexpr int kThreads = 256;
 
-constexpr int LEFT_OVERLAP = 1;
-constexpr int QUERY_CONTAINED = 2;
-constexpr int RIGHT_OVERLAP = 4;
-constexpr int QUERY_CONTAINING = 8;
-constexpr int BEFORE = 16;
-constexpr int AFTER = 32;
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
 
-__device__ __forceinline__ bool rr_predicate(int mask, float lo, float hi,
-                                             float ql, float qh) {
-  bool out = false;
-  if (mask & LEFT_OVERLAP) out |= (lo <= ql) && (ql <= hi) && (hi <= qh);
-  if (mask & QUERY_CONTAINED) out |= (lo <= ql) && (qh <= hi);
-  if (mask & RIGHT_OVERLAP) out |= (ql <= lo) && (lo <= qh) && (qh <= hi);
-  if (mask & QUERY_CONTAINING) out |= (ql <= lo) && (hi <= qh);
-  if (mask & BEFORE) out |= qh < lo;
-  if (mask & AFTER) out |= hi < ql;
-  return out;
-}
-
+template <typename Row>
 __global__ void __launch_bounds__(kThreads)
 pairwise_l2_kernel(const float* __restrict__ queries,
-                   const float* __restrict__ corpus,
+                   const Row* __restrict__ corpus,
                    const float* __restrict__ lo, const float* __restrict__ hi,
                    const float* __restrict__ ql, const float* __restrict__ qh,
                    float* __restrict__ out, int Q, int N, int d, int mask) {
@@ -88,7 +84,8 @@ pairwise_l2_kernel(const float* __restrict__ queries,
       const int r = e / DK, k = e % DK;
       const int gn = n0 + r, gk = k0 + k;
       c_s[k][r] = (gn < N && gk < d)
-                      ? corpus[static_cast<long long>(gn) * d + gk] : 0.f;
+                      ? widen(corpus[static_cast<long long>(gn) * d + gk])
+                      : 0.f;
     }
     __syncthreads();
     if (tid < BQ) {
@@ -128,10 +125,29 @@ pairwise_l2_kernel(const float* __restrict__ queries,
       const int gn = n0 + c;
       if (gn >= N) continue;
       const float dist = qn - 2.0f * acc[i][j] + cn_s[c];
-      const bool sel = rr_predicate(mask, lo[gn], hi[gn], qli, qhi);
+      const bool sel = rr::predicate(mask, lo[gn], hi[gn], qli, qhi);
       out[static_cast<long long>(gq) * N + gn] = sel ? dist : CUDART_INF_F;
     }
   }
+}
+
+template <typename Row>
+int launch(const void* queries, const void* corpus, const void* lo,
+           const void* hi, const void* ql, const void* qh, void* out, int Q,
+           int N, int d, int mask, void* stream) {
+  if (Q == 0 || N == 0) return 0;
+  const long long gx = (static_cast<long long>(N) + BN - 1) / BN;
+  const long long gy = (static_cast<long long>(Q) + BQ - 1) / BQ;
+  if (gx > 0x7fffffffLL || gy > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
+  pairwise_l2_kernel<Row>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(queries), static_cast<const Row*>(corpus),
+          static_cast<const float*>(lo), static_cast<const float*>(hi),
+          static_cast<const float*>(ql), static_cast<const float*>(qh),
+          static_cast<float*>(out), Q, N, d, mask);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -140,16 +156,15 @@ extern "C" int pairwise_l2_masked(const void* queries, const void* corpus,
                                   const void* lo, const void* hi,
                                   const void* ql, const void* qh, void* out,
                                   int Q, int N, int d, int mask, void* stream) {
-  if (Q == 0 || N == 0) return 0;
-  const long long gx = (static_cast<long long>(N) + BN - 1) / BN;
-  const long long gy = (static_cast<long long>(Q) + BQ - 1) / BQ;
-  if (gx > 0x7fffffffLL || gy > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
-  pairwise_l2_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(queries), static_cast<const float*>(corpus),
-      static_cast<const float*>(lo), static_cast<const float*>(hi),
-      static_cast<const float*>(ql), static_cast<const float*>(qh),
-      static_cast<float*>(out), Q, N, d, mask);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(queries, corpus, lo, hi, ql, qh, out, Q, N, d, mask,
+                       stream);
+}
+
+extern "C" int pairwise_l2_masked_f16(const void* queries, const void* corpus,
+                                      const void* lo, const void* hi,
+                                      const void* ql, const void* qh,
+                                      void* out, int Q, int N, int d,
+                                      int mask, void* stream) {
+  return launch<__half>(queries, corpus, lo, hi, ql, qh, out, Q, N, d, mask,
+                        stream);
 }

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three hand-written CUDA kernels.
+"""Plain PyTorch versions of the hand-written CUDA kernels.
 
 Each function computes exactly what its kernel in ``csrc/`` computes, on any
 device. :mod:`repro_torch.kernels.ops` calls these only for tensors that lie
@@ -7,6 +7,10 @@ on the CPU; the tests hold them against the JAX reference package, and
 
 Tie-breaking follows the reference: where it picks with ``lax.top_k`` (ties
 to the lowest position) these use a stable ascending sort.
+
+:func:`quantize_query_weights_ref` is no kernel's plain version: it is the
+int8 scan's query-side prologue, which runs in plain torch on every device
+(the reference, too, calls it outside its ``pallas_call``).
 """
 from __future__ import annotations
 
@@ -64,3 +68,52 @@ def gathered_topk_ref(queries, vectors, ids, avail, b, e, version,
     out_i = torch.where(fin, cat_i.gather(1, order), NO_EDGE)
     out_e = cat_e.gather(1, order) & fin
     return out_i, out_d, out_e
+
+
+def quantize_query_weights_ref(queries, scale, offset):
+    """Query-side prologue of the int8 scan: fold the per-dimension dequant
+    scale into the query (``w = q * scale``), symmetric-quantize ``w`` to
+    int8 with a per-query step ``alpha`` (round half to even, as
+    ``jnp.round``), and precompute ``cq = |q|^2 - 2 q.offset``. Returns
+    (wq int8 (Q, d), alpha (Q,), cq (Q,))."""
+    q = queries.to(torch.float32)
+    w = q * scale.to(torch.float32)[None, :]
+    amax = w.abs().amax(dim=1)
+    alpha = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    wq = torch.round(w / alpha[:, None]).clamp(-127, 127).to(torch.int8)
+    cq = (q * q).sum(dim=1) - 2.0 * (q @ offset.to(torch.float32))
+    return wq, alpha, cq
+
+
+def pairwise_l2_int8_ref(queries, codes, scale, offset, sq_norm, lo, hi, ql,
+                         qh, mask: int):
+    """(Q, d) float32 queries x (N, d) int8 codes -> (Q, N) approximate
+    masked squared L2 against the dequantized corpus,
+
+        dist ~= (|q|^2 - 2 q.offset) - 2 alpha (wq . code) + sq_norm,
+
+    which is ``|q - x_hat|^2`` up to the query-side rounding of
+    ``w / alpha`` (the engine's exact float32 re-rank absorbs it). The
+    integer dot products are taken in float64, which holds every int8 x
+    int8 sum exactly (|acc| <= 127^2 d < 2^53; CUDA has no integer matmul),
+    then rounded to float32 as an int32 -> float32 cast would be."""
+    wq, alpha, cq = quantize_query_weights_ref(queries, scale, offset)
+    acc = (wq.to(torch.float64) @ codes.to(torch.float64).T).to(torch.float32)
+    d = (cq[:, None] - 2.0 * alpha[:, None] * acc
+         + sq_norm.to(torch.float32)[None, :])
+    sel = iv.eval_predicate(mask, lo.to(torch.float32)[None, :],
+                            hi.to(torch.float32)[None, :],
+                            ql.to(torch.float32)[:, None],
+                            qh.to(torch.float32)[:, None])
+    return torch.where(sel, d, torch.inf)
+
+
+def gathered_topk_quant_ref(queries, codes, scale, offset, ids, avail, b, e,
+                            version, pool_ids, pool_d, pool_exp):
+    """:func:`gathered_topk_ref` against the dequantized table
+    ``codes * scale + offset`` (int8 or float16 codes, (d,) float32 scale
+    and offset): a multiply, then an add, each rounded to float32."""
+    deq = (codes.to(torch.float32) * scale.to(torch.float32)[None, :]
+           + offset.to(torch.float32)[None, :])
+    return gathered_topk_ref(queries, deq, ids, avail, b, e, version,
+                             pool_ids, pool_d, pool_exp)

@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (ANY_OVERLAP, QUERY_CONTAINED, MSTGIndex,
-                              QueryEngine, SearchRequest)
+from repro_torch.core import (ANY_OVERLAP, QUERY_CONTAINED, EngineConfig,
+                              MSTGIndex, QueryEngine, SearchRequest)
+from repro_torch.core.quant import QuantizedStore
 from repro_torch.data import make_queries, make_range_dataset
 from repro_torch.kernels import ops, ref
 
@@ -58,6 +59,65 @@ def test_pairwise_kernel_matches_plain(dev, mask):
     got = ops.pairwise_l2_masked(*args, mask)
     want = ref.pairwise_l2_masked_ref(*args, mask)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _scan_inputs(Q, N, d, seed):
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(0, 100, N).astype(np.float32)
+    hi = lo + rng.uniform(0, 30, N).astype(np.float32)
+    if N > 3:                                     # NaN-padded rows
+        lo[-2:] = np.nan
+        hi[-2:] = np.nan
+    ql = rng.uniform(0, 100, Q).astype(np.float32)
+    qh = ql + rng.uniform(0, 30, Q).astype(np.float32)
+    store = QuantizedStore.from_vectors(
+        rng.normal(0, 2, (N, d)).astype(np.float32), "int8")
+    return (rng.normal(size=(Q, d)).astype(np.float32), store, lo, hi, ql,
+            qh)
+
+
+@pytest.mark.parametrize("mask", [ANY_OVERLAP, 16 | 32, 63])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (67, 1000, 17), (130, 4099, 128)])
+def test_int8_and_f16_scans_match_plain(dev, mask, shape):
+    """pairwise_l2_int8 (its output bit-equal to the plain version's) and
+    pairwise_l2_masked over a float16 corpus, at ragged Q, N and d."""
+    q, st, lo, hi, ql, qh = _scan_inputs(*shape, seed=mask + shape[2])
+    qt, lo, hi, ql, qh = (torch.from_numpy(a).to(dev)
+                          for a in (q, lo, hi, ql, qh))
+    i8 = [torch.from_numpy(a).to(dev) for a in (st.codes, st.scale,
+                                                st.offset, st.sq_norm)]
+    got = ops.pairwise_l2_int8(qt, *i8, lo, hi, ql, qh, mask)
+    want = ref.pairwise_l2_int8_ref(qt, *i8, lo, hi, ql, qh, mask)
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    fin = torch.isfinite(want)
+    assert torch.equal(got[fin], want[fin])
+    f16 = torch.from_numpy(st.dequantize()).to(dev).half()
+    got = ops.pairwise_l2_masked(qt, f16, lo, hi, ql, qh, mask)
+    want = ref.pairwise_l2_masked_ref(qt, f16, lo, hi, ql, qh, mask)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "float16"])
+@pytest.mark.parametrize("shape", [(5, 50, 17, 12, 6),
+                                   (64, 2000, 128, 767, 64),
+                                   (8, 3000, 128, 6136, 64)])
+def test_gathered_topk_quant_kernel_matches_plain(dev, dtype, shape):
+    args = [a.to(dev) for a in _wavefront_step(*shape, seed=7)]
+    st = QuantizedStore.from_vectors(args[1].cpu().numpy(), dtype)
+    if dtype == "int8":
+        assert st.codes.min() == -127 and st.codes.max() == 127
+    quant = [torch.from_numpy(a).to(dev) for a in (st.codes, st.scale,
+                                                   st.offset)]
+    args = [args[0], *quant, *args[2:]]
+    ops.reset_launches()
+    gi, gd, ge = ops.gathered_topk_quant(*args)
+    assert ops.LAUNCHES["gathered_topk_quant_" + (
+        "int8" if dtype == "int8" else "f16")] == 1
+    wi, wd, we = ref.gathered_topk_quant_ref(*args)
+    torch.testing.assert_close(gd, wd, rtol=1e-5, atol=1e-5)
+    tie = (gd - wd).abs() <= 1e-5 * (wd.abs() + 1)
+    assert bool(((gi == wi) | tie).all())
+    assert bool(((ge == we) | (gi != wi)).all())
 
 
 def test_gathered_l2_kernel_matches_plain(dev):
@@ -109,3 +169,28 @@ def test_engine_on_cuda_agrees_with_cpu(dev):
             assert sum(ops.LAUNCHES.values()) > 0
         np.testing.assert_array_equal(a.ids, b.ids)
         np.testing.assert_allclose(a.dists, b.dists, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("tier", ["int8", "float16"])
+def test_quantized_engine_on_cuda_agrees_with_cpu(dev, tier):
+    ds = make_range_dataset(n=600, d=16, n_queries=12, quantize=32, seed=0)
+    idx = MSTGIndex(ds.vectors, ds.lo, ds.hi, variants=("T", "Tp"), m=8,
+                    ef_con=40)
+    qlo, qhi = make_queries(ds, ANY_OVERLAP, 0.15, seed=3)
+    cfg = EngineConfig(storage_dtype=tier)
+    gpu = QueryEngine(idx, cfg, device=dev)
+    cpu = QueryEngine(idx, cfg, device="cpu")
+    scan = "pairwise_l2_int8" if tier == "int8" else "pairwise_l2_masked_f16"
+    step = "gathered_topk_quant_" + ("int8" if tier == "int8" else "f16")
+    for route, kernel in (("graph", step), ("pruned", None), ("flat", scan)):
+        req = SearchRequest(ds.queries, (qlo, qhi), ANY_OVERLAP, k=10, ef=32,
+                            route=route, fanout=2)
+        ops.reset_launches()
+        a, b = gpu.execute(req), cpu.execute(req)
+        if kernel is not None:
+            assert ops.LAUNCHES[kernel] > 0
+        assert ops.LAUNCHES["gathered_topk"] == 0
+        assert ops.LAUNCHES["pairwise_l2_masked"] == 0
+        np.testing.assert_array_equal(a.ids, b.ids)
+        np.testing.assert_allclose(a.dists, b.dists, rtol=1e-5, atol=1e-5)
+    assert gpu._corpus_dev is None

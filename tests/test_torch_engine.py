@@ -155,14 +155,13 @@ def test_default_device_is_cuda_and_raises_without_it(built_index,
     assert QueryEngine(idx, device="cpu").device.type == "cpu"
 
 
-def test_quantized_storage_is_not_ported(small_ds):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineConfig(storage_dtype="int8")
-    ds = small_ds
-    idx = MSTGIndex(ds.vectors[:200], ds.lo[:200], ds.hi[:200],
-                    variants=("T",), builder="scan", storage_dtype="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        QueryEngine(idx, device="cpu")
+@pytest.mark.parametrize("kw", [dict(storage_dtype="bf16"),
+                                dict(rerank_k=0)])
+def test_engine_config_validates_the_storage_knobs(kw):
+    EngineConfig(storage_dtype="int8", rerank_k=32)
+    EngineConfig(storage_dtype="float16")
+    with pytest.raises(ValueError, match=next(iter(kw))):
+        EngineConfig(**kw)
 
 
 def test_fanout_default_by_device(engines):
@@ -173,8 +172,8 @@ def test_fanout_default_by_device(engines):
 
 
 def test_port_imports_neither_jax_nor_repro():
-    code = ("import sys, repro_torch.core, repro_torch.kernels.ops, "
-            "repro_torch.convert, repro_torch.data\n"
+    code = ("import sys, repro_torch.core, repro_torch.core.compressed, "
+            "repro_torch.kernels.ops, repro_torch.convert, repro_torch.data\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\n")

@@ -142,9 +142,20 @@ def test_cpu_runs_leave_launch_counters_at_zero():
     args = _t(_mk_wavefront_step(3, 50, 8, 12, 6))
     ops.gathered_topk(*args)
     ops.gathered_l2(args[0], args[1][:3][None].expand(3, 3, 8).contiguous())
-    ops.pairwise_l2_masked(*_t(_mk_pairwise(3, 5, 8)), riv.ANY_OVERLAP)
-    assert ops.LAUNCHES == {"gathered_topk": 0, "gathered_l2": 0,
-                            "pairwise_l2_masked": 0}
+    pw = _t(_mk_pairwise(3, 5, 8))
+    ops.pairwise_l2_masked(*pw, riv.ANY_OVERLAP)
+    ops.pairwise_l2_masked(pw[0], pw[1].half(), *pw[2:], riv.ANY_OVERLAP)
+    codes = torch.zeros((5, 8), dtype=torch.int8)
+    ones, zeros = torch.ones(8), torch.zeros(8)
+    ops.pairwise_l2_int8(pw[0], codes, ones, zeros, torch.zeros(5), *pw[2:],
+                         riv.ANY_OVERLAP)
+    ops.gathered_topk_quant(args[0], args[1].to(torch.int8), ones, zeros,
+                            *args[2:])
+    assert ops.LAUNCHES == {
+        "gathered_topk": 0, "gathered_topk_quant_int8": 0,
+        "gathered_topk_quant_f16": 0, "gathered_l2": 0,
+        "pairwise_l2_masked": 0, "pairwise_l2_masked_f16": 0,
+        "pairwise_l2_int8": 0}
 
 
 def test_wrappers_refuse_other_devices():
