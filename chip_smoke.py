@@ -12,13 +12,16 @@ Phases, each printing one JSON object per line:
 1. ``env``: torch version, card name and power limit, kernel build seconds.
 2. ``kernels``: each hand-written kernel against its plain PyTorch version
    on the card at edge shapes (ragged Q and N, all-masked rows, NO_EDGE ids,
-   exact ties, wide steps, every predicate mask).
+   exact ties, duplicate rows, k > N, wide steps, every predicate mask).
 3. ``flat``: the flat route at n = 1M, d = 128 (the SIFT1M shape), checked
-   against a float64 NumPy brute force.
+   against a float64 NumPy brute force; then ``fused_topk_l2`` on the
+   inputs the route handed to ``pairwise_l2_masked``, held against the
+   route's result, without a (Q, N) buffer.
 4. ``graph``: an MSTG index built by the port's bulk builder, served on the
    graph route with Q = 256, checked against the port's CPU run on the same
-   index; recall against the flat route is printed as information. A
-   fanout sweep follows.
+   index; recall against the flat route is printed as information;
+   ``gathered_l2_dot`` on the arguments of the route's ``gathered_l2``
+   call. A fanout sweep follows.
 5. ``routes``: one ``auto`` and one ``pruned`` request on the graph index;
    the pruned route must have recall 1.0 against the flat route.
 6. ``quant_flat``: the int8 and float16 storage tiers on the flat phase's
@@ -30,10 +33,18 @@ Phases, each printing one JSON object per line:
    against the port's CPU run of the same configuration.
 8. ``quant_routes``: the int8 tier's ``pruned`` (recall against the
    float32 flat route) and ``auto`` (the work model's choice) routes.
+9. ``trace``: the traced kernel path (pulls in ``flat`` and ``graph``):
+   ``fused_topk_l2`` and ``gathered_l2_dot`` under ``obs.capture()``, each a
+   ``kernel:<name>`` span with ``impl == "cuda"`` and ``frac_of_peak`` in
+   (0, 1.05]; a traced graph request equal to an untraced one, with
+   ``kernel:gathered_topk`` spans under its slots, and its overhead; one
+   flat request under ``obs.profiler_capture``.
 
 Launch counts are set to 0 just before each main-path run (flat, graph,
-and each tier's flat and graph run) and read just after. The kernel checks at the main path's shapes use the inputs
-the main path handed to each kernel. The last lines are a ``{"kernels":
+each tier's flat and graph run, and the ``trace`` phase's kernel calls, the
+path of ``gathered_l2_dot`` and ``fused_topk_l2``, which no route calls)
+and read just after. The kernel checks at the main path's shapes use the
+inputs the main path handed to each kernel. The last lines are a ``{"kernels":
 [...]}`` summary, the ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Without
 a CUDA device, or without the repository's ``src/`` beside this file, it
@@ -55,13 +66,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
 ALL_PHASES = ("env", "kernels", "flat", "quant_flat", "graph", "quant_graph",
-              "routes", "quant_routes")
-
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, float32
-# outside the tensor cores, and int8 on the tensor cores (dense).
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-INT8_OP_PER_S = 1979e12
+              "routes", "quant_routes", "trace")
+# the card's published peaks (repro_torch.obs.profile.PEAKS), set in main
+PEAKS = None
 
 CSRC = "src/repro_torch/kernels/csrc/"
 # row of the {"kernels": [...]} line -> (ops entry point, CUDA source, the
@@ -77,12 +84,16 @@ KERNELS = {
                                 "src/repro/kernels/gathered_topk.py:186"),
     "gathered_l2": ("gathered_l2", CSRC + "gathered_l2.cu",
                     "src/repro/kernels/gathered_l2.py:49"),
+    "gathered_l2_dot": ("gathered_l2_dot", CSRC + "gathered_l2.cu",
+                        "src/repro/kernels/gathered_l2.py:49"),
     "pairwise_l2_masked": ("pairwise_l2_masked", CSRC + "pairwise_l2.cu",
                            "src/repro/kernels/pairwise_l2.py:64"),
     "pairwise_l2_masked_f16": ("pairwise_l2_masked", CSRC + "pairwise_l2.cu",
                                "src/repro/kernels/pairwise_l2.py:64"),
     "pairwise_l2_int8": ("pairwise_l2_int8", CSRC + "pairwise_l2_int8.cu",
                          "src/repro/kernels/pairwise_l2_int8.py:81"),
+    "fused_topk_l2": ("fused_topk_l2", CSRC + "fused_topk.cu",
+                      "src/repro/kernels/fused_topk.py:85"),
 }
 # Tolerances, kernel vs plain version on the same card, by ops entry point.
 # The gathered kernels sum d positive squares in another order: relative
@@ -92,10 +103,13 @@ KERNELS = {
 # relative to (|dist| + 1), the tolerance of the reference's kernel tests.
 # The int8 scan's integer sums are exact and its epilogue is rounded in the
 # plain version's order, so it is expected bit-equal; it is held to the
-# same 1e-4 as the float scan.
+# same 1e-4 as the float scan. gathered_l2_dot and fused_topk_l2 take the
+# |q|^2 - 2 q.c + |c|^2 form too, and are held to the same 1e-4 (ids of
+# fused_topk_l2 may differ only where its dists tie within it).
 RTOL = {"gathered_topk": 1e-5, "gathered_topk_quant": 1e-5,
-        "gathered_l2": 1e-5, "pairwise_l2_masked": 1e-4,
-        "pairwise_l2_int8": 1e-4}
+        "gathered_l2": 1e-5, "gathered_l2_dot": 1e-4,
+        "pairwise_l2_masked": 1e-4, "pairwise_l2_int8": 1e-4,
+        "fused_topk_l2": 1e-4}
 
 
 class CheckFailed(RuntimeError):
@@ -152,11 +166,12 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float, peak: float = FP32_FLOP_PER_S):
+def bound(nbytes: float, ops: float, peak: float = None):
     """(least ms, "bytes" or "operations"): the bytes over the HBM rate
-    against the operations over ``peak`` (per second, for their type)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / peak * 1e3
+    against the operations over ``peak`` (per second, for their type; the
+    fp32 rate by default)."""
+    t_bytes = nbytes / PEAKS.hbm_bytes_per_s * 1e3
+    t_ops = ops / (peak or PEAKS.fp32_flop_per_s) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -176,15 +191,17 @@ def compare_dists(got, want, rtol: float):
 
 
 def compare_beams(got, want, rtol: float):
-    """Beam outputs (ids, dists, expanded): ids may differ only where the
-    two dists tie within tolerance. Returns (max_abs_err, mismatched ids)."""
+    """Beam outputs (ids, dists, expanded) or top-k outputs (ids, dists):
+    ids may differ only where the two dists tie within tolerance. Returns
+    (max_abs_err, mismatched ids)."""
     import torch
-    gi, gd, ge = got
-    wi, wd, we = want
+    gi, gd = got[:2]
+    wi, wd = want[:2]
     err, ok = compare_dists(gd, wd, rtol)
     tie = (gd - wd).abs() <= rtol * (wd.abs() + 1.0)
     bad_ids = int(((gi != wi) & ~(tie & torch.isfinite(wd))).sum())
-    bad_exp = int(((ge != we) & (gi == wi)).sum())
+    bad_exp = (int(((got[2] != want[2]) & (gi == wi)).sum())
+               if len(got) == 3 else 0)
     return err, bad_ids + bad_exp + (0 if ok else 1)
 
 
@@ -214,17 +231,12 @@ class Capture:
         return False
 
 
-def live_candidates(ids, avail, b, e, version):
-    """Candidates of a wavefront step whose row the kernel reads."""
-    ver = version[:, None]
-    return int((avail & (ids >= 0) & (b <= ver) & (ver <= e)).sum())
-
-
 def step_live(*args):
-    """``live_candidates`` of a ``gathered_topk`` call's arguments, or of a
+    """``ops.live_rows`` of a ``gathered_topk`` call's arguments, or of a
     ``gathered_topk_quant`` call's (which carry scale and offset)."""
+    from repro_torch.kernels import ops
     first = 4 if len(args) == 12 else 2
-    return live_candidates(*args[first:first + 5])
+    return ops.live_rows(*args[first:first + 5], args[1].shape[0])
 
 
 # ---- kernel measurements at the main path's shapes ---------------------------
@@ -253,12 +265,31 @@ def measure_kernel(row: str, args, launches: int):
         # diff, square, add per element; a code is dequantized with two more
         bms, by = bound(nbytes + (8 * d if quant else 0),
                         (5.0 if quant else 3.0) * d * live)
-    elif name == "gathered_l2":
+    elif name.startswith("gathered_l2"):
         err, ok = compare_dists(got, want, RTOL[name])
         bad = 0 if ok else 1
         queries, cand = args
         Q, S, d = cand.shape
-        bms, by = bound(4.0 * (Q * S * d + Q * d + Q * S), 3.0 * Q * S * d)
+        nbytes = ops.gathered_l2_stream_bytes(Q, S, d)
+        if name == "gathered_l2":          # diff, square, add
+            bms, by = bound(nbytes, 3.0 * Q * S * d)
+        else:
+            # q.c and |c|^2 per element, |q|^2 per query; the yardstick is
+            # the cross term alone
+            bms, by = bound(nbytes, 4.0 * Q * S * d + 2.0 * Q * d)
+            qcol = queries[:, :, None]
+            lib = time_ms(lambda: torch.bmm(cand, qcol))
+    elif name == "fused_topk_l2":
+        err, bad = compare_beams(got, want, RTOL[name])
+        queries, corpus = args[:2]
+        Q, d = queries.shape
+        N = corpus.shape[0]
+        bms, by = bound(ops.fused_topk_stream_bytes(Q, N, d, args[7],
+                                                    corpus.element_size()),
+                        2.0 * Q * N * d)
+        # the product alone: no norms, predicate or top-k
+        lhs = queries.to(corpus.dtype)
+        lib = time_ms(lambda: torch.matmul(lhs, corpus.T))
     elif name == "pairwise_l2_int8":
         err, ok = compare_dists(got, want, RTOL[name])
         bad = 0 if ok else 1
@@ -266,7 +297,7 @@ def measure_kernel(row: str, args, launches: int):
         Q, d = queries.shape
         N = codes.shape[0]
         bms, by = bound(ops.int8_scan_stream_bytes(Q, N, d), 2.0 * Q * N * d,
-                        INT8_OP_PER_S)
+                        PEAKS.int8_op_per_s)
         wq = ref.quantize_query_weights_ref(queries, scale, offset)[0]
         lib = time_ms(lambda: torch._int_mm(wq, codes.T))
     else:
@@ -350,16 +381,20 @@ def kernel_edge_checks(dev, S_wide: int):
             emit({"phase": "kernel_edges", "kernel": row, "Q": Q, "N": N,
                   "d": d, "masks": len(masks), "max_abs_err": worst})
 
-    # gathered_l2: ragged Q, S and d
-    for (Q, S, d) in ((1, 1, 1), (5, 37, 17), (256, 44, 128)):
+    # gathered_l2 and gathered_l2_dot: ragged Q, S and d
+    for (Q, S, d) in ((1, 1, 1), (5, 37, 17), (13, 9, 1), (256, 44, 128)):
         q = t(rng.normal(size=(Q, d)).astype(np.float32))
         cv = t(rng.normal(size=(Q, S, d)).astype(np.float32))
-        err, ok = compare_dists(ops.gathered_l2(q, cv),
-                                ref.gathered_l2_ref(q, cv), RTOL["gathered_l2"])
-        check(ok, f"gathered_l2 Q={Q} S={S} d={d}: err={err}")
-        cases += 1
-        emit({"phase": "kernel_edges", "kernel": "gathered_l2", "Q": Q,
-              "S": S, "d": d, "max_abs_err": err})
+        for name in ("gathered_l2", "gathered_l2_dot"):
+            err, ok = compare_dists(getattr(ops, name)(q, cv),
+                                    getattr(ref, name + "_ref")(q, cv),
+                                    RTOL[name])
+            check(ok, f"{name} Q={Q} S={S} d={d}: err={err}")
+            cases += 1
+            emit({"phase": "kernel_edges", "kernel": name, "Q": Q, "S": S,
+                  "d": d, "max_abs_err": err})
+
+    cases += fused_topk_edge_checks(dev, rng)
 
     # gathered_topk over a float32, int8 and float16 table: ragged Q,
     # NO_EDGE ids, all-masked rows, exact ties (duplicate table rows and
@@ -413,6 +448,79 @@ def kernel_edge_checks(dev, S_wide: int):
                   "mismatched_ids": bad, "smem_bytes": smem})
     torch.cuda.synchronize()
     return cases
+
+
+def fused_topk_edge_checks(dev, rng) -> int:
+    """fused_topk_l2 over a float32 and a float16 corpus against its plain
+    version: ragged Q and N, d = 1 and 17, k = 1, 32 and k > N, NaN-padded
+    rows, an all-masked query, every mask at small N; duplicate rows across
+    tiles and splits (ties to the lowest id); k beyond the limit refused."""
+    import numpy as np
+    import torch
+    from repro_torch.core import intervals as iv
+    from repro_torch.kernels import ops, ref
+    t = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
+    cases = 0
+    for (Q, N, d, k) in ((1, 1, 1, 1), (3, 5, 8, 10), (67, 1000, 17, 32),
+                         (130, 4099, 128, 10), (256, 20000, 128, 1)):
+        q = t(rng.normal(size=(Q, d)).astype(np.float32))
+        c = t(rng.normal(size=(N, d)).astype(np.float32))
+        lo_np = rng.integers(0, 50, N).astype(np.float32)
+        hi_np = lo_np + rng.integers(0, 20, N).astype(np.float32)
+        if N > 3:                                   # NaN-padded rows
+            lo_np[-2:] = hi_np[-2:] = np.nan
+        ql_np = rng.integers(0, 50, Q).astype(np.float32)
+        qh_np = ql_np + rng.integers(0, 20, Q).astype(np.float32)
+        if Q > 1:                                   # an all-masked query
+            ql_np[Q // 2] = qh_np[Q // 2] = np.nan
+        rest = [t(a) for a in (lo_np, hi_np, ql_np, qh_np)]
+        masks = range(64) if N <= 1000 else (iv.ANY_OVERLAP,
+                                             iv.QUERY_CONTAINED,
+                                             iv.BEFORE | iv.AFTER)
+        for row, corpus in (("fused_topk_l2", c), ("fused_topk_l2_f16",
+                                                   c.half())):
+            worst = 0.0
+            for mask in masks:
+                args = (q, corpus, *rest, mask, k)
+                err, b = compare_beams(ops.fused_topk_l2(*args),
+                                       ref.fused_topk_l2_ref(*args),
+                                       RTOL["fused_topk_l2"])
+                check(b == 0, f"{row} Q={Q} N={N} d={d} k={k} mask={mask}: "
+                              f"err={err} mismatches={b}")
+                worst = max(worst, err)
+                cases += 1
+            emit({"phase": "kernel_edges", "kernel": row, "Q": Q, "N": N,
+                  "d": d, "k": k, "masks": len(masks), "max_abs_err": worst})
+    # duplicate rows 3, 5 (one tile) and 600, 4100 (later tiles and splits)
+    Q, N, d = 4, 5000, 128
+    c = rng.normal(size=(N, d)).astype(np.float32)
+    c[[5, 600, 4100]] = c[3]
+    q = rng.normal(size=(Q, d)).astype(np.float32)
+    q[0] = c[3]
+    lo = np.zeros(N, np.float32)
+    hi = np.full(N, 100, np.float32)
+    ql = np.full(Q, 10, np.float32)
+    qh = np.full(Q, 20, np.float32)
+    for corpus in (t(c), t(c).half()):
+        args = (t(q), corpus, *map(t, (lo, hi, ql, qh)), iv.ANY_OVERLAP, 6)
+        ids, dists = ops.fused_topk_l2(*args)
+        got = ids[0, :4].tolist()
+        check(got == [3, 5, 600, 4100], f"fused_topk_l2 duplicate rows "
+                                        f"came out as {got}")
+        err, b = compare_beams((ids, dists), ref.fused_topk_l2_ref(*args),
+                               RTOL["fused_topk_l2"])
+        check(b == 0, f"fused_topk_l2 duplicates: err={err} mismatches={b}")
+        cases += 1
+    emit({"phase": "kernel_edges", "kernel": "fused_topk_l2", "Q": Q, "N": N,
+          "d": d, "duplicates": got})
+    try:
+        ops.fused_topk_l2(*args[:-1], ops.FUSED_TOPK_MAX_K + 1)
+        refused = False
+    except ValueError as e:
+        refused = str(ops.FUSED_TOPK_MAX_K) in str(e)
+    check(refused, "fused_topk_l2 did not refuse k beyond its limit")
+    torch.cuda.synchronize()
+    return cases + 1
 
 
 # ---- helpers for the main path -----------------------------------------------
@@ -519,6 +627,108 @@ def wavefront_steps(trace) -> int:
                if sp.name == "wavefront_totals")
 
 
+def descendants(sp):
+    stack = list(sp.children)
+    while stack:
+        ch = stack.pop()
+        yield ch
+        stack.extend(ch.children)
+
+
+def trace_phase(eng, ds, qlo, qhi, k, fused_args, dot_args, steps, rows):
+    """The traced kernel path: the kernel layer's entry points under
+    ``obs.capture()`` (this slice's own path: launch counts are set to 0
+    just before and read just after), a traced graph request against an
+    untraced one, and one flat request under ``obs.profiler_capture``."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import ANY_OVERLAP, SearchRequest
+    from repro_torch.kernels import ops
+
+    calls = {"fused_topk_l2": fused_args, "gathered_l2_dot": dot_args}
+    untraced = {name: getattr(ops, name)(*args)
+                for name, args in calls.items()}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with obs.capture() as tracer:
+        traced = {name: getattr(ops, name)(*args)
+                  for name, args in calls.items()}
+    launches = dict(ops.LAUNCHES)
+    roots = {sp.name: sp for sp in tracer.trace().roots}
+    fracs = {}
+    for name in calls:
+        sp = roots.get(f"kernel:{name}")
+        check(sp is not None, f"no root span kernel:{name}: {sorted(roots)}")
+        frac = sp.args.get("frac_of_peak")
+        fracs[name] = frac
+        check(sp.args.get("impl") == "cuda", f"kernel:{name} impl is "
+                                             f"{sp.args.get('impl')}")
+        check(frac is not None and 0.0 < frac <= 1.05,
+              f"kernel:{name} frac_of_peak {frac} outside (0, 1.05]")
+        got, want = traced[name], untraced[name]
+        if torch.is_tensor(got):
+            got, want = (got,), (want,)
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"traced {name} returned another result than untraced")
+        check(launches[name] == 1, f"{name}: {launches[name]} launches on "
+                                   f"its traced path, expected 1")
+        if name in rows:
+            rows[name]["launches"] = launches[name]
+
+    # one traced graph request against an untraced one, in turns
+    def graph_req(trace):
+        return SearchRequest(ds.queries, (qlo, qhi), ANY_OVERLAP, k=k, ef=64,
+                             route="graph", trace=trace)
+    t_sec, u_sec = [], []
+    for _ in range(3):
+        ures, sec = timed_execute(eng, graph_req(False), reps=1)
+        u_sec.append(sec)
+        tres, sec = timed_execute(eng, graph_req(True), reps=1)
+        t_sec.append(sec)
+    check(bool(np.array_equal(tres.ids, ures.ids)
+               and np.array_equal(tres.dists, ures.dists)),
+          "a traced graph request returned other ids or dists")
+    slots = [sp for sp, _ in tres.trace.walk() if sp.name == "slot"]
+    under = [ch for sp in slots for ch in descendants(sp)
+             if ch.name == "kernel:gathered_topk"]
+    kernel_spans = [sp for sp, _ in tres.trace.walk()
+                    if sp.name.startswith("kernel:")]
+    t_steps = wavefront_steps(tres.trace)
+    check(len(slots) > 0 and len(under) > 0,
+          "no kernel:gathered_topk span under the slot spans")
+    check(t_steps == steps, f"traced request ran {t_steps} steps, the "
+                            f"graph phase {steps}")
+    fr = [sp.args["frac_of_peak"] for sp in kernel_spans
+          if sp.args.get("frac_of_peak") is not None]
+
+    # one flat request under the profiler
+    prof_dir = os.path.join(ROOT, "build", "profile")
+    flat_req = SearchRequest(ds.queries, (qlo, qhi), ANY_OVERLAP, k=k,
+                             route="flat")
+    with obs.profiler_capture(prof_dir) as pcap:
+        eng.execute(flat_req)
+    device_events = 0
+    if pcap.ok and os.path.isfile(pcap.path):
+        with open(pcap.path) as f:
+            events = json.load(f).get("traceEvents", [])
+        device_events = sum(1 for e in events if e.get("cat") == "kernel")
+    emit({"phase": "trace", "kernel_frac_of_peak": fracs,
+          "path_launches": {n: launches[n] for n in calls},
+          "graph_spans": len(tres.trace), "graph_kernel_spans":
+          len(kernel_spans), "gathered_topk_spans_under_slots": len(under),
+          "max_frac_of_peak": max(fr) if fr else None, "steps": t_steps,
+          "traced_request_ms": statistics.median(t_sec) * 1e3,
+          "untraced_request_ms": statistics.median(u_sec) * 1e3,
+          "traced_overhead": statistics.median(t_sec)
+          / statistics.median(u_sec) - 1.0,
+          "profiler_ok": pcap.ok, "profiler_error": pcap.error,
+          "profiler_trace": pcap.path,
+          "profiler_device_events": device_events})
+    check(pcap.ok and os.path.isfile(pcap.path),
+          f"profiler_capture failed: {pcap.error}")
+
+
 # ---- main --------------------------------------------------------------------
 
 def main() -> int:
@@ -548,19 +758,26 @@ def main() -> int:
     from repro_torch.core import (ANY_OVERLAP, EngineConfig, IndexSpec,
                                   MSTGIndex, Overlaps, QueryEngine,
                                   SearchRequest)
+    from repro_torch import obs
     from repro_torch.core import engine as engine_mod
     from repro_torch.data import make_range_dataset, recall_at_k
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build, ops, ref
 
+    global PEAKS
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
+    PEAKS = obs.device_peaks(dev)
     t0 = time.perf_counter()
     _build.load()
     build_s = time.perf_counter() - t0
     emit({"phase": "env", "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "nvidia_smi": smi, "kernel_build_s": build_s,
-          "kernel_build_log": str(_build.BUILD_LOG)})
+          "kernel_build_log": str(_build.BUILD_LOG),
+          "peaks": PEAKS._asdict() if PEAKS else None})
+    check(PEAKS is not None, f"no published peaks for "
+                             f"{torch.cuda.get_device_name(0)} in "
+                             f"repro_torch.obs.profile.PEAKS")
     if _build.BUILD_LOG is not None and _build.BUILD_LOG.exists():
         for line in _build.BUILD_LOG.read_text().splitlines():
             if "registers" in line or "smem" in line or "==" in line:
@@ -573,6 +790,8 @@ def main() -> int:
 
     k = 10
     Qn = 256
+    if "trace" in phases:
+        phases.update(("flat", "graph"))
     if "quant_flat" in phases:
         phases.add("flat")                     # its dataset, index and result
     if "quant_graph" in phases or "quant_routes" in phases:
@@ -623,6 +842,42 @@ def main() -> int:
                   **profile_request(eng, req)})
         rows["pairwise_l2_masked"] = measure_kernel(
             "pairwise_l2_masked", cap.best, launches["pairwise_l2_masked"])
+        # fused_topk_l2 on the scan's inputs, against the route's result
+        fused_args = cap.best + (k,)
+        Qp, Np = cap.best[0].shape[0], cap.best[1].shape[0]
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        f_ids, f_d = ops.fused_topk_l2(*fused_args)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - mem0
+        f_ids = f_ids[:Qn].cpu().numpy()
+        f_d = f_d[:Qn].cpu().numpy()
+        fin_r = np.isfinite(res.dists)
+        f_rel = float((np.abs(f_d[fin_r] - res.dists[fin_r])
+                       / np.maximum(res.dists[fin_r], 1e-30)).max())
+        f_agree = agreement(f_ids, f_d.astype(np.float64), res.ids,
+                            res.dists.astype(np.float64), 1e-4)
+        # the route's own scan and top-k, timed beside the fused kernel
+        scan_topk_ms = time_ms(lambda: torch.topk(
+            ops.pairwise_l2_masked(*cap.best), k, dim=1, largest=False))
+        emit({"phase": "flat_fused", "Q": Qp, "N": Np, "k": k,
+              "scan_topk_ms": scan_topk_ms,
+              "id_agreement_vs_flat": f_agree, "max_rel_err_vs_flat": f_rel,
+              "dists_bit_equal_vs_flat": bool(np.array_equal(
+                  f_d[fin_r], res.dists[fin_r])),
+              "ids_equal_vs_flat": bool(np.array_equal(f_ids, res.ids)),
+              "extra_device_bytes": extra, "qn_matrix_bytes": 4 * Qp * Np,
+              "route_launches": launches["fused_topk_l2"]})
+        check(bool(np.array_equal(np.isfinite(f_d), fin_r)),
+              "fused_topk_l2: +inf pattern differs from the flat route's")
+        check(f_agree == 1.0, f"fused_topk_l2: ids disagree with the flat "
+                              f"route's ({f_agree})")
+        check(f_rel <= 1e-4, f"fused_topk_l2: dists off by {f_rel}")
+        check(extra < Qp * Np, f"fused_topk_l2 allocated {extra} bytes, a "
+                               f"(Q, N)-sized buffer")
+        rows["fused_topk_l2"] = measure_kernel("fused_topk_l2", fused_args,
+                                               0)
         del eng, cap
         torch.cuda.empty_cache()
 
@@ -674,6 +929,8 @@ def main() -> int:
 
     if "flat" in phases:
         del idx, ds, res
+        if "trace" not in phases:
+            del fused_args
 
     if "graph" in phases or "routes" in phases:
         t0 = time.perf_counter()
@@ -750,6 +1007,18 @@ def main() -> int:
             "gathered_topk", cap_t.best, launches["gathered_topk"])
         rows["gathered_l2"] = measure_kernel(
             "gathered_l2", cap_l.best, launches["gathered_l2"])
+        # gathered_l2_dot on the route's gathered_l2 arguments
+        dot_args = cap_l.best
+        err, ok = compare_dists(ops.gathered_l2_dot(*dot_args),
+                                ref.gathered_l2_ref(*dot_args),
+                                RTOL["gathered_l2_dot"])
+        emit({"phase": "graph_dot", "shape": list(dot_args[1].shape),
+              "max_abs_err_vs_gathered_l2_ref": err,
+              "route_launches": launches["gathered_l2_dot"]})
+        check(ok, f"gathered_l2_dot disagrees with gathered_l2_ref at the "
+                  f"route's shapes (err={err})")
+        rows["gathered_l2_dot"] = measure_kernel("gathered_l2_dot", dot_args,
+                                                 0)
         del cap_t, cap_l
 
         # fanout sweep at these shapes (the CUDA default comes from it)
@@ -866,6 +1135,10 @@ def main() -> int:
         check(qeng._corpus_dev is None,
               "int8 pruned/auto: the float32 corpus was staged")
         del qeng
+
+    if "trace" in phases:
+        trace_phase(eng, ds, qlo, qhi, k, fused_args, dot_args, f32_steps,
+                    rows)
 
     name = torch.cuda.get_device_name(0)
     if rows:

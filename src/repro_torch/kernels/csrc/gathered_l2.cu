@@ -12,6 +12,14 @@
 // are combined with a shuffle reduction. Accumulation is fp32, as a
 // diff-square-sum (the reference's form, not the |q|^2 - 2q.c + |c|^2
 // expansion), so results match the plain version to rounding order.
+//
+// gathered_l2_dot replaces src/repro/kernels/gathered_l2.py,
+// gathered_l2_dot (the same pallas_call at line 49, with the MXU body
+// _kernel_mxu): the same (Q, S) result in the contraction form
+// |q|^2 - 2 q.c + |c|^2. On the TPU the cross term is a batched matrix
+// product; here it is as byte-bound as the diff form (each element costs
+// three FMAs), so it keeps the same design: a warp per (q, s) sums the
+// three fp32 terms over d and reduces each with shuffles.
 #include <cuda_runtime.h>
 
 namespace {
@@ -41,17 +49,56 @@ __global__ void gathered_l2_kernel(const float* __restrict__ queries,
   if (lane == 0) out[pair] = acc;
 }
 
-}  // namespace
+__global__ void gathered_l2_dot_kernel(const float* __restrict__ queries,
+                                       const float* __restrict__ cand,
+                                       float* __restrict__ out, int Q, int S,
+                                       int d) {
+  const long long pair =
+      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (pair >= static_cast<long long>(Q) * S) return;
+  const long long qi = pair / S;
+  const float* q = queries + qi * d;
+  const float* c = cand + pair * d;
+  float qq = 0.f, cc = 0.f, qc = 0.f;
+  for (int k = lane; k < d; k += 32) {
+    const float a = q[k], b = c[k];
+    qq = fmaf(a, a, qq);
+    cc = fmaf(b, b, cc);
+    qc = fmaf(a, b, qc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    qq += __shfl_xor_sync(0xffffffffu, qq, off);
+    cc += __shfl_xor_sync(0xffffffffu, cc, off);
+    qc += __shfl_xor_sync(0xffffffffu, qc, off);
+  }
+  // rounded in the plain version's order: (qq - 2 qc) + cc
+  if (lane == 0) out[pair] = __fadd_rn(__fsub_rn(qq, 2.0f * qc), cc);
+}
 
-extern "C" int gathered_l2(const void* queries, const void* cand, void* out,
-                           int Q, int S, int d, void* stream) {
+template <typename Kernel>
+int launch(Kernel kernel, const void* queries, const void* cand, void* out,
+           int Q, int S, int d, void* stream) {
   const long long pairs = static_cast<long long>(Q) * S;
   if (pairs == 0) return 0;
   const long long blocks = (pairs + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  gathered_l2_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(queries), static_cast<const float*>(cand),
       static_cast<float*>(out), Q, S, d);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int gathered_l2(const void* queries, const void* cand, void* out,
+                           int Q, int S, int d, void* stream) {
+  return launch(gathered_l2_kernel, queries, cand, out, Q, S, d, stream);
+}
+
+extern "C" int gathered_l2_dot(const void* queries, const void* cand,
+                               void* out, int Q, int S, int d, void* stream) {
+  return launch(gathered_l2_dot_kernel, queries, cand, out, Q, S, d, stream);
 }

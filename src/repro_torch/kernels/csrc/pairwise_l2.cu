@@ -12,15 +12,11 @@
 // ~10 mantissa bits and change the numbers against the reference, so this
 // kernel stays on fp32 FMAs.
 //
-// Design: a tiled SIMT product. Each 256-thread block owns a 64 x 64 tile
-// of the output. Per step over d it stages a (64, 32) slice of the queries
-// and of the corpus in shared memory (transposed, padded by one column so
-// neither the stores nor the loads conflict on banks), and each thread
-// accumulates a 4 x 4 register tile of q.c. The squared norms |q|^2 and
-// |c|^2 are summed from the same staged slices by 128 of the threads. The
-// epilogue evaluates the RR predicate from lo/hi/ql/qh with the six mask
-// bits of intervals.eval_predicate (a NaN endpoint fails every comparison,
-// so padded rows never qualify) and writes +inf where it fails. Output
+// Design: a tiled SIMT product, one 256-thread block per 64 x 64 tile of
+// the output, with the tile arithmetic of pairwise_tile.cuh. The epilogue
+// evaluates the RR predicate from lo/hi/ql/qh with the six mask bits of
+// intervals.eval_predicate (a NaN endpoint fails every comparison, so
+// padded rows never qualify) and writes +inf where it fails. Output
 // columns are spread over the threads of a half-warp so that stores are
 // contiguous.
 //
@@ -33,17 +29,14 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "pairwise_tile.cuh"
 #include "rr_predicate.cuh"
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BN = 64;
-constexpr int DK = 32;
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
+using tile::BN;
+using tile::BQ;
+using tile::kThreads;
 
 template <typename Row>
 __global__ void __launch_bounds__(kThreads)
@@ -52,79 +45,27 @@ pairwise_l2_kernel(const float* __restrict__ queries,
                    const float* __restrict__ lo, const float* __restrict__ hi,
                    const float* __restrict__ ql, const float* __restrict__ qh,
                    float* __restrict__ out, int Q, int N, int d, int mask) {
-  __shared__ float q_s[DK][BQ + 1];
-  __shared__ float c_s[DK][BN + 1];
-  __shared__ float qn_s[BQ];
-  __shared__ float cn_s[BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;   // output columns tx + 16*j
-  const int ty = tid >> 4;   // output rows 4*ty + i
+  __shared__ tile::Smem s;
+  const int tx = threadIdx.x & 15;   // output columns tx + 16*j
+  const int ty = threadIdx.x >> 4;   // output rows 4*ty + i
   const int n0 = blockIdx.x * BN;
   const int q0 = blockIdx.y * BQ;
 
-  if (tid < BQ) qn_s[tid] = 0.f;
-  else if (tid < BQ + BN) cn_s[tid - BQ] = 0.f;
-
   float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += DK) {
-    // stage: consecutive threads read consecutive k of one row
-    for (int e = tid; e < BQ * DK; e += kThreads) {
-      const int r = e / DK, k = e % DK;
-      const int gq = q0 + r, gk = k0 + k;
-      q_s[k][r] = (gq < Q && gk < d)
-                      ? queries[static_cast<long long>(gq) * d + gk] : 0.f;
-    }
-    for (int e = tid; e < BN * DK; e += kThreads) {
-      const int r = e / DK, k = e % DK;
-      const int gn = n0 + r, gk = k0 + k;
-      c_s[k][r] = (gn < N && gk < d)
-                      ? widen(corpus[static_cast<long long>(gn) * d + gk])
-                      : 0.f;
-    }
-    __syncthreads();
-    if (tid < BQ) {
-      float s = qn_s[tid];
-      for (int k = 0; k < DK; ++k) s = fmaf(q_s[k][tid], q_s[k][tid], s);
-      qn_s[tid] = s;
-    } else if (tid < BQ + BN) {
-      const int r = tid - BQ;
-      float s = cn_s[r];
-      for (int k = 0; k < DK; ++k) s = fmaf(c_s[k][r], c_s[k][r], s);
-      cn_s[r] = s;
-    }
-#pragma unroll 8
-    for (int k = 0; k < DK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = q_s[k][4 * ty + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = c_s[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+  tile::accumulate(s, acc, queries, corpus, q0, n0, Q, N, d);
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = 4 * ty + i;
     const int gq = q0 + r;
     if (gq >= Q) continue;
-    const float qli = ql[gq], qhi = qh[gq], qn = qn_s[r];
+    const float qli = ql[gq], qhi = qh[gq], qn = s.qn[r];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = tx + 16 * j;
       const int gn = n0 + c;
       if (gn >= N) continue;
-      const float dist = qn - 2.0f * acc[i][j] + cn_s[c];
+      const float dist = tile::distance(qn, acc[i][j], s.cn[c]);
       const bool sel = rr::predicate(mask, lo[gn], hi[gn], qli, qhi);
       out[static_cast<long long>(gq) * N + gn] = sel ? dist : CUDART_INF_F;
     }

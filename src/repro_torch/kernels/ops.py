@@ -10,24 +10,42 @@ other device raises.
 serves several element types has one entry point, and one count, for
 each); a wrapper adds one where it launches its kernel and nowhere else,
 so CPU runs leave it at 0.
+
+When a trace is active (:mod:`repro_torch.obs`), each wrapper runs inside
+a ``kernel:<name>`` span: the current stream is synchronized before and
+after the call, so the span times the kernel and not its enqueue, and the
+span carries ``bytes``, ``gb_per_s`` and ``frac_of_peak``
+(:func:`repro_torch.obs.profile.bandwidth_annotation`, from the byte
+models below and the card's HBM peak; None on the CPU or an unknown card)
+and ``impl`` (``"cuda"`` or ``"plain"``). With tracing off the wrappers
+stay asynchronous and add no work.
 """
 from __future__ import annotations
 
+import functools
+import time
 from typing import Dict
 
 import torch
 
+from .. import obs
+from ..obs import profile
 from . import ref
 
 NO_EDGE = -1
 LAUNCHES: Dict[str, int] = {
     "gathered_topk": 0, "gathered_topk_quant_int8": 0,
-    "gathered_topk_quant_f16": 0, "gathered_l2": 0, "pairwise_l2_masked": 0,
-    "pairwise_l2_masked_f16": 0, "pairwise_l2_int8": 0}
+    "gathered_topk_quant_f16": 0, "gathered_l2": 0, "gathered_l2_dot": 0,
+    "pairwise_l2_masked": 0, "pairwise_l2_masked_f16": 0,
+    "pairwise_l2_int8": 0, "fused_topk_l2": 0, "fused_topk_l2_f16": 0}
 # code-table entry points by element type
 _QUANT_SUFFIX = {torch.int8: "int8", torch.float16: "f16"}
 # a block of the gathered_topk kernel holds its (L + M) list in shared memory
 MAX_SHARED_BYTES = 232448
+# a fused_topk_l2 list is one warp wide
+FUSED_TOPK_MAX_K = 32
+# the query and corpus tile of fused_topk.cu (pairwise_tile.cuh's BQ, BN)
+_FUSED_TILE = 64
 
 
 def reset_launches() -> None:
@@ -77,6 +95,103 @@ def _check_endpoints(lo, hi, ql, qh, N: int, Q: int, mask: int) -> None:
         raise ValueError(f"mask {mask} outside [0, 63]")
 
 
+# ---- byte models -------------------------------------------------------------
+
+def pairwise_stream_bytes(Q: int, N: int, d: int, itemsize: int = 4) -> int:
+    """Bytes of a full masked scan: the corpus at its itemsize, the float32
+    queries, the endpoints, and the (Q, N) float32 output."""
+    return N * d * itemsize + Q * d * 4 + 2 * N * 4 + 2 * Q * 4 + Q * N * 4
+
+
+def int8_scan_stream_bytes(Q: int, N: int, d: int) -> int:
+    """Bytes of :func:`pairwise_l2_int8`: the int8 codes and the float32
+    queries, endpoints and output of a masked scan, plus the per-row
+    ``sq_norm`` and the (d,) scale and offset."""
+    return pairwise_stream_bytes(Q, N, d, 1) + N * 4 + 2 * d * 4
+
+
+def fused_topk_stream_bytes(Q: int, N: int, d: int, k: int,
+                            itemsize: int = 4) -> int:
+    """Bytes of :func:`fused_topk_l2`: the corpus at its itemsize, the
+    float32 queries and endpoints, and the (Q, k) ids and dists out; no
+    (Q, N) term, since the matrix is never written."""
+    return N * d * itemsize + Q * d * 4 + 2 * N * 4 + 2 * Q * 4 + 8 * Q * k
+
+
+def gathered_l2_stream_bytes(Q: int, S: int, d: int,
+                             itemsize: int = 4) -> int:
+    """Bytes of :func:`gathered_l2` and :func:`gathered_l2_dot`: the
+    (Q, S, d) candidates at their itemsize, the float32 queries, and the
+    (Q, S) float32 output."""
+    return Q * S * d * itemsize + Q * d * 4 + Q * S * 4
+
+
+def gathered_stream_bytes(Q: int, M: int, L: int, d: int, live: int,
+                          itemsize: int = 4) -> int:
+    """Bytes one wavefront step must move: the queries, the ``live``
+    candidate rows that pass the mask (``d * itemsize`` bytes each), each
+    candidate's id, avail, lab_b and lab_e (13 bytes), the versions, and
+    the (Q, L) beam in and out (9 bytes per entry each way). A step over a
+    code table also reads its (d,) float32 scale and offset: add 8 * d."""
+    return (Q * d * 4 + live * d * itemsize + Q * M * 13 + Q * 4
+            + 2 * Q * L * 9)
+
+
+def live_rows(ids, avail, b, e, version, n: int) -> int:
+    """Candidates of a wavefront step whose table row the step reads:
+    available, an id in [0, n), and a label window that holds the query's
+    version. Waits for the device."""
+    ver = version.to(torch.int32)[:, None]
+    return int((avail.to(torch.bool) & (ids >= 0) & (ids < n) & (b <= ver)
+                & (ver <= e)).sum())
+
+
+def _step_bytes(queries, table, ids, avail, b, e, version, pool_d,
+                extra: int = 0) -> int:
+    Q, d = queries.shape
+    live = live_rows(ids, avail, b, e, version, table.shape[0])
+    return gathered_stream_bytes(Q, ids.shape[1], pool_d.shape[1], d, live,
+                                 table.element_size()) + extra
+
+
+# ---- tracing -----------------------------------------------------------------
+
+def _traced(name: str, nbytes):
+    """Run the wrapped entry point inside a ``kernel:<name>`` span when a
+    trace is active; ``nbytes`` takes the entry point's arguments and
+    returns its byte model. The traced call returns exactly what an
+    untraced one returns."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            if not obs.tracing():
+                return fn(*args, **kwargs)
+            dev = args[0].device
+            cuda = dev.type == "cuda"
+            with obs.span(f"kernel:{name}") as sp:
+                if cuda:
+                    torch.cuda.current_stream(dev).synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                if cuda:
+                    torch.cuda.current_stream(dev).synchronize()
+                seconds = time.perf_counter() - t0
+                peaks = profile.device_peaks(dev)
+                ann = profile.bandwidth_annotation(
+                    nbytes(*args, **kwargs), seconds,
+                    None if peaks is None else peaks.hbm_bytes_per_s)
+                for key, v in ann.items():
+                    sp.set(key, v)
+                sp.set("impl", "cuda" if cuda else "plain")
+            return out
+        return run
+    return wrap
+
+
+# ---- masked scans --------------------------------------------------------------
+
+@_traced("pairwise_l2_masked", lambda q, c, *a: pairwise_stream_bytes(
+    q.shape[0], c.shape[0], q.shape[1], c.element_size()))
 def pairwise_l2_masked(queries, corpus, lo, hi, ql, qh, mask: int):
     """(Q, d) float32 x (N, d) float32 or float16 -> (Q, N) float32 masked
     squared L2 (a float16 corpus is widened as it is read)."""
@@ -101,6 +216,8 @@ def pairwise_l2_masked(queries, corpus, lo, hi, ql, qh, mask: int):
     return out
 
 
+@_traced("pairwise_l2_int8", lambda q, codes, *a: int8_scan_stream_bytes(
+    q.shape[0], codes.shape[0], q.shape[1]))
 def pairwise_l2_int8(queries, codes, scale, offset, sq_norm, lo, hi, ql, qh,
                      mask: int):
     """(Q, d) float32 queries x (N, d) int8 codes -> (Q, N) float32
@@ -129,19 +246,98 @@ def pairwise_l2_int8(queries, codes, scale, offset, sq_norm, lo, hi, ql, qh,
     return out
 
 
-def gathered_l2(queries, cand_vecs):
-    """(Q, d) x (Q, S, d) float32 -> (Q, S) float32 squared L2."""
+@functools.cache
+def _fused_slots(index: int, f16: bool) -> int:
+    """Blocks of fused_topk.cu's first grid that card ``index`` runs at
+    once."""
+    from . import _build
+    with torch.cuda.device(index):
+        slots = _build.load().fused_topk_l2_slots(int(f16))
+    if slots <= 0:
+        raise RuntimeError(f"fused_topk_l2: occupancy query failed "
+                           f"(cudaError {-slots})")
+    return slots
+
+
+@_traced("fused_topk_l2", lambda q, c, lo, hi, ql, qh, mask, k=10:
+         fused_topk_stream_bytes(q.shape[0], c.shape[0], q.shape[1], k,
+                                 c.element_size()))
+def fused_topk_l2(queries, corpus, lo, hi, ql, qh, mask: int, k: int = 10):
+    """Exact filtered k-NN in one pass: (Q, d) float32 x (N, d) float32 or
+    float16 -> ((Q, k) int32 ids, (Q, k) float32 squared L2), ordered by
+    (dist, id); (NO_EDGE, +inf) where fewer than k rows qualify. The
+    (Q, N) matrix is never built. On the card k is at most
+    :data:`FUSED_TOPK_MAX_K`."""
+    if _on_cpu(queries, corpus, lo, hi, ql, qh):
+        return ref.fused_topk_l2_ref(queries, corpus, lo, hi, ql, qh, mask,
+                                     k)
+    k = int(k)
+    if not 1 <= k <= FUSED_TOPK_MAX_K:
+        raise ValueError(f"fused_topk_l2: k={k} outside [1, "
+                         f"{FUSED_TOPK_MAX_K}], the kernel's limit")
+    Q, d = queries.shape
+    N = corpus.shape[0]
+    f32 = torch.float32
+    if corpus.dtype not in (f32, torch.float16):
+        raise TypeError(f"corpus: expected float32 or float16, got "
+                        f"{corpus.dtype}")
+    _check("queries", queries, f32, (Q, d))
+    _check("corpus", corpus, corpus.dtype, (N, d))
+    _check_endpoints(lo, hi, ql, qh, N, Q, mask)
+    dev = queries.device
+    f16 = corpus.dtype == torch.float16
+    # one wave of the first grid: every block walks as many corpus tiles
+    tiles = -(-N // _FUSED_TILE)
+    qblocks = -(-Q // _FUSED_TILE)
+    splits = max(1, min(tiles, _fused_slots(dev.index, f16)
+                            // max(qblocks, 1)))
+    part_d = torch.empty((Q, splits, k), dtype=f32, device=dev)
+    part_i = torch.empty((Q, splits, k), dtype=torch.int32, device=dev)
+    out_d = torch.empty((Q, k), dtype=f32, device=dev)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    _launch("fused_topk_l2_f16" if f16 else "fused_topk_l2", dev,
+            queries.data_ptr(), corpus.data_ptr(), lo.data_ptr(),
+            hi.data_ptr(), ql.data_ptr(), qh.data_ptr(), part_d.data_ptr(),
+            part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), Q, N, d,
+            int(mask), k, splits)
+    return out_i, out_d
+
+
+# ---- gathered distances ----------------------------------------------------------
+
+def _gathered(name: str, plain, queries, cand_vecs):
     if _on_cpu(queries, cand_vecs):
-        return ref.gathered_l2_ref(queries, cand_vecs)
+        return plain(queries, cand_vecs)
     Q, d = queries.shape
     S = cand_vecs.shape[1]
     _check("queries", queries, torch.float32, (Q, d))
     _check("cand_vecs", cand_vecs, torch.float32, (Q, S, d))
     out = torch.empty((Q, S), dtype=torch.float32, device=queries.device)
-    _launch("gathered_l2", queries.device, queries.data_ptr(),
-            cand_vecs.data_ptr(), out.data_ptr(), Q, S, d)
+    _launch(name, queries.device, queries.data_ptr(), cand_vecs.data_ptr(),
+            out.data_ptr(), Q, S, d)
     return out
 
+
+def _gathered_bytes(queries, cand_vecs) -> int:
+    return gathered_l2_stream_bytes(*cand_vecs.shape,
+                                    cand_vecs.element_size())
+
+
+@_traced("gathered_l2", _gathered_bytes)
+def gathered_l2(queries, cand_vecs):
+    """(Q, d) x (Q, S, d) float32 -> (Q, S) float32 squared L2."""
+    return _gathered("gathered_l2", ref.gathered_l2_ref, queries, cand_vecs)
+
+
+@_traced("gathered_l2_dot", _gathered_bytes)
+def gathered_l2_dot(queries, cand_vecs):
+    """:func:`gathered_l2` in the contraction form ``|q|^2 - 2 q.c +
+    |c|^2``."""
+    return _gathered("gathered_l2_dot", ref.gathered_l2_dot_ref, queries,
+                     cand_vecs)
+
+
+# ---- wavefront steps ---------------------------------------------------------------
 
 def gathered_topk_smem_bytes(d: int, M: int, L: int) -> int:
     """Dynamic shared memory one gathered_topk block needs: q, then
@@ -193,6 +389,9 @@ def _launch_step(name: str, queries, table_ptrs, ids, avail, b, e, version,
     return out_i, out_d, out_e
 
 
+@_traced("gathered_topk", lambda q, vectors, ids, avail, b, e, version,
+         pool_ids, pool_d, pool_exp: _step_bytes(q, vectors, ids, avail, b, e,
+                                                 version, pool_d))
 def gathered_topk(queries, vectors, ids, avail, b, e, version,
                   pool_ids, pool_d, pool_exp):
     """One fused wavefront step (gather + L2 + label mask + beam merge):
@@ -212,6 +411,9 @@ def gathered_topk(queries, vectors, ids, avail, b, e, version,
                         d, M, L)
 
 
+@_traced("gathered_topk_quant", lambda q, codes, scale, offset, ids, avail, b,
+         e, version, pool_ids, pool_d, pool_exp: _step_bytes(
+             q, codes, ids, avail, b, e, version, pool_d, 8 * q.shape[1]))
 def gathered_topk_quant(queries, codes, scale, offset, ids, avail, b, e,
                         version, pool_ids, pool_d, pool_exp):
     """:func:`gathered_topk` over an (n, d) int8 or float16 code table with
@@ -236,27 +438,3 @@ def gathered_topk_quant(queries, codes, scale, offset, ids, avail, b, e,
         "gathered_topk_quant_" + _QUANT_SUFFIX[codes.dtype], queries,
         (codes.data_ptr(), scale.data_ptr(), offset.data_ptr()), ids, avail,
         b, e, version, pool_ids, pool_d, pool_exp, n, d, M, L)
-
-
-def gathered_stream_bytes(Q: int, M: int, L: int, d: int, live: int,
-                          itemsize: int = 4) -> int:
-    """Bytes one wavefront step must move: the queries, the ``live``
-    candidate rows that pass the mask (``d * itemsize`` bytes each), each
-    candidate's id, avail, lab_b and lab_e (13 bytes), the versions, and
-    the (Q, L) beam in and out (9 bytes per entry each way). A step over a
-    code table also reads its (d,) float32 scale and offset: add 8 * d."""
-    return (Q * d * 4 + live * d * itemsize + Q * M * 13 + Q * 4
-            + 2 * Q * L * 9)
-
-
-def pairwise_stream_bytes(Q: int, N: int, d: int, itemsize: int = 4) -> int:
-    """Bytes of a full masked scan: the corpus at its itemsize, the float32
-    queries, the endpoints, and the (Q, N) float32 output."""
-    return N * d * itemsize + Q * d * 4 + 2 * N * 4 + 2 * Q * 4 + Q * N * 4
-
-
-def int8_scan_stream_bytes(Q: int, N: int, d: int) -> int:
-    """Bytes of :func:`pairwise_l2_int8`: the int8 codes and the float32
-    queries, endpoints and output of a masked scan, plus the per-row
-    ``sq_norm`` and the (d,) scale and offset."""
-    return pairwise_stream_bytes(Q, N, d, 1) + N * 4 + 2 * d * 4

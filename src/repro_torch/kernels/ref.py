@@ -43,6 +43,49 @@ def gathered_l2_ref(queries, cand_vecs):
     return (diff * diff).sum(dim=-1)
 
 
+def gathered_l2_dot_ref(queries, cand_vecs):
+    """(Q, d) x (Q, S, d) -> (Q, S) squared L2 in the contraction form
+    ``|q|^2 - 2 q.c + |c|^2``, fp32 (the reference's MXU form)."""
+    q = queries.to(torch.float32)
+    c = cand_vecs.to(torch.float32)
+    qn = (q * q).sum(dim=-1)
+    cn = (c * c).sum(dim=-1)
+    cross = torch.bmm(c, q[:, :, None])[..., 0]
+    return qn[:, None] - 2.0 * cross + cn
+
+
+def fused_topk_l2_ref(queries, corpus, lo, hi, ql, qh, mask: int, k: int,
+                      block: int = 16384):
+    """Exact filtered k-NN without the (Q, N) matrix: walk the corpus in
+    blocks of ``block`` rows, score each with
+    :func:`pairwise_l2_masked_ref`'s formula, and keep a running (Q, k)
+    top-k ordered by (dist, id), ties to the lowest id. Entries that are
+    not finite never qualify; missing ones (``k > N``, or fewer than k rows
+    pass the predicate) come out as (NO_EDGE, +inf). Returns ((Q, k) int32
+    ids, (Q, k) float32 dists)."""
+    Q = queries.shape[0]
+    N = corpus.shape[0]
+    dev = queries.device
+    run_d = torch.full((Q, k), torch.inf, dtype=torch.float32, device=dev)
+    run_i = torch.full((Q, k), NO_EDGE, dtype=torch.int32, device=dev)
+    for n0 in range(0, N, block):
+        n1 = min(N, n0 + block)
+        d = pairwise_l2_masked_ref(queries, corpus[n0:n1], lo[n0:n1],
+                                   hi[n0:n1], ql, qh, mask)
+        d = torch.where(torch.isfinite(d), d, torch.inf)
+        ids = torch.arange(n0, n1, dtype=torch.int32,
+                           device=dev).expand(Q, -1)
+        # the running entries all have lower ids than the block's, and are
+        # themselves in (dist, id) order: a stable sort keeps that order
+        cat_d = torch.cat([run_d, d], dim=1)
+        cat_i = torch.cat([run_i, ids], dim=1)
+        run_d, order = torch.sort(cat_d, dim=1, stable=True)
+        run_d, order = run_d[:, :k], order[:, :k]
+        run_i = cat_i.gather(1, order)
+    run_i = torch.where(torch.isfinite(run_d), run_i, NO_EDGE)
+    return run_i, run_d
+
+
 def gathered_topk_ref(queries, vectors, ids, avail, b, e, version,
                       pool_ids, pool_d, pool_exp):
     """One fused wavefront step: gather the ``(Q, M)`` candidate rows by id,

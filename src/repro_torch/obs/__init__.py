@@ -19,8 +19,12 @@ distributed (and the benchmark drivers):
   ``.save()`` or print ``result.explain()``; ``with obs.capture() as tr:``
   scopes a trace around arbitrary code (serving steps, flush/compact).
 * **logs** (:mod:`repro_torch.obs.log`) — rate-limited structured progress
-  logging (:func:`get_logger`). The reference's ``profile`` module (a
-  ``jax.profiler`` wrapper and TPU peak constants) is not part of the port.
+  logging (:func:`get_logger`).
+
+Beside them, :mod:`repro_torch.obs.profile` holds the card's published
+peaks (:func:`device_peaks`), the achieved-bandwidth annotation that every
+``kernel:<name>`` span carries (:func:`bandwidth_annotation`), and an
+opt-in ``torch.profiler`` capture (:func:`profiler_capture`).
 """
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry, REGISTRY,
                       StreamingHistogram, get_registry, start_metrics_server)
@@ -28,6 +32,8 @@ from .trace import (NULL_SPAN, Span, Trace, Tracer, active_tracer,
                     begin_request_trace, capture, end_request_trace, span,
                     tracing)
 from .log import StructuredLogger, get_logger
+from .profile import (DevicePeaks, PEAKS, bandwidth_annotation, device_peaks,
+                      profiler_capture)
 
 __all__ = [
     # metrics
@@ -38,4 +44,7 @@ __all__ = [
     "begin_request_trace", "capture", "end_request_trace", "span", "tracing",
     # logs
     "StructuredLogger", "get_logger",
+    # profiling
+    "DevicePeaks", "PEAKS", "bandwidth_annotation", "device_peaks",
+    "profiler_capture",
 ]

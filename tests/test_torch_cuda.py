@@ -194,3 +194,116 @@ def test_quantized_engine_on_cuda_agrees_with_cpu(dev, tier):
         np.testing.assert_array_equal(a.ids, b.ids)
         np.testing.assert_allclose(a.dists, b.dists, rtol=1e-5, atol=1e-5)
     assert gpu._corpus_dev is None
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (5, 37, 17), (13, 9, 1),
+                                   (256, 88, 128)])
+def test_gathered_l2_dot_kernel_matches_plain(dev, shape):
+    Q, S, d = shape
+    rng = np.random.default_rng(Q + S + d)
+    q = torch.from_numpy(rng.normal(size=(Q, d)).astype(np.float32))
+    cv = torch.from_numpy(rng.normal(size=(Q, S, d)).astype(np.float32))
+    ops.reset_launches()
+    got = ops.gathered_l2_dot(q.to(dev), cv.to(dev)).cpu()
+    assert ops.LAUNCHES["gathered_l2_dot"] == 1
+    for want in (ref.gathered_l2_dot_ref(q, cv), ref.gathered_l2_ref(q, cv)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _fused_inputs(Q, N, d, seed):
+    rng = np.random.default_rng(seed)
+    lo = rng.integers(0, 50, N).astype(np.float32)
+    hi = lo + rng.integers(0, 20, N).astype(np.float32)
+    if N > 3:                                     # NaN-padded rows
+        lo[-2:] = hi[-2:] = np.nan
+    ql = rng.integers(0, 50, Q).astype(np.float32)
+    qh = ql + rng.integers(0, 20, Q).astype(np.float32)
+    if Q > 1:                                     # an all-masked query
+        ql[Q // 2] = qh[Q // 2] = np.nan
+    return [torch.from_numpy(a) for a in (
+        rng.normal(size=(Q, d)).astype(np.float32),
+        rng.normal(size=(N, d)).astype(np.float32), lo, hi, ql, qh)]
+
+
+def _assert_topk_close(got, want, rtol=1e-4):
+    (gi, gd), (wi, wd) = [(i.cpu(), d.cpu()) for i, d in (got, want)]
+    assert torch.equal(torch.isfinite(gd), torch.isfinite(wd))
+    torch.testing.assert_close(gd, wd, rtol=rtol, atol=rtol)
+    tie = (gd - wd).abs() <= rtol * (wd.abs() + 1)
+    assert bool(((gi == wi) | (tie & torch.isfinite(wd))).all())
+    assert bool((gi[~torch.isfinite(gd)] == ops.NO_EDGE).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("mask", [ANY_OVERLAP, QUERY_CONTAINED, 16 | 32, 63])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (3, 5, 8, 10),
+                                   (67, 1000, 17, 32), (130, 4099, 128, 7)])
+def test_fused_topk_kernel_matches_plain(dev, shape, mask, dtype):
+    """Ragged Q and N, d = 1 and 17, k = 1, 32 and k > N, NaN-padded rows
+    and an all-masked query, float32 and float16 corpus."""
+    Q, N, d, k = shape
+    args = [a.to(dev) for a in _fused_inputs(Q, N, d, seed=sum(shape))]
+    args[1] = args[1].to(dtype)
+    name = "fused_topk_l2" + ("_f16" if dtype == torch.float16 else "")
+    ops.reset_launches()
+    got = ops.fused_topk_l2(*args, mask, k)
+    assert ops.LAUNCHES[name] == 1
+    _assert_topk_close(got, ref.fused_topk_l2_ref(*args, mask, k))
+
+
+def test_fused_topk_duplicates_go_to_the_lowest_id(dev):
+    rng = np.random.default_rng(3)
+    N, d = 5000, 64
+    c = rng.normal(size=(N, d)).astype(np.float32)
+    c[[5, 600, 4100]] = c[3]
+    q = np.stack([c[3], rng.normal(size=d).astype(np.float32)])
+    rest = [np.zeros(N, np.float32), np.full(N, 100, np.float32),
+            np.full(2, 10, np.float32), np.full(2, 20, np.float32)]
+    args = [torch.from_numpy(a).to(dev) for a in (q, c, *rest)]
+    ids, _ = ops.fused_topk_l2(*args, ANY_OVERLAP, 5)
+    assert ids[0, :4].tolist() == [3, 5, 600, 4100]
+
+
+def test_fused_topk_matches_the_flat_scan(dev):
+    """Its distances are the masked scan's, bit for bit."""
+    args = [a.to(dev) for a in _fused_inputs(256, 30000, 128, seed=5)]
+    ids, dists = ops.fused_topk_l2(*args, ANY_OVERLAP, 10)
+    full = ops.pairwise_l2_masked(*args, ANY_OVERLAP)
+    want = torch.sort(full, dim=1, stable=True)
+    assert torch.equal(dists, want.values[:, :10])
+    fin = torch.isfinite(dists)
+    assert torch.equal(ids[fin].long(), want.indices[:, :10][fin])
+
+
+def test_new_wrappers_refuse_bad_input(dev):
+    args = [a.to(dev) for a in _fused_inputs(4, 50, 8, seed=0)]
+    ops.reset_launches()
+    with pytest.raises(ValueError, match=str(ops.FUSED_TOPK_MAX_K)):
+        ops.fused_topk_l2(*args, ANY_OVERLAP, ops.FUSED_TOPK_MAX_K + 1)
+    with pytest.raises(TypeError):
+        ops.fused_topk_l2(args[0], args[1].double(), *args[2:], ANY_OVERLAP,
+                          5)
+    with pytest.raises(TypeError):
+        ops.gathered_l2_dot(args[0].half(),
+                            torch.zeros((4, 3, 8), device=dev).half())
+    assert sum(ops.LAUNCHES.values()) == 0
+
+
+def test_traced_kernel_spans_on_the_card(dev):
+    from repro_torch import obs
+    args = [a.to(dev) for a in _fused_inputs(64, 20000, 128, seed=2)]
+    cand = args[1][:64 * 40].reshape(64, 40, 128).contiguous()
+    plain = (ops.fused_topk_l2(*args, ANY_OVERLAP, 10),
+             ops.gathered_l2_dot(args[0], cand))
+    with obs.capture() as tracer:
+        traced = (ops.fused_topk_l2(*args, ANY_OVERLAP, 10),
+                  ops.gathered_l2_dot(args[0], cand))
+    roots = tracer.trace().roots
+    assert [sp.name for sp in roots] == ["kernel:fused_topk_l2",
+                                         "kernel:gathered_l2_dot"]
+    for sp in roots:
+        assert sp.args["impl"] == "cuda"
+        if obs.device_peaks(dev) is not None:
+            assert 0.0 < sp.args["frac_of_peak"] <= 1.05
+    assert all(torch.equal(a, b) for a, b in zip(traced[0], plain[0]))
+    assert torch.equal(traced[1], plain[1])

@@ -151,11 +151,16 @@ def test_cpu_runs_leave_launch_counters_at_zero():
                          riv.ANY_OVERLAP)
     ops.gathered_topk_quant(args[0], args[1].to(torch.int8), ones, zeros,
                             *args[2:])
+    ops.gathered_l2_dot(args[0], args[1][:3][None].expand(3, 3, 8)
+                        .contiguous())
+    ops.fused_topk_l2(*pw, riv.ANY_OVERLAP, 2)
+    ops.fused_topk_l2(pw[0], pw[1].half(), *pw[2:], riv.ANY_OVERLAP, 2)
     assert ops.LAUNCHES == {
         "gathered_topk": 0, "gathered_topk_quant_int8": 0,
         "gathered_topk_quant_f16": 0, "gathered_l2": 0,
-        "pairwise_l2_masked": 0, "pairwise_l2_masked_f16": 0,
-        "pairwise_l2_int8": 0}
+        "gathered_l2_dot": 0, "pairwise_l2_masked": 0,
+        "pairwise_l2_masked_f16": 0, "pairwise_l2_int8": 0,
+        "fused_topk_l2": 0, "fused_topk_l2_f16": 0}
 
 
 def test_wrappers_refuse_other_devices():
