@@ -12,7 +12,9 @@ Phases, each printing one JSON object per line:
 1. ``env``: torch version, card name and power limit, kernel build seconds.
 2. ``kernels``: each hand-written kernel against its plain PyTorch version
    on the card at edge shapes (ragged Q and N, all-masked rows, NO_EDGE ids,
-   exact ties, duplicate rows, k > N, wide steps, every predicate mask).
+   exact ties, duplicate rows, k > N, wide steps, unsorted beams, steps
+   whose candidates are all live, rows that are no whole number of 16-byte
+   loads or do not start on 16 bytes, every predicate mask).
 3. ``flat``: the flat route at n = 1M, d = 128 (the SIFT1M shape), checked
    against a float64 NumPy brute force; then ``fused_topk_l2`` on the
    inputs the route handed to ``pairwise_l2_masked``, held against the
@@ -58,6 +60,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -398,31 +401,24 @@ def kernel_edge_checks(dev, S_wide: int):
 
     # gathered_topk over a float32, int8 and float16 table: ragged Q,
     # NO_EDGE ids, all-masked rows, exact ties (duplicate table rows and
-    # duplicate beam distances), and M up to 8*S. The int8 codes reach
-    # +-127 (each dimension's min and max).
-    for (Q, n, d, M, L) in ((1, 3, 4, 1, 1), (5, 50, 17, 12, 6),
-                            (37, 2000, 128, 767, 64),
-                            (256, 20000, 128, 8 * S_wide, 64)):
-        table = rng.normal(size=(n, d)).astype(np.float32)
-        table[1::2] = table[0::2][: len(table[1::2])]        # exact ties
-        q = rng.normal(size=(Q, d)).astype(np.float32)
-        ids = rng.integers(-1, n, (Q, M)).astype(np.int32)
-        avail = (rng.random((Q, M)) < 0.7)
-        b = rng.integers(0, 40, (Q, M)).astype(np.int32)
-        e = b + rng.integers(0, 40, (Q, M)).astype(np.int32)
-        ver = rng.integers(0, 70, Q).astype(np.int32)
-        avail[Q // 2] = False                                  # all masked
-        pool_d = np.sort(rng.random((Q, L)).astype(np.float32), axis=1)
-        pool_d[:, 1::3] = pool_d[:, 0::3][:, : pool_d[:, 1::3].shape[1]]
-        pool_d = np.sort(pool_d, axis=1)
-        pool_ids = rng.integers(0, n, (Q, L)).astype(np.int32)
-        tail = rng.integers(0, L + 1, Q)
-        for qi in range(Q):
-            pool_d[qi, tail[qi]:] = np.inf
-            pool_ids[qi, tail[qi]:] = -1
-        pool_exp = (rng.random((Q, L)) < 0.5) & np.isfinite(pool_d)
-        step = tuple(t(a) for a in (ids, avail, b, e, ver, pool_ids, pool_d,
-                                    pool_exp))
+    # duplicate beam distances), M up to 8*S, an unsorted beam, every
+    # candidate live at the widest step, beam entries tied exactly with
+    # candidates, d with no whole number of 16-byte loads, and table views
+    # that do not start on 16 bytes. The int8 codes reach +-127 (each
+    # dimension's min and max).
+    for (Q, n, d, M, L, case) in ((1, 3, 4, 1, 1, ""), (5, 50, 17, 12, 6, ""),
+                                  (37, 2000, 128, 767, 64, ""),
+                                  (256, 20000, 128, 8 * S_wide, 64, ""),
+                                  (64, 2000, 128, 767, 64, "unsorted"),
+                                  (64, 20000, 128, 8 * S_wide, 64,
+                                   "all_live"),
+                                  (16, 40, 8, 200, 64, "tie"),
+                                  (37, 500, 1, 300, 16, ""),
+                                  (37, 500, 129, 300, 64, ""),
+                                  (37, 500, 17, 300, 16, "view"),
+                                  (37, 500, 128, 300, 16, "misaligned")):
+        q, table, step = step_case(rng, Q, n, d, M, L, case)
+        step = tuple(t(a) for a in step)
         tables = {"gathered_topk": (t(table),)}
         for tier, row in (("int8", "gathered_topk_quant_int8"),
                           ("float16", "gathered_topk_quant_f16")):
@@ -434,20 +430,87 @@ def kernel_edge_checks(dev, S_wide: int):
             tables[row] = (t(st.codes), t(st.scale), t(st.offset))
         for row, tab in tables.items():
             name = KERNELS[row][0]
-            args = (t(q), *tab, *step)
+            args = (t(q), step_table(tab[0], case), *tab[1:], *step)
             got = getattr(ops, name)(*args)
             want = getattr(ref, name + "_ref")(*args)
             err, bad = compare_beams(got, want, RTOL[name])
-            check(bad == 0, f"{row} Q={Q} n={n} d={d} M={M} L={L}: "
+            if case == "tie" and row != "gathered_topk_quant_int8":
+                # small integers: every distance is exact, so is every tie
+                bad += int((got[0] != want[0]).sum())
+            check(bad == 0, f"{row} Q={Q} n={n} d={d} M={M} L={L} {case}: "
                             f"err={err} mismatches={bad}")
             cases += 1
             smem = (ops.gathered_topk_smem_bytes if len(tab) == 1
                     else ops.gathered_topk_quant_smem_bytes)(d, M, L)
             emit({"phase": "kernel_edges", "kernel": row, "Q": Q, "n": n,
-                  "d": d, "M": M, "L": L, "max_abs_err": err,
+                  "d": d, "M": M, "L": L, "case": case, "max_abs_err": err,
                   "mismatched_ids": bad, "smem_bytes": smem})
     torch.cuda.synchronize()
     return cases
+
+
+def step_case(rng, Q, n, d, M, L, case):
+    """(queries, table, step arrays) of one gathered_topk edge case, all
+    NumPy. ``case``: "unsorted" shuffles each beam row; "all_live" makes
+    every candidate pass the mask; "tie" takes small integer vectors, so
+    every distance is exact and beam entries tie exactly with candidates of
+    the same id; "view" gives the table one extra leading row (see
+    :func:`step_table`)."""
+    import numpy as np
+    if case == "tie":
+        table = rng.integers(-2, 3, (n, d)).astype(np.float32)
+        q = rng.integers(-2, 3, (Q, d)).astype(np.float32)
+    else:
+        table = rng.normal(size=(n, d)).astype(np.float32)
+        table[1::2] = table[0::2][: len(table[1::2])]        # exact ties
+        q = rng.normal(size=(Q, d)).astype(np.float32)
+    ids = rng.integers(-1, n, (Q, M)).astype(np.int32)
+    avail = (rng.random((Q, M)) < 0.7)
+    b = rng.integers(0, 40, (Q, M)).astype(np.int32)
+    e = b + rng.integers(0, 40, (Q, M)).astype(np.int32)
+    ver = rng.integers(0, 70, Q).astype(np.int32)
+    if case in ("all_live", "tie"):
+        ids = rng.integers(0, n, (Q, M)).astype(np.int32)
+        avail[:] = True
+        b[:] = 0
+        e[:] = 100
+    else:
+        avail[Q // 2] = False                                  # all masked
+    pool_d = np.sort(rng.random((Q, L)).astype(np.float32), axis=1)
+    pool_d[:, 1::3] = pool_d[:, 0::3][:, : pool_d[:, 1::3].shape[1]]
+    pool_d = np.sort(pool_d, axis=1)
+    pool_ids = rng.integers(0, n, (Q, L)).astype(np.int32)
+    if case == "tie":
+        diff = table[pool_ids].astype(np.float64) - q[:, None, :]
+        pool_d = (diff * diff).sum(-1).astype(np.float32)
+    tail = rng.integers(0, L + 1, Q)
+    for qi in range(Q):
+        pool_d[qi, tail[qi]:] = np.inf
+        pool_ids[qi, tail[qi]:] = -1
+        if case in ("unsorted", "tie"):
+            perm = rng.permutation(L)
+            pool_d[qi], pool_ids[qi] = pool_d[qi, perm], pool_ids[qi, perm]
+    pool_exp = (rng.random((Q, L)) < 0.5) & np.isfinite(pool_d)
+    if case == "view":
+        table = np.concatenate([rng.normal(size=(1, d)).astype(np.float32),
+                                table])
+    return q, table, (ids, avail, b, e, ver, pool_ids, pool_d, pool_exp)
+
+
+def step_table(table, case):
+    """The table (or code table) of a :func:`step_case` as the kernel gets
+    it: ``table[1:]`` for "view"; for "misaligned" a contiguous copy whose
+    data starts one element past a 16-byte boundary."""
+    import torch
+    if case == "view":
+        return table[1:]
+    if case == "misaligned":
+        buf = torch.empty(table.numel() + 1, dtype=table.dtype,
+                          device=table.device)
+        buf[1:] = table.flatten()
+        table = buf[1:].view(table.shape)
+        check(table.data_ptr() % 16 != 0, "misaligned table is aligned")
+    return table
 
 
 def fused_topk_edge_checks(dev, rng) -> int:
@@ -585,10 +648,23 @@ def timed_execute(eng, req, reps: int):
     return res, statistics.median(times)
 
 
+def port_kernel_names() -> set:
+    """The ``__global__`` functions of the port's CUDA sources."""
+    names = set()
+    for fname in os.listdir(os.path.join(ROOT, CSRC)):
+        if fname.endswith((".cu", ".cuh")):
+            with open(os.path.join(ROOT, CSRC, fname)) as f:
+                names.update(re.findall(
+                    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                    r"(\w+)\s*\(", f.read()))
+    return names
+
+
 def profile_request(eng, req) -> dict:
     """Device busy share of one request, from a torch.profiler trace: the
-    union of CUDA kernel intervals over the host's wall time, and device
-    time by kernel name."""
+    union of CUDA kernel intervals over the host's wall time, device time
+    by kernel name (the top eight), and the device time of each of the
+    port's own kernels (:func:`port_kernel_names`), ranked or not."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -616,10 +692,17 @@ def profile_request(eng, req) -> dict:
     if cur_e is not None:
         busy += cur_e - cur_s
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    names = port_kernel_names()
+    ours: dict = {}
+    for name, us in by_name.items():
+        base = re.split(r"[<(]", name.split("(anonymous namespace)::")[-1])[0]
+        if base in names:
+            ours[base] = ours.get(base, 0.0) + us / 1e3
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": (1.0 - busy / wall_us) if spans else None,
             "device_kernels": len(spans),
-            "top_device_ms": {name[:60]: us / 1e3 for name, us in top}}
+            "top_device_ms": {name[:60]: us / 1e3 for name, us in top},
+            "port_kernel_ms": ours}
 
 
 def wavefront_steps(trace) -> int:

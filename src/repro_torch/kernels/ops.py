@@ -40,8 +40,12 @@ LAUNCHES: Dict[str, int] = {
     "pairwise_l2_int8": 0, "fused_topk_l2": 0, "fused_topk_l2_f16": 0}
 # code-table entry points by element type
 _QUANT_SUFFIX = {torch.int8: "int8", torch.float16: "f16"}
-# a block of the gathered_topk kernel holds its (L + M) list in shared memory
+# the most dynamic shared memory a block can have (a gathered_topk block
+# holds its query and its list of keys there)
 MAX_SHARED_BYTES = 232448
+# candidates a gathered_topk block masks, scores and sorts at a time
+# (gathered_topk.cu's kChunk)
+STEP_CHUNK = 2048
 # a fused_topk_l2 list is one warp wide
 FUSED_TOPK_MAX_K = 32
 # the query and corpus tile of fused_topk.cu (pairwise_tile.cuh's BQ, BN)
@@ -339,16 +343,22 @@ def gathered_l2_dot(queries, cand_vecs):
 
 # ---- wavefront steps ---------------------------------------------------------------
 
+def _step_smem_bytes(planes: int, d: int, M: int, L: int) -> int:
+    # ``planes`` (d,) float32 vectors, padded to 8 bytes, then one 8-byte
+    # key for each of the L + min(M, STEP_CHUNK) list entries
+    return -(-4 * planes * d // 8) * 8 + 8 * (L + min(M, STEP_CHUNK))
+
+
 def gathered_topk_smem_bytes(d: int, M: int, L: int) -> int:
-    """Dynamic shared memory one gathered_topk block needs: q, then
-    (dist, id, expanded) for each of the L + M list entries."""
-    return 4 * (d + 3 * (L + M))
+    """Dynamic shared memory one gathered_topk block needs: q, then a key
+    for each beam entry and each candidate of one chunk."""
+    return _step_smem_bytes(1, d, M, L)
 
 
 def gathered_topk_quant_smem_bytes(d: int, M: int, L: int) -> int:
     """Dynamic shared memory one gathered_topk_quant block needs: the
     float32 step's, plus the (d,) scale and offset beside q."""
-    return 4 * (3 * d + 3 * (L + M))
+    return _step_smem_bytes(3, d, M, L)
 
 
 def _check_step(queries, ids, avail, b, e, version, pool_ids, pool_d,

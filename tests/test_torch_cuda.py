@@ -25,24 +25,87 @@ def dev():
     return torch.device("cuda")
 
 
-def _wavefront_step(Q, n, d, M, L, seed=0):
+def _wavefront_step(Q, n, d, M, L, case="", seed=0):
+    """One step's inputs. ``case``: "unsorted" shuffles each beam row;
+    "all_live" makes every candidate pass the mask; "tie" takes small
+    integer vectors, so distances are exact in any order and beam entries
+    tie exactly with candidates of the same id; "view" passes ``table[1:]``
+    and "misaligned" a table whose data does not start on 16 bytes (both
+    are contiguous)."""
     rng = np.random.default_rng(seed)
-    table = rng.normal(size=(n, d)).astype(np.float32)
-    table[1::2] = table[0::2][: len(table[1::2])]          # exact ties
+    if case == "tie":
+        table = rng.integers(-2, 3, (n, d)).astype(np.float32)
+        q = rng.integers(-2, 3, (Q, d)).astype(np.float32)
+    else:
+        table = rng.normal(size=(n, d)).astype(np.float32)
+        table[1::2] = table[0::2][: len(table[1::2])]      # exact ties
+        q = rng.normal(size=(Q, d)).astype(np.float32)
     ids = rng.integers(-1, n + 3, (Q, M)).astype(np.int32)  # some past n
+    avail = rng.random((Q, M)) < 0.7
     pool_d = np.sort(rng.random((Q, L)).astype(np.float32), axis=1)
     pool_ids = rng.integers(0, n, (Q, L)).astype(np.int32)
+    b = rng.integers(0, 40, (Q, M)).astype(np.int32)
+    e = b + rng.integers(0, 40, (Q, M)).astype(np.int32)
+    ver = rng.integers(0, 70, Q).astype(np.int32)
+    if case in ("all_live", "tie"):
+        ids = rng.integers(0, n, (Q, M)).astype(np.int32)
+        avail[:] = True
+        b[:] = 0
+        e[:] = 100
+    if case == "tie":
+        diff = table[pool_ids].astype(np.float64) - q[:, None, :]
+        pool_d = (diff * diff).sum(-1).astype(np.float32)
     tail = rng.integers(0, L + 1, Q)
     for qi in range(Q):
         pool_d[qi, tail[qi]:] = np.inf
         pool_ids[qi, tail[qi]:] = -1
-    b = rng.integers(0, 40, (Q, M)).astype(np.int32)
+        if case in ("unsorted", "tie"):
+            perm = rng.permutation(L)
+            pool_d[qi], pool_ids[qi] = pool_d[qi, perm], pool_ids[qi, perm]
+    if case == "view":
+        table = np.concatenate([rng.normal(size=(1, d)).astype(np.float32),
+                                table])
     return [torch.from_numpy(a) for a in (
-        rng.normal(size=(Q, d)).astype(np.float32), table, ids,
-        rng.random((Q, M)) < 0.7, b,
-        b + rng.integers(0, 40, (Q, M)).astype(np.int32),
-        rng.integers(0, 70, Q).astype(np.int32), pool_ids, pool_d,
+        q, table, ids, avail, b, e, ver, pool_ids, pool_d,
         (rng.random((Q, L)) < 0.5) & np.isfinite(pool_d))]
+
+
+def _step_table(table, case):
+    """The table as the case hands it to the kernel (see _wavefront_step)."""
+    if case == "view":
+        return table[1:]
+    if case == "misaligned":
+        buf = torch.empty(table.numel() + 1, dtype=table.dtype,
+                          device=table.device)
+        buf[1:] = table.flatten()
+        table = buf[1:].view(table.shape)
+        assert table.data_ptr() % 16 != 0 and table.is_contiguous()
+    return table
+
+
+# (Q, n, d, M, L[, case]): ragged shapes, the widest route step (M = 8 *
+# 767), d = 1, 17 and 129 (no whole number of 16-byte loads), an unsorted
+# beam, every candidate live, exact beam/candidate ties, table views
+STEP_CASES = [(5, 50, 17, 12, 6), (64, 2000, 128, 767, 64),
+              (8, 3000, 128, 6136, 64), (64, 2000, 128, 767, 64, "unsorted"),
+              (8, 3000, 128, 6136, 64, "all_live"),
+              (16, 40, 8, 200, 64, "tie"), (37, 500, 1, 300, 16),
+              (37, 500, 129, 300, 64), (37, 500, 17, 300, 16, "view"),
+              (37, 500, 128, 300, 16, "misaligned")]
+
+
+def _assert_step_matches(got, want, exact: bool):
+    """ids equal where dists differ by more than 1e-5 relative, expanded
+    flags equal where ids are equal; everything equal where the case's
+    distances are exact."""
+    (gi, gd, ge), (wi, wd, we) = got, want
+    torch.testing.assert_close(gd, wd, rtol=1e-5, atol=1e-5)
+    tie = (gd - wd).abs() <= 1e-5 * (wd.abs() + 1)
+    assert bool(((gi == wi) | tie).all())
+    assert bool(((ge == we) | (gi != wi)).all())
+    if exact:
+        assert torch.equal(gi, wi) and torch.equal(gd, wd)
+        assert torch.equal(ge, we)
 
 
 @pytest.mark.parametrize("mask", [ANY_OVERLAP, QUERY_CONTAINED, 16 | 32, 63])
@@ -98,26 +161,24 @@ def test_int8_and_f16_scans_match_plain(dev, mask, shape):
 
 
 @pytest.mark.parametrize("dtype", ["int8", "float16"])
-@pytest.mark.parametrize("shape", [(5, 50, 17, 12, 6),
-                                   (64, 2000, 128, 767, 64),
-                                   (8, 3000, 128, 6136, 64)])
+@pytest.mark.parametrize("shape", STEP_CASES)
 def test_gathered_topk_quant_kernel_matches_plain(dev, dtype, shape):
+    case = shape[5] if len(shape) > 5 else ""
     args = [a.to(dev) for a in _wavefront_step(*shape, seed=7)]
     st = QuantizedStore.from_vectors(args[1].cpu().numpy(), dtype)
     if dtype == "int8":
         assert st.codes.min() == -127 and st.codes.max() == 127
     quant = [torch.from_numpy(a).to(dev) for a in (st.codes, st.scale,
                                                    st.offset)]
+    quant[0] = _step_table(quant[0], case)
     args = [args[0], *quant, *args[2:]]
     ops.reset_launches()
-    gi, gd, ge = ops.gathered_topk_quant(*args)
+    got = ops.gathered_topk_quant(*args)
     assert ops.LAUNCHES["gathered_topk_quant_" + (
         "int8" if dtype == "int8" else "f16")] == 1
-    wi, wd, we = ref.gathered_topk_quant_ref(*args)
-    torch.testing.assert_close(gd, wd, rtol=1e-5, atol=1e-5)
-    tie = (gd - wd).abs() <= 1e-5 * (wd.abs() + 1)
-    assert bool(((gi == wi) | tie).all())
-    assert bool(((ge == we) | (gi != wi)).all())
+    # float16 codes of small integers dequantize exactly
+    _assert_step_matches(got, ref.gathered_topk_quant_ref(*args),
+                         exact=case == "tie" and dtype == "float16")
 
 
 def test_gathered_l2_kernel_matches_plain(dev):
@@ -129,17 +190,16 @@ def test_gathered_l2_kernel_matches_plain(dev):
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("shape", [(5, 50, 17, 12, 6),
-                                   (64, 2000, 128, 767, 64),
-                                   (8, 3000, 128, 6136, 64)])
+@pytest.mark.parametrize("shape", STEP_CASES)
 def test_gathered_topk_kernel_matches_plain(dev, shape):
+    case = shape[5] if len(shape) > 5 else ""
     args = [a.to(dev) for a in _wavefront_step(*shape)]
-    gi, gd, ge = ops.gathered_topk(*args)
-    wi, wd, we = ref.gathered_topk_ref(*args)
-    torch.testing.assert_close(gd, wd, rtol=1e-5, atol=1e-5)
-    tie = (gd - wd).abs() <= 1e-5 * (wd.abs() + 1)
-    assert bool(((gi == wi) | tie).all())
-    assert bool(((ge == we) | (gi != wi)).all())
+    args[1] = _step_table(args[1], case)
+    ops.reset_launches()
+    got = ops.gathered_topk(*args)
+    assert ops.LAUNCHES["gathered_topk"] == 1
+    _assert_step_matches(got, ref.gathered_topk_ref(*args),
+                         exact=case == "tie")
 
 
 def test_wrappers_count_launches_and_refuse_bad_input(dev):

@@ -114,6 +114,54 @@ def test_gathered_topk_plain_matches_pallas_and_ref(shape):
         np.testing.assert_array_equal(ke, ex.astype(bool))
 
 
+@pytest.mark.parametrize("case", ["unsorted_beam", "all_live"])
+def test_gathered_topk_plain_matches_pallas_on_hard_steps(case):
+    """The semantics the CUDA step kernel is held to, where its selection
+    differs most from a sorted-beam merge: a beam in no order (the kernel
+    may not assume it sorted), and a step whose candidates all pass the
+    mask (every entry of [beam | candidates] is finite)."""
+    Q, n, d, M, L = 6, 120, 16, 48, 16
+    args = list(_mk_wavefront_step(Q, n, d, M, L, seed=11))
+    rng = np.random.default_rng(12)
+    if case == "unsorted_beam":
+        for qi in range(Q):
+            perm = rng.permutation(L)
+            for j in (7, 8, 9):                 # pool_ids, pool_d, pool_exp
+                args[j][qi] = args[j][qi][perm]
+        assert not all(np.all(np.diff(r[np.isfinite(r)]) >= 0)
+                       for r in args[8])
+    else:
+        args[2] = rng.integers(0, n, (Q, M)).astype(np.int32)
+        args[3] = np.ones((Q, M), bool)
+        args[4] = np.zeros((Q, M), np.int32)
+        args[5] = np.full((Q, M), 100, np.int32)
+    ki, kd, ke = (a.numpy() for a in ops.gathered_topk(*_t(args)))
+    pi, pd, pe = (np.asarray(a) for a in pallas_gathered_topk(
+        *map(jnp.asarray, args), bq=2, interpret=True))
+    ri, rd, re = (np.asarray(a) for a in jref.gathered_topk_ref(
+        *map(jnp.asarray, args)))
+    if case == "all_live":
+        assert np.isfinite(kd).all()
+    for ids, dist, ex in ((pi, pd, pe), (ri, rd, re)):
+        np.testing.assert_array_equal(ki, ids)
+        np.testing.assert_allclose(kd, dist, rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(ke, ex.astype(bool))
+
+
+@pytest.mark.parametrize("smem", [ops.gathered_topk_smem_bytes,
+                                  ops.gathered_topk_quant_smem_bytes])
+def test_step_shared_memory_admits_the_widest_route_step(smem):
+    """The step kernel's shared memory fits a block at the widest step the
+    graph route makes (fanout 8 at S = 767, L = 64), and is never more than
+    the first design's 12 bytes per entry of L + M (so every step that
+    design took is still admitted)."""
+    assert smem(128, 8 * 767, 64) <= ops.MAX_SHARED_BYTES
+    planes = 1 if smem is ops.gathered_topk_smem_bytes else 3
+    for d, M, L in ((1, 0, 1), (17, 1, 1), (128, 8 * 767, 64),
+                    (128, 19000, 64), (129, 3, 4000), (4096, 50, 10)):
+        assert smem(d, M, L) <= 4 * (planes * d + 3 * (L + M))
+
+
 def test_gathered_topk_ties_go_to_the_lower_position():
     """Exact ties (a duplicated table row, equal beam distances) resolve to
     the lower position of [beam | candidates], as lax.top_k does."""
