@@ -3,6 +3,11 @@
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --phases env,kernels   # a short build-and-check run
+    python3 chip_smoke.py --phases env,kernels,flat,quant_flat
+                                     # the scans at the main path's shapes,
+                                     # without the 50k graph build
+    python3 chip_smoke.py --phases env,scan_sweep
+                                     # the scans' time against d
     python3 chip_smoke.py --phases env,kernels,flat,graph,routes,profile
                                      # also profile one flat and one graph
                                      # request (device busy share)
@@ -15,27 +20,31 @@ Phases, each printing one JSON object per line:
    exact ties, duplicate rows, k > N, wide steps, unsorted beams, steps
    whose candidates are all live, rows that are no whole number of 16-byte
    loads or do not start on 16 bytes, every predicate mask).
-3. ``flat``: the flat route at n = 1M, d = 128 (the SIFT1M shape), checked
+3. ``scan_sweep``: the three scans and ``fused_topk_l2`` timed at Q = 256
+   and the flat phase's n over d = 16 .. 256 on random inputs, beside the
+   rate of their tensor-core instructions alone (``csrc/mma_probe.cu``) and
+   a fill of the (Q, N) output: what holds each scan above its bound.
+4. ``flat``: the flat route at n = 1M, d = 128 (the SIFT1M shape), checked
    against a float64 NumPy brute force; then ``fused_topk_l2`` on the
    inputs the route handed to ``pairwise_l2_masked``, held against the
    route's result, without a (Q, N) buffer.
-4. ``graph``: an MSTG index built by the port's bulk builder, served on the
+5. ``graph``: an MSTG index built by the port's bulk builder, served on the
    graph route with Q = 256, checked against the port's CPU run on the same
    index; recall against the flat route is printed as information;
    ``gathered_l2_dot`` on the arguments of the route's ``gathered_l2``
    call. A fanout sweep follows.
-5. ``routes``: one ``auto`` and one ``pruned`` request on the graph index;
+6. ``routes``: one ``auto`` and one ``pruned`` request on the graph index;
    the pruned route must have recall 1.0 against the flat route.
-6. ``quant_flat``: the int8 and float16 storage tiers on the flat phase's
+7. ``quant_flat``: the int8 and float16 storage tiers on the flat phase's
    index (quantized on the host by the engine): one scan launch per
    request, dists against the float64 brute force, recall@10 against the
    float32 flat route, and the float32 corpus never staged.
-7. ``quant_graph``: both tiers on the graph phase's index, on the graph
+8. ``quant_graph``: both tiers on the graph phase's index, on the graph
    route: ``gathered_topk_quant`` launched and ``gathered_topk`` not, held
    against the port's CPU run of the same configuration.
-8. ``quant_routes``: the int8 tier's ``pruned`` (recall against the
+9. ``quant_routes``: the int8 tier's ``pruned`` (recall against the
    float32 flat route) and ``auto`` (the work model's choice) routes.
-9. ``trace``: the traced kernel path (pulls in ``flat`` and ``graph``):
+10. ``trace``: the traced kernel path (pulls in ``flat`` and ``graph``):
    ``fused_topk_l2`` and ``gathered_l2_dot`` under ``obs.capture()``, each a
    ``kernel:<name>`` span with ``impl == "cuda"`` and ``frac_of_peak`` in
    (0, 1.05]; a traced graph request equal to an untraced one, with
@@ -52,8 +61,11 @@ inputs the main path handed to each kernel. The last lines are a ``{"kernels":
 a CUDA device, or without the repository's ``src/`` beside this file, it
 exits non-zero and prints no result.
 
-TF32 is switched off for matmuls and cuDNN, so every float32 product here,
-the yardstick ``torch.matmul`` included, runs in full float32.
+TF32 is switched off for torch's matmuls and cuDNN, so the plain versions
+and the yardstick ``torch.matmul`` run in full float32. The port's own
+float scans multiply on the tensor cores in 3xTF32 (2xTF32 over a float16
+corpus), which keeps float32 accuracy; their bounds count those passes at
+the card's TF32 rate.
 """
 from __future__ import annotations
 
@@ -68,8 +80,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
-ALL_PHASES = ("env", "kernels", "flat", "quant_flat", "graph", "quant_graph",
-              "routes", "quant_routes", "trace")
+ALL_PHASES = ("env", "kernels", "scan_sweep", "flat", "quant_flat", "graph",
+              "quant_graph", "routes", "quant_routes", "trace")
 # the card's published peaks (repro_torch.obs.profile.PEAKS), set in main
 PEAKS = None
 
@@ -101,18 +113,35 @@ KERNELS = {
 # Tolerances, kernel vs plain version on the same card, by ops entry point.
 # The gathered kernels sum d positive squares in another order: relative
 # error below d * 2^-24 (the quantized step's x_hat itself is bit-equal).
-# The float pairwise kernel forms |q|^2 - 2 q.c + |c|^2 with its own FMA
-# order; its error scales with the operands' norms, so it is held to 1e-4
-# relative to (|dist| + 1), the tolerance of the reference's kernel tests.
+# The float pairwise kernel forms |q|^2 - 2 q.c + |c|^2 with its own sum
+# order (3xTF32 on the tensor cores); its error scales with the operands'
+# norms, so it is held to 1e-4 relative to (|dist| + 1), the tolerance of
+# the reference's kernel tests.
 # The int8 scan's integer sums are exact and its epilogue is rounded in the
-# plain version's order, so it is expected bit-equal; it is held to the
-# same 1e-4 as the float scan. gathered_l2_dot and fused_topk_l2 take the
-# |q|^2 - 2 q.c + |c|^2 form too, and are held to the same 1e-4 (ids of
-# fused_topk_l2 may differ only where its dists tie within it).
+# plain version's order, so it is held bit-equal at the edge shapes (its
+# main-shape row reports max_abs_err under the float scan's 1e-4).
+# gathered_l2_dot and fused_topk_l2 take the |q|^2 - 2 q.c + |c|^2 form
+# too, and are held to the same 1e-4 (ids of fused_topk_l2 may differ only
+# where its dists tie within it).
 RTOL = {"gathered_topk": 1e-5, "gathered_topk_quant": 1e-5,
         "gathered_l2": 1e-5, "gathered_l2_dot": 1e-4,
         "pairwise_l2_masked": 1e-4, "pairwise_l2_int8": 1e-4,
         "fused_topk_l2": 1e-4}
+
+
+# Edge shapes of the scans, (Q, N, d, case): d = 1, 17 and 129 take the
+# element copy path, the rest the 16-byte one; "misaligned" hands every
+# operand over one element past a 16-byte boundary. No N is a multiple of
+# the 128-row corpus tile, and Q = 67, 130 and 300 are no multiple of the
+# 64-row query block.
+SCAN_EDGES = ((1, 1, 1, ""), (3, 5, 8, ""), (67, 1000, 17, ""),
+              (130, 4099, 128, ""), (256, 3001, 64, ""), (300, 2055, 129, ""),
+              (1, 777, 256, ""), (256, 20000, 128, ""),
+              (67, 1000, 128, "misaligned"), (300, 333, 17, "misaligned"))
+# (Q, S, d, case) of gathered_l2 / gathered_l2_dot
+GATHERED_EDGES = ((1, 1, 1, ""), (5, 37, 17, ""), (13, 9, 1, ""),
+                  (256, 44, 128, ""), (67, 30, 64, ""), (300, 12, 129, ""),
+                  (1, 20, 256, ""), (67, 30, 128, "misaligned"))
 
 
 class CheckFailed(RuntimeError):
@@ -176,6 +205,14 @@ def bound(nbytes: float, ops: float, peak: float = None):
     t_bytes = nbytes / PEAKS.hbm_bytes_per_s * 1e3
     t_ops = ops / (peak or PEAKS.fp32_flop_per_s) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def tf32_passes(corpus) -> int:
+    """TF32 passes of the float scans' tensor-core product
+    (pairwise_tile.cuh): 3 over a float32 corpus (3xTF32), 2 over a float16
+    one, whose values are TF32 values."""
+    import torch
+    return 3 if corpus.dtype == torch.float32 else 2
 
 
 # ---- comparisons -----------------------------------------------------------
@@ -289,7 +326,8 @@ def measure_kernel(row: str, args, launches: int):
         N = corpus.shape[0]
         bms, by = bound(ops.fused_topk_stream_bytes(Q, N, d, args[7],
                                                     corpus.element_size()),
-                        2.0 * Q * N * d)
+                        tf32_passes(corpus) * 2.0 * Q * N * d,
+                        PEAKS.tf32_flop_per_s)
         # the product alone: no norms, predicate or top-k
         lhs = queries.to(corpus.dtype)
         lib = time_ms(lambda: torch.matmul(lhs, corpus.T))
@@ -309,10 +347,10 @@ def measure_kernel(row: str, args, launches: int):
         queries, corpus = args[:2]
         Q, d = queries.shape
         N = corpus.shape[0]
-        # the float16 scan still multiplies in float32: the fp32 rate
         bms, by = bound(ops.pairwise_stream_bytes(Q, N, d,
                                                   corpus.element_size()),
-                        2.0 * Q * N * d)
+                        tf32_passes(corpus) * 2.0 * Q * N * d,
+                        PEAKS.tf32_flop_per_s)
         lhs = queries.to(corpus.dtype)
         lib = time_ms(lambda: torch.matmul(lhs, corpus.T))
     ms = time_ms(lambda: kern(*args))
@@ -329,6 +367,84 @@ def measure_kernel(row: str, args, launches: int):
     return out
 
 
+def scan_sweep(dev, Q: int, N: int, seed: int) -> None:
+    """Time the three scans and fused_topk_l2 at Q x N over d = 16 .. 256
+    on random inputs: a scan's time against d splits into the part that
+    grows with d (copies and product) and the part that does not (the
+    epilogue and the (Q, N) output), which is what holds it above its
+    bound. Beside them, the rate of the scans' tensor-core instructions
+    alone (``mma_probe``) and a fill of the (Q, N) output (what writing it
+    alone takes). One line per kernel and d; no launch counts."""
+    import torch
+    from repro_torch.core import intervals as iv
+    from repro_torch.kernels import _build, ops
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lo = torch.rand(N, device=dev, generator=g) * 100
+    hi = lo + torch.rand(N, device=dev, generator=g) * 30
+    ql = torch.rand(Q, device=dev, generator=g) * 100
+    qh = ql + torch.rand(Q, device=dev, generator=g) * 30
+    ends = (lo, hi, ql, qh, iv.ANY_OVERLAP)
+    # the warp-level tensor-core rate alone (csrc/mma_probe.cu): 4 blocks
+    # of 8 warps an SM, each warp 8 * iters independent mma.sync
+    lib = _build.load()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks, iters = 4 * sms, 256
+    sink = torch.empty(blocks * 256, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for kind, instr, ops_each, peak in (
+            (0, "mma.sync.m16n8k8 tf32", 2048, PEAKS.tf32_flop_per_s),
+            (1, "mma.sync.m16n8k32 s8", 8192, PEAKS.int8_op_per_s)):
+        def probe():
+            check(lib.mma_probe(kind, blocks, iters, sink.data_ptr(),
+                                stream) == 0, "mma_probe failed to launch")
+        ms = time_ms(probe, reps=5)
+        rate = blocks * 8 * 8 * iters * ops_each / (ms / 1e3)
+        emit({"phase": "scan_sweep", "kernel": "mma_probe",
+              "instruction": instr, "ms": ms, "ops_per_s": rate,
+              "frac_of_peak": rate / peak})
+    # the output alone: a fill of the (Q, N) float32 matrix
+    out = torch.empty((Q, N), device=dev)
+    emit({"phase": "scan_sweep", "kernel": "fill_", "Q": Q, "N": N,
+          "ms": time_ms(lambda: out.fill_(float("inf")), reps=10),
+          "bound_ms": 4.0 * Q * N / PEAKS.hbm_bytes_per_s * 1e3,
+          "bound_by": "bytes"})
+    del out
+    for d in (16, 32, 64, 128, 256):
+        q = torch.randn(Q, d, device=dev, generator=g)
+        c = torch.randn(N, d, device=dev, generator=g)
+        codes = torch.randint(-127, 128, (N, d), device=dev, generator=g,
+                              dtype=torch.int8)
+        quant = (codes, torch.ones(d, device=dev), torch.zeros(d, device=dev),
+                 torch.rand(N, device=dev, generator=g) * d)
+        runs = {
+            "pairwise_l2_masked": lambda: ops.pairwise_l2_masked(q, c, *ends),
+            "pairwise_l2_masked_f16": lambda: ops.pairwise_l2_masked(
+                q, c16, *ends),
+            "pairwise_l2_int8": lambda: ops.pairwise_l2_int8(q, *quant,
+                                                             *ends),
+            "fused_topk_l2": lambda: ops.fused_topk_l2(q, c, *ends, 10),
+        }
+        c16 = c.half()
+        for name, fn in runs.items():
+            ms = time_ms(fn, reps=10)
+            corpus = c16 if name.endswith("f16") else c
+            if name == "pairwise_l2_int8":
+                bms, by = bound(ops.int8_scan_stream_bytes(Q, N, d),
+                                2.0 * Q * N * d, PEAKS.int8_op_per_s)
+            elif name == "fused_topk_l2":
+                bms, by = bound(ops.fused_topk_stream_bytes(Q, N, d, 10),
+                                3 * 2.0 * Q * N * d, PEAKS.tf32_flop_per_s)
+            else:
+                bms, by = bound(ops.pairwise_stream_bytes(
+                    Q, N, d, corpus.element_size()),
+                    tf32_passes(corpus) * 2.0 * Q * N * d,
+                    PEAKS.tf32_flop_per_s)
+            emit({"phase": "scan_sweep", "kernel": name, "Q": Q, "N": N,
+                  "d": d, "ms": ms, "bound_ms": bms, "bound_by": by})
+        del q, c, c16, codes, quant, runs
+        torch.cuda.empty_cache()
+
+
 # ---- phase 2: edge shapes ----------------------------------------------------
 
 def kernel_edge_checks(dev, S_wide: int):
@@ -342,15 +458,21 @@ def kernel_edge_checks(dev, S_wide: int):
     t = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
     cases = 0
 
-    # pairwise scans (float32 and float16 corpus, int8 codes): ragged Q/N
-    # and d, every mask 0..63 at small N
-    for (Q, N, d) in ((1, 1, 1), (3, 5, 8), (67, 1000, 17), (130, 4099, 128)):
+    # pairwise scans (float32 and float16 corpus, int8 codes): ragged Q, N
+    # and d, on both copy paths (d = 1, 17, 129: rows of no whole number of
+    # 16-byte pieces; "misaligned": every operand starts one element past
+    # 16 bytes), N past a multiple of the 128-row tile, Q past a multiple
+    # of the 64-row block; every mask 0..63 at small N
+    for (Q, N, d, case) in SCAN_EDGES:
         q = t(rng.normal(size=(Q, d)).astype(np.float32))
         c_np = rng.normal(size=(N, d)).astype(np.float32)
         c = t(c_np)
         c16 = c.half()
         st = QuantizedStore.from_vectors(c_np, "int8")
         i8 = [t(a) for a in (st.codes, st.scale, st.offset, st.sq_norm)]
+        if case == "misaligned":
+            q, c, c16 = (step_table(x, case) for x in (q, c, c16))
+            i8[0] = step_table(i8[0], case)
         lo_np = rng.integers(0, 50, N).astype(np.float32)
         lo = t(lo_np)
         hi = t(lo_np + rng.integers(0, 20, N).astype(np.float32))
@@ -378,24 +500,37 @@ def kernel_edge_checks(dev, S_wide: int):
             for mask in masks:
                 got, want = run(mask)
                 err, ok = compare_dists(got, want, RTOL[KERNELS[row][0]])
-                check(ok, f"{row} Q={Q} N={N} d={d} mask={mask}: err={err}")
+                if row == "pairwise_l2_int8":      # integer sums: bit-equal
+                    fin = torch.isfinite(want)
+                    ok = ok and torch.equal(got[fin], want[fin])
+                check(ok, f"{row} Q={Q} N={N} d={d} {case} mask={mask}: "
+                          f"err={err}")
                 worst = max(worst, err)
                 cases += 1
             emit({"phase": "kernel_edges", "kernel": row, "Q": Q, "N": N,
-                  "d": d, "masks": len(masks), "max_abs_err": worst})
+                  "d": d, "case": case, "masks": len(masks),
+                  "max_abs_err": worst})
 
-    # gathered_l2 and gathered_l2_dot: ragged Q, S and d
-    for (Q, S, d) in ((1, 1, 1), (5, 37, 17), (13, 9, 1), (256, 44, 128)):
-        q = t(rng.normal(size=(Q, d)).astype(np.float32))
-        cv = t(rng.normal(size=(Q, S, d)).astype(np.float32))
-        for name in ("gathered_l2", "gathered_l2_dot"):
-            err, ok = compare_dists(getattr(ops, name)(q, cv),
-                                    getattr(ref, name + "_ref")(q, cv),
-                                    RTOL[name])
-            check(ok, f"{name} Q={Q} S={S} d={d}: err={err}")
-            cases += 1
-            emit({"phase": "kernel_edges", "kernel": name, "Q": Q, "S": S,
-                  "d": d, "max_abs_err": err})
+    # gathered_l2 and gathered_l2_dot: ragged Q, S and d; float32, float16
+    # and bfloat16 candidates (a float16 query with the float16 ones)
+    for (Q, S, d, case) in GATHERED_EDGES:
+        q32 = t(rng.normal(size=(Q, d)).astype(np.float32))
+        cv32 = t(rng.normal(size=(Q, S, d)).astype(np.float32))
+        for dtype in (torch.float32, torch.float16, torch.bfloat16):
+            cv = cv32.to(dtype)
+            q = q32.half() if dtype == torch.float16 else q32
+            if case == "misaligned":
+                cv = step_table(cv, case)
+            for name in ("gathered_l2", "gathered_l2_dot"):
+                err, ok = compare_dists(getattr(ops, name)(q, cv),
+                                        getattr(ref, name + "_ref")(q, cv),
+                                        RTOL[name])
+                check(ok, f"{name} Q={Q} S={S} d={d} {dtype} {case}: "
+                          f"err={err}")
+                cases += 1
+                emit({"phase": "kernel_edges", "kernel": name, "Q": Q,
+                      "S": S, "d": d, "dtype": str(dtype), "case": case,
+                      "max_abs_err": err})
 
     cases += fused_topk_edge_checks(dev, rng)
 
@@ -524,10 +659,19 @@ def fused_topk_edge_checks(dev, rng) -> int:
     from repro_torch.kernels import ops, ref
     t = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
     cases = 0
-    for (Q, N, d, k) in ((1, 1, 1, 1), (3, 5, 8, 10), (67, 1000, 17, 32),
-                         (130, 4099, 128, 10), (256, 20000, 128, 1)):
+    for (Q, N, d, k, case) in ((1, 1, 1, 1, ""), (3, 5, 8, 10, ""),
+                               (67, 1000, 17, 32, ""),
+                               (130, 4099, 128, 10, ""),
+                               (256, 20000, 128, 1, ""),
+                               (256, 3001, 64, 10, ""),
+                               (300, 2055, 129, 7, ""),
+                               (1, 777, 256, 32, ""),
+                               (67, 1000, 128, 10, "misaligned")):
         q = t(rng.normal(size=(Q, d)).astype(np.float32))
         c = t(rng.normal(size=(N, d)).astype(np.float32))
+        c16 = c.half()
+        if case == "misaligned":
+            q, c, c16 = (step_table(x, case) for x in (q, c, c16))
         lo_np = rng.integers(0, 50, N).astype(np.float32)
         hi_np = lo_np + rng.integers(0, 20, N).astype(np.float32)
         if N > 3:                                   # NaN-padded rows
@@ -541,19 +685,20 @@ def fused_topk_edge_checks(dev, rng) -> int:
                                              iv.QUERY_CONTAINED,
                                              iv.BEFORE | iv.AFTER)
         for row, corpus in (("fused_topk_l2", c), ("fused_topk_l2_f16",
-                                                   c.half())):
+                                                   c16)):
             worst = 0.0
             for mask in masks:
                 args = (q, corpus, *rest, mask, k)
                 err, b = compare_beams(ops.fused_topk_l2(*args),
                                        ref.fused_topk_l2_ref(*args),
                                        RTOL["fused_topk_l2"])
-                check(b == 0, f"{row} Q={Q} N={N} d={d} k={k} mask={mask}: "
-                              f"err={err} mismatches={b}")
+                check(b == 0, f"{row} Q={Q} N={N} d={d} k={k} {case} "
+                              f"mask={mask}: err={err} mismatches={b}")
                 worst = max(worst, err)
                 cases += 1
             emit({"phase": "kernel_edges", "kernel": row, "Q": Q, "N": N,
-                  "d": d, "k": k, "masks": len(masks), "max_abs_err": worst})
+                  "d": d, "k": k, "case": case, "masks": len(masks),
+                  "max_abs_err": worst})
     # duplicate rows 3, 5 (one tile) and 600, 4100 (later tiles and splits)
     Q, N, d = 4, 5000, 128
     c = rng.normal(size=(N, d)).astype(np.float32)
@@ -870,6 +1015,8 @@ def main() -> int:
     if "kernels" in phases:
         n_cases = kernel_edge_checks(dev, S_wide=767)
         emit({"phase": "kernel_edges_done", "cases": n_cases})
+    if "scan_sweep" in phases:
+        scan_sweep(dev, 256, args.flat_n, args.seed)
 
     k = 10
     Qn = 256

@@ -29,19 +29,21 @@ LIB_NAME = "librepro_torch_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of each entry point: pointers, then ints, then the stream
-# (fused_topk_l2_slots is a query, not a launch: one int).
+# (fused_topk_l2_slots is a query, not a launch: one int; mma_probe, a
+# measurement no route calls, takes its ints first).
 SIGNATURES = {
     "gathered_topk": [_P] * 13 + [_I] * 5 + [_P],
     "gathered_topk_quant_int8": [_P] * 15 + [_I] * 5 + [_P],
     "gathered_topk_quant_f16": [_P] * 15 + [_I] * 5 + [_P],
-    "gathered_l2": [_P] * 3 + [_I] * 3 + [_P],
-    "gathered_l2_dot": [_P] * 3 + [_I] * 3 + [_P],
-    "pairwise_l2_masked": [_P] * 7 + [_I] * 4 + [_P],
-    "pairwise_l2_masked_f16": [_P] * 7 + [_I] * 4 + [_P],
+    "gathered_l2": [_P] * 3 + [_I] * 4 + [_P],
+    "gathered_l2_dot": [_P] * 3 + [_I] * 4 + [_P],
+    "pairwise_l2_masked": [_P] * 8 + [_I] * 4 + [_P],
+    "pairwise_l2_masked_f16": [_P] * 8 + [_I] * 4 + [_P],
     "pairwise_l2_int8": [_P] * 10 + [_I] * 4 + [_P],
-    "fused_topk_l2": [_P] * 10 + [_I] * 6 + [_P],
-    "fused_topk_l2_f16": [_P] * 10 + [_I] * 6 + [_P],
+    "fused_topk_l2": [_P] * 11 + [_I] * 6 + [_P],
+    "fused_topk_l2_f16": [_P] * 11 + [_I] * 6 + [_P],
     "fused_topk_l2_slots": [_I],
+    "mma_probe": [_I] * 3 + [_P] * 2,
 }
 
 _lock = threading.Lock()

@@ -48,8 +48,12 @@ MAX_SHARED_BYTES = 232448
 STEP_CHUNK = 2048
 # a fused_topk_l2 list is one warp wide
 FUSED_TOPK_MAX_K = 32
-# the query and corpus tile of fused_topk.cu (pairwise_tile.cuh's BQ, BN)
-_FUSED_TILE = 64
+# the query block and corpus tile of fused_topk.cu (pairwise_tile.cuh's BQ,
+# BN)
+_FUSED_QBLOCK = 64
+_FUSED_TILE = 128
+# candidate element types of gathered_l2.cu, by their code there
+_GATHERED_ELEM = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
 def reset_launches() -> None:
@@ -89,6 +93,14 @@ def _launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch "
                            f"(cudaError {rc})")
     LAUNCHES[name] += 1
+
+
+def _split_scratch(Q: int, d: int, device) -> torch.Tensor:
+    """Scratch of the float scans' query split (pairwise_tile.cuh's
+    scratch_floats): a big and a small (Q, d) plane, each padded to 4
+    floats, then |q|^2."""
+    return torch.empty(2 * (-(-Q * d // 4) * 4) + Q, dtype=torch.float32,
+                       device=device)
 
 
 def _check_endpoints(lo, hi, ql, qh, N: int, Q: int, mask: int) -> None:
@@ -214,9 +226,10 @@ def pairwise_l2_masked(queries, corpus, lo, hi, ql, qh, mask: int):
     name = ("pairwise_l2_masked" if corpus.dtype == f32
             else "pairwise_l2_masked_f16")
     out = torch.empty((Q, N), dtype=f32, device=queries.device)
+    scratch = _split_scratch(Q, d, queries.device)
     _launch(name, queries.device, queries.data_ptr(), corpus.data_ptr(),
             lo.data_ptr(), hi.data_ptr(), ql.data_ptr(), qh.data_ptr(),
-            out.data_ptr(), Q, N, d, int(mask))
+            out.data_ptr(), scratch.data_ptr(), Q, N, d, int(mask))
     return out
 
 
@@ -292,18 +305,19 @@ def fused_topk_l2(queries, corpus, lo, hi, ql, qh, mask: int, k: int = 10):
     f16 = corpus.dtype == torch.float16
     # one wave of the first grid: every block walks as many corpus tiles
     tiles = -(-N // _FUSED_TILE)
-    qblocks = -(-Q // _FUSED_TILE)
+    qblocks = -(-Q // _FUSED_QBLOCK)
     splits = max(1, min(tiles, _fused_slots(dev.index, f16)
                             // max(qblocks, 1)))
     part_d = torch.empty((Q, splits, k), dtype=f32, device=dev)
     part_i = torch.empty((Q, splits, k), dtype=torch.int32, device=dev)
     out_d = torch.empty((Q, k), dtype=f32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    scratch = _split_scratch(Q, d, dev)
     _launch("fused_topk_l2_f16" if f16 else "fused_topk_l2", dev,
             queries.data_ptr(), corpus.data_ptr(), lo.data_ptr(),
             hi.data_ptr(), ql.data_ptr(), qh.data_ptr(), part_d.data_ptr(),
-            part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), Q, N, d,
-            int(mask), k, splits)
+            part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+            scratch.data_ptr(), Q, N, d, int(mask), k, splits)
     return out_i, out_d
 
 
@@ -314,11 +328,16 @@ def _gathered(name: str, plain, queries, cand_vecs):
         return plain(queries, cand_vecs)
     Q, d = queries.shape
     S = cand_vecs.shape[1]
+    if cand_vecs.dtype not in _GATHERED_ELEM:
+        raise TypeError(f"cand_vecs: expected float32, float16 or bfloat16, "
+                        f"got {cand_vecs.dtype}")
+    if queries.dtype in (torch.float16, torch.bfloat16):
+        queries = queries.to(torch.float32)     # widened, as the kernel does
     _check("queries", queries, torch.float32, (Q, d))
-    _check("cand_vecs", cand_vecs, torch.float32, (Q, S, d))
+    _check("cand_vecs", cand_vecs, cand_vecs.dtype, (Q, S, d))
     out = torch.empty((Q, S), dtype=torch.float32, device=queries.device)
     _launch(name, queries.device, queries.data_ptr(), cand_vecs.data_ptr(),
-            out.data_ptr(), Q, S, d)
+            out.data_ptr(), Q, S, d, _GATHERED_ELEM[cand_vecs.dtype])
     return out
 
 
@@ -329,7 +348,9 @@ def _gathered_bytes(queries, cand_vecs) -> int:
 
 @_traced("gathered_l2", _gathered_bytes)
 def gathered_l2(queries, cand_vecs):
-    """(Q, d) x (Q, S, d) float32 -> (Q, S) float32 squared L2."""
+    """(Q, d) x (Q, S, d) -> (Q, S) float32 squared L2. On the card the
+    candidates are float32, float16 or bfloat16 (widened as they are read)
+    and a float16 or bfloat16 query is widened to float32 first."""
     return _gathered("gathered_l2", ref.gathered_l2_ref, queries, cand_vecs)
 
 

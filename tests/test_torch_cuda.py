@@ -344,8 +344,8 @@ def test_new_wrappers_refuse_bad_input(dev):
         ops.fused_topk_l2(args[0], args[1].double(), *args[2:], ANY_OVERLAP,
                           5)
     with pytest.raises(TypeError):
-        ops.gathered_l2_dot(args[0].half(),
-                            torch.zeros((4, 3, 8), device=dev).half())
+        ops.gathered_l2_dot(args[0],
+                            torch.zeros((4, 3, 8), device=dev).double())
     assert sum(ops.LAUNCHES.values()) == 0
 
 
@@ -367,3 +367,98 @@ def test_traced_kernel_spans_on_the_card(dev):
             assert 0.0 < sp.args["frac_of_peak"] <= 1.05
     assert all(torch.equal(a, b) for a, b in zip(traced[0], plain[0]))
     assert torch.equal(traced[1], plain[1])
+
+
+# (Q, N, d, case) for the scans on both copy paths: d = 1, 17 and 129 take
+# the element path; N past a multiple of the 128-row tile, Q past a
+# multiple of the 64-row block; "misaligned" hands every operand over one
+# element past a 16-byte boundary
+SCAN_EDGES = [(1, 1, 1, ""), (67, 1000, 17, ""), (256, 3001, 64, ""),
+              (130, 4099, 128, ""), (300, 2055, 129, ""), (1, 777, 256, ""),
+              (67, 1000, 128, "misaligned"), (300, 333, 17, "misaligned")]
+
+
+@pytest.mark.parametrize("shape", SCAN_EDGES)
+def test_tensor_core_scans_match_plain_at_edge_shapes(dev, shape):
+    """Kernel 5 (float32 and float16 corpus) within 1e-4 of its plain
+    version, kernel 6 bit-equal, kernel 7 on the same inputs."""
+    Q, N, d, case = shape
+    q, st, lo, hi, ql, qh = _scan_inputs(Q, N, d, seed=Q + N + d)
+    qt, c, lo, hi, ql, qh = (torch.from_numpy(a).to(dev) for a in (
+        q, st.dequantize(), lo, hi, ql, qh))
+    i8 = [torch.from_numpy(a).to(dev) for a in (st.codes, st.scale,
+                                                st.offset, st.sq_norm)]
+    c16 = c.half()
+    qt, c, c16, i8[0] = (_step_table(x, case) for x in (qt, c, c16, i8[0]))
+    for mask in (ANY_OVERLAP, 16 | 32):
+        for corpus in (c, c16):
+            got = ops.pairwise_l2_masked(qt, corpus, lo, hi, ql, qh, mask)
+            want = ref.pairwise_l2_masked_ref(qt, corpus, lo, hi, ql, qh,
+                                              mask)
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+            k = min(10, N)
+            _assert_topk_close(
+                ops.fused_topk_l2(qt, corpus, lo, hi, ql, qh, mask, k),
+                ref.fused_topk_l2_ref(qt, corpus, lo, hi, ql, qh, mask, k))
+        got = ops.pairwise_l2_int8(qt, *i8, lo, hi, ql, qh, mask)
+        want = ref.pairwise_l2_int8_ref(qt, *i8, lo, hi, ql, qh, mask)
+        assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+        fin = torch.isfinite(want)
+        assert torch.equal(got[fin], want[fin])
+
+
+@pytest.mark.parametrize("d", [17, 64, 128])
+def test_scans_hold_rtol_at_distance_zero(dev, d):
+    """Every query is a corpus row (|q|^2 ~ d), so its distance to that row
+    is exactly 0: where a truncating tensor-core accumulation carried
+    across d would show (it drifted 2e-4 at d = 128). Kernels 5 and 7,
+    float32 and float16 corpus: those distances within RTOL of the exact 0
+    (the plain version's own float32 rounding is of the same size, so the
+    two are not held to each other there), every other one within RTOL of
+    the plain version."""
+    rng = np.random.default_rng(d)
+    N = 3000
+    rows = torch.arange(5, N, 97)
+    Q = len(rows)
+    lo, hi = torch.zeros(N), torch.full((N,), 100.0)
+    ql, qh = torch.full((Q,), 10.0), torch.full((Q,), 20.0)
+    c = torch.from_numpy(rng.normal(size=(N, d)).astype(np.float32))
+    own = torch.zeros((Q, N), dtype=torch.bool)
+    own[torch.arange(Q), rows] = True
+    for corpus in (c, c.half()):
+        q = corpus[rows].float()
+        args = [a.to(dev) for a in (q, corpus, lo, hi, ql, qh)]
+        got = ops.pairwise_l2_masked(*args, ANY_OVERLAP).cpu()
+        want = ref.pairwise_l2_masked_ref(*args, ANY_OVERLAP).cpu()
+        assert float(got[own].abs().max()) <= 1e-4
+        torch.testing.assert_close(got[~own], want[~own], rtol=1e-4,
+                                   atol=1e-4)
+        ids, dists = (a.cpu() for a in ops.fused_topk_l2(*args, ANY_OVERLAP,
+                                                         3))
+        assert torch.equal(ids[:, 0].long(), rows)
+        assert torch.equal(dists[:, 0], got[own])      # the scan's, bit-equal
+        w_ids, w_d = ref.fused_topk_l2_ref(*args, ANY_OVERLAP, 3)
+        _assert_topk_close((ids[:, 1:], dists[:, 1:]),
+                           (w_ids[:, 1:], w_d[:, 1:]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1, 1, ""), (5, 37, 17, ""),
+                                   (67, 30, 64, ""), (256, 44, 128, ""),
+                                   (300, 12, 129, ""), (1, 20, 256, ""),
+                                   (67, 30, 128, "misaligned")])
+def test_gathered_kernels_take_half_candidates(dev, dtype, shape):
+    """Kernels 3 and 4 over float16 and bfloat16 candidates (and a query
+    of the same type) against their plain versions."""
+    Q, S, d, case = shape
+    rng = np.random.default_rng(Q + S + d)
+    q = torch.from_numpy(rng.normal(size=(Q, d)).astype(np.float32))
+    cv = torch.from_numpy(rng.normal(size=(Q, S, d)).astype(np.float32))
+    q, cv = q.to(dev).to(dtype), _step_table(cv.to(dev).to(dtype), case)
+    ops.reset_launches()
+    for name in ("gathered_l2", "gathered_l2_dot"):
+        got = getattr(ops, name)(q, cv)
+        want = getattr(ref, name + "_ref")(q, cv)
+        rtol = 1e-5 if name == "gathered_l2" else 1e-4
+        torch.testing.assert_close(got, want, rtol=rtol, atol=rtol)
+        assert ops.LAUNCHES[name] == 1

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from repro.core import intervals as riv
 from repro.kernels import ref as jref
 from repro.kernels.fused_topk import fused_topk_l2 as pallas_fused_topk
+from repro.kernels.gathered_l2 import gathered_l2 as pallas_l2
 from repro.kernels.gathered_l2 import gathered_l2_dot as pallas_l2_dot
 
 from repro_torch.kernels import ops, ref
@@ -81,6 +82,30 @@ def test_gathered_l2_dot_plain_matches_pallas_and_ref(shape):
     want = np.asarray(jref.gathered_l2_ref(jnp.asarray(q), jnp.asarray(cv)))
     for other in (pallas, want):
         np.testing.assert_allclose(got, other, rtol=RTOL, atol=RTOL)
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+@pytest.mark.parametrize("name", ["gathered_l2", "gathered_l2_dot"])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (5, 37, 17), (13, 9, 64)])
+def test_gathered_l2_half_inputs_match_pallas(shape, name, dtype):
+    """Kernels 3 and 4 with float16 or bfloat16 queries and candidates (the
+    card widens both to float32, as the reference's kernels upcast): the
+    port's plain version against the Pallas kernels in interpret mode on
+    the same half-precision values, 1e-5 (diff form) and RTOL (contraction
+    form) as for float32 inputs."""
+    Q, S, d = shape
+    rng = np.random.default_rng(Q * S + d)
+    tdt = getattr(torch, dtype)
+    q = torch.from_numpy(rng.normal(0, 1, (Q, d)).astype(np.float32)).to(tdt)
+    cv = torch.from_numpy(rng.normal(0, 1, (Q, S, d)).astype(np.float32)
+                          ).to(tdt)
+    got = getattr(ops, name)(q, cv).numpy()
+    jq, jcv = (jnp.asarray(t.float().numpy(), dtype=getattr(jnp, dtype))
+               for t in (q, cv))
+    pallas = pallas_l2 if name == "gathered_l2" else pallas_l2_dot
+    want = np.asarray(pallas(jq, jcv, bq=8, interpret=True))
+    tol = 1e-5 if name == "gathered_l2" else RTOL
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("mask", MASKS, ids=riv.mask_name)
