@@ -19,15 +19,20 @@ Phases, each printing one JSON object per line:
    on the card at edge shapes (ragged Q and N, all-masked rows, NO_EDGE ids,
    exact ties, duplicate rows, k > N, wide steps, unsorted beams, steps
    whose candidates are all live, rows that are no whole number of 16-byte
-   loads or do not start on 16 bytes, every predicate mask).
-3. ``scan_sweep``: the three scans and ``fused_topk_l2`` timed at Q = 256
-   and the flat phase's n over d = 16 .. 256 on random inputs, beside the
-   rate of their tensor-core instructions alone (``csrc/mma_probe.cu``) and
-   a fill of the (Q, N) output: what holds each scan above its bound.
+   loads or do not start on 16 bytes, every predicate mask; for
+   ``fused_topk_l2``, a corpus that overflows its survivor queues in every
+   tile, ties across tiles and splits, selectivity 0 and 1 and NaN
+   endpoints, in both of its builds).
+3. ``scan_sweep``: the three scans and ``fused_topk_l2`` (float32 and
+   float16 corpus, one and two blocks per SM) timed at Q = 256 and the flat
+   phase's n over d = 16 .. 256 on random inputs, beside the rate of their
+   tensor-core instructions alone (``csrc/mma_probe.cu``) and a fill of the
+   (Q, N) output: what holds each scan above its bound.
 4. ``flat``: the flat route at n = 1M, d = 128 (the SIFT1M shape), checked
    against a float64 NumPy brute force; then ``fused_topk_l2`` on the
    inputs the route handed to ``pairwise_l2_masked``, held against the
-   route's result, without a (Q, N) buffer.
+   route's result, without a (Q, N) buffer; its two builds timed over a
+   float32 and a float16 corpus, and each launch's device time.
 5. ``graph``: an MSTG index built by the port's bulk builder, served on the
    graph route with Q = 256, checked against the port's CPU run on the same
    index; recall against the flat route is printed as information;
@@ -45,7 +50,8 @@ Phases, each printing one JSON object per line:
 9. ``quant_routes``: the int8 tier's ``pruned`` (recall against the
    float32 flat route) and ``auto`` (the work model's choice) routes.
 10. ``trace``: the traced kernel path (pulls in ``flat`` and ``graph``):
-   ``fused_topk_l2`` and ``gathered_l2_dot`` under ``obs.capture()``, each a
+   ``fused_topk_l2`` (over the float32 and the float16 corpus) and
+   ``gathered_l2_dot`` under ``obs.capture()``, each a
    ``kernel:<name>`` span with ``impl == "cuda"`` and ``frac_of_peak`` in
    (0, 1.05]; a traced graph request equal to an untraced one, with
    ``kernel:gathered_topk`` spans under its slots, and its overhead; one
@@ -109,6 +115,8 @@ KERNELS = {
                          "src/repro/kernels/pairwise_l2_int8.py:81"),
     "fused_topk_l2": ("fused_topk_l2", CSRC + "fused_topk.cu",
                       "src/repro/kernels/fused_topk.py:85"),
+    "fused_topk_l2_f16": ("fused_topk_l2", CSRC + "fused_topk.cu",
+                          "src/repro/kernels/fused_topk.py:85"),
 }
 # Tolerances, kernel vs plain version on the same card, by ops entry point.
 # The gathered kernels sum d positive squares in another order: relative
@@ -368,9 +376,10 @@ def measure_kernel(row: str, args, launches: int):
 
 
 def scan_sweep(dev, Q: int, N: int, seed: int) -> None:
-    """Time the three scans and fused_topk_l2 at Q x N over d = 16 .. 256
-    on random inputs: a scan's time against d splits into the part that
-    grows with d (copies and product) and the part that does not (the
+    """Time the three scans and fused_topk_l2 (float32 and float16 corpus,
+    in both of its builds: one and two blocks per SM) at Q x N over d = 16
+    .. 256 on random inputs: a scan's time against d splits into the part
+    that grows with d (copies and product) and the part that does not (the
     epilogue and the (Q, N) output), which is what holds it above its
     bound. Beside them, the rate of the scans' tensor-core instructions
     alone (``mma_probe``) and a fill of the (Q, N) output (what writing it
@@ -416,31 +425,42 @@ def scan_sweep(dev, Q: int, N: int, seed: int) -> None:
                               dtype=torch.int8)
         quant = (codes, torch.ones(d, device=dev), torch.zeros(d, device=dev),
                  torch.rand(N, device=dev, generator=g) * d)
-        runs = {
-            "pairwise_l2_masked": lambda: ops.pairwise_l2_masked(q, c, *ends),
-            "pairwise_l2_masked_f16": lambda: ops.pairwise_l2_masked(
-                q, c16, *ends),
-            "pairwise_l2_int8": lambda: ops.pairwise_l2_int8(q, *quant,
-                                                             *ends),
-            "fused_topk_l2": lambda: ops.fused_topk_l2(q, c, *ends, 10),
-        }
         c16 = c.half()
-        for name, fn in runs.items():
+        # (row, call, corpus, blocks per SM of fused_topk_l2's build)
+        runs = [
+            ("pairwise_l2_masked", lambda: ops.pairwise_l2_masked(
+                q, c, *ends), c, None),
+            ("pairwise_l2_masked_f16", lambda: ops.pairwise_l2_masked(
+                q, c16, *ends), c16, None),
+            ("pairwise_l2_int8", lambda: ops.pairwise_l2_int8(
+                q, *quant, *ends), codes, None)]
+        for blocks in (1, 2):
+            for row, corpus in (("fused_topk_l2", c),
+                                ("fused_topk_l2_f16", c16)):
+                runs.append((row, lambda corpus=corpus, blocks=blocks:
+                             ops.fused_topk_l2(q, corpus, *ends, 10,
+                                               blocks_per_sm=blocks),
+                             corpus, blocks))
+        for name, fn, corpus, blocks in runs:
             ms = time_ms(fn, reps=10)
-            corpus = c16 if name.endswith("f16") else c
             if name == "pairwise_l2_int8":
                 bms, by = bound(ops.int8_scan_stream_bytes(Q, N, d),
                                 2.0 * Q * N * d, PEAKS.int8_op_per_s)
-            elif name == "fused_topk_l2":
-                bms, by = bound(ops.fused_topk_stream_bytes(Q, N, d, 10),
-                                3 * 2.0 * Q * N * d, PEAKS.tf32_flop_per_s)
+            elif name.startswith("fused_topk_l2"):
+                bms, by = bound(ops.fused_topk_stream_bytes(
+                    Q, N, d, 10, corpus.element_size()),
+                    tf32_passes(corpus) * 2.0 * Q * N * d,
+                    PEAKS.tf32_flop_per_s)
             else:
                 bms, by = bound(ops.pairwise_stream_bytes(
                     Q, N, d, corpus.element_size()),
                     tf32_passes(corpus) * 2.0 * Q * N * d,
                     PEAKS.tf32_flop_per_s)
-            emit({"phase": "scan_sweep", "kernel": name, "Q": Q, "N": N,
-                  "d": d, "ms": ms, "bound_ms": bms, "bound_by": by})
+            line = {"phase": "scan_sweep", "kernel": name, "Q": Q, "N": N,
+                    "d": d, "ms": ms, "bound_ms": bms, "bound_by": by}
+            if blocks is not None:
+                line["blocks_per_sm"] = blocks
+            emit(line)
         del q, c, c16, codes, quant, runs
         torch.cuda.empty_cache()
 
@@ -648,11 +668,52 @@ def step_table(table, case):
     return table
 
 
+def fused_edge_inputs(case, Q, N, d, seed):
+    """NumPy inputs (q, c, lo, hi, ql, qh) of fused_topk_l2's filtered
+    epilogue's edge cases: "falling": every query's distance falls strictly
+    as the id grows (integer coordinates, exact in any order), so every
+    entry beats its row's k-th entry and the row's queue overflows in every
+    tile; "ties": identical integer rows, every distance of a query tied
+    across tiles and splits; "sel0" / "sel1": no row / every row qualifies;
+    "nan": NaN endpoints on a tenth of the rows (lo, hi or both) and on a
+    few queries."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lo = rng.integers(0, 50, N).astype(np.float32)
+    hi = lo + rng.integers(0, 20, N).astype(np.float32)
+    ql = rng.integers(0, 50, Q).astype(np.float32)
+    qh = ql + rng.integers(0, 20, Q).astype(np.float32)
+    q = rng.normal(size=(Q, d)).astype(np.float32)
+    c = rng.normal(size=(N, d)).astype(np.float32)
+    if case == "falling":
+        n = np.arange(N)
+        c = np.zeros((N, d), np.float32)
+        c[:, 0], c[:, 1] = n // 64, n % 64
+        q = np.zeros((Q, d), np.float32)
+        q[:, 0] = 2400 + N // 64 + np.arange(Q) % 7
+        q[:, 1] = 64 + np.arange(Q) % 5
+    elif case == "ties":
+        c = np.repeat(rng.integers(-3, 4, (1, d)), N, 0).astype(np.float32)
+        q = rng.integers(-3, 4, (Q, d)).astype(np.float32)
+    elif case == "sel0":
+        ql[:], qh[:] = -100, -90
+    elif case == "nan":
+        nan = rng.random(N) < 0.1
+        lo[nan & (rng.random(N) < 0.5)] = np.nan
+        hi[nan & (rng.random(N) < 0.5)] = np.nan
+        ql[::37] = np.nan
+    if case in ("falling", "sel1"):
+        lo[:], hi[:], ql[:], qh[:] = 0, 100, 10, 20
+    return q, c, lo, hi, ql, qh
+
+
 def fused_topk_edge_checks(dev, rng) -> int:
     """fused_topk_l2 over a float32 and a float16 corpus against its plain
     version: ragged Q and N, d = 1 and 17, k = 1, 32 and k > N, NaN-padded
     rows, an all-masked query, every mask at small N; duplicate rows across
-    tiles and splits (ties to the lowest id); k beyond the limit refused."""
+    tiles and splits (ties to the lowest id); the filtered epilogue's cases
+    (:func:`fused_edge_inputs`) at k = 1, 10 and 32 in both of the kernel's
+    builds (one and two blocks per SM); k beyond the limit refused."""
     import numpy as np
     import torch
     from repro_torch.core import intervals as iv
@@ -721,6 +782,34 @@ def fused_topk_edge_checks(dev, rng) -> int:
         cases += 1
     emit({"phase": "kernel_edges", "kernel": "fused_topk_l2", "Q": Q, "N": N,
           "d": d, "duplicates": got})
+    # the filtered epilogue: four query blocks, a split every few tiles, N
+    # no multiple of the tile; exact distances where the case makes them so
+    Q, N, d = 256, 20077, 64
+    for case in ("falling", "ties", "sel0", "sel1", "nan"):
+        base = [t(a) for a in fused_edge_inputs(case, Q, N, d, seed=11)]
+        for row, dtype in (("fused_topk_l2", torch.float32),
+                           ("fused_topk_l2_f16", torch.float16)):
+            fargs = [base[0], base[1].to(dtype), *base[2:], iv.ANY_OVERLAP]
+            worst, bad = 0.0, 0
+            for k in (1, 10, 32):
+                want = ref.fused_topk_l2_ref(*fargs, k)
+                for blocks in (1, 2):
+                    got = ops.fused_topk_l2(*fargs, k, blocks_per_sm=blocks)
+                    err, b = compare_beams(got, want, RTOL["fused_topk_l2"])
+                    if case in ("falling", "ties", "sel0"):
+                        b += int((got[0] != want[0]).sum()
+                                 + (got[1] != want[1]).sum())
+                    if case == "falling":
+                        top = torch.arange(N - 1, N - 1 - k, -1, device=dev)
+                        b += int((got[0] != top[None, :]).sum())
+                    worst, bad = max(worst, err), bad + b
+                    cases += 1
+            emit({"phase": "kernel_edges", "kernel": row, "Q": Q, "N": N,
+                  "d": d, "case": case, "k": [1, 10, 32],
+                  "blocks_per_sm": [1, 2], "max_abs_err": worst,
+                  "mismatches": bad})
+            check(bad == 0, f"{row} {case}: {bad} mismatches against the "
+                            f"plain version (err={worst})")
     try:
         ops.fused_topk_l2(*args[:-1], ops.FUSED_TOPK_MAX_K + 1)
         refused = False
@@ -837,17 +926,43 @@ def profile_request(eng, req) -> dict:
     if cur_e is not None:
         busy += cur_e - cur_s
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": (1.0 - busy / wall_us) if spans else None,
+            "device_kernels": len(spans),
+            "top_device_ms": {name[:60]: us / 1e3 for name, us in top},
+            "port_kernel_ms": port_kernel_ms(by_name)}
+
+
+def port_kernel_ms(by_name: dict) -> dict:
+    """Device ms of each of the port's kernels (:func:`port_kernel_names`)
+    from device µs by profiler kernel name."""
     names = port_kernel_names()
     ours: dict = {}
     for name, us in by_name.items():
         base = re.split(r"[<(]", name.split("(anonymous namespace)::")[-1])[0]
         if base in names:
             ours[base] = ours.get(base, 0.0) + us / 1e3
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-            "device_idle_share": (1.0 - busy / wall_us) if spans else None,
-            "device_kernels": len(spans),
-            "top_device_ms": {name[:60]: us / 1e3 for name, us in top},
-            "port_kernel_ms": ours}
+    return ours
+
+
+def device_split(fn) -> dict:
+    """:func:`port_kernel_ms` of one warm call of ``fn``, from a
+    torch.profiler trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0) + e.time_range.end
+                               - e.time_range.start)
+    return port_kernel_ms(by_name)
 
 
 def wavefront_steps(trace) -> int:
@@ -863,7 +978,8 @@ def descendants(sp):
         stack.extend(ch.children)
 
 
-def trace_phase(eng, ds, qlo, qhi, k, fused_args, dot_args, steps, rows):
+def trace_phase(eng, ds, qlo, qhi, k, fused_args, fused16_args, dot_args,
+                steps, rows):
     """The traced kernel path: the kernel layer's entry points under
     ``obs.capture()`` (this slice's own path: launch counts are set to 0
     just before and read just after), a traced graph request against an
@@ -874,35 +990,39 @@ def trace_phase(eng, ds, qlo, qhi, k, fused_args, dot_args, steps, rows):
     from repro_torch.core import ANY_OVERLAP, SearchRequest
     from repro_torch.kernels import ops
 
-    calls = {"fused_topk_l2": fused_args, "gathered_l2_dot": dot_args}
-    untraced = {name: getattr(ops, name)(*args)
-                for name, args in calls.items()}
+    # row of the {"kernels": [...]} line -> its call; each is one root span
+    calls = {"fused_topk_l2": fused_args, "fused_topk_l2_f16": fused16_args,
+             "gathered_l2_dot": dot_args}
+    untraced = {row: getattr(ops, KERNELS[row][0])(*args)
+                for row, args in calls.items()}
     torch.cuda.synchronize()
     ops.reset_launches()
     with obs.capture() as tracer:
-        traced = {name: getattr(ops, name)(*args)
-                  for name, args in calls.items()}
+        traced = {row: getattr(ops, KERNELS[row][0])(*args)
+                  for row, args in calls.items()}
     launches = dict(ops.LAUNCHES)
-    roots = {sp.name: sp for sp in tracer.trace().roots}
+    roots = tracer.trace().roots
+    check(len(roots) == len(calls), f"{len(roots)} root spans for "
+                                    f"{len(calls)} kernel calls")
     fracs = {}
-    for name in calls:
-        sp = roots.get(f"kernel:{name}")
-        check(sp is not None, f"no root span kernel:{name}: {sorted(roots)}")
+    for row, sp in zip(calls, roots):
+        name = KERNELS[row][0]
+        check(sp.name == f"kernel:{name}", f"root span {sp.name} for {row}")
         frac = sp.args.get("frac_of_peak")
-        fracs[name] = frac
+        fracs[row] = frac
         check(sp.args.get("impl") == "cuda", f"kernel:{name} impl is "
                                              f"{sp.args.get('impl')}")
         check(frac is not None and 0.0 < frac <= 1.05,
               f"kernel:{name} frac_of_peak {frac} outside (0, 1.05]")
-        got, want = traced[name], untraced[name]
+        got, want = traced[row], untraced[row]
         if torch.is_tensor(got):
             got, want = (got,), (want,)
         check(all(torch.equal(x, y) for x, y in zip(got, want)),
-              f"traced {name} returned another result than untraced")
-        check(launches[name] == 1, f"{name}: {launches[name]} launches on "
-                                   f"its traced path, expected 1")
-        if name in rows:
-            rows[name]["launches"] = launches[name]
+              f"traced {row} returned another result than untraced")
+        check(launches[row] == 1, f"{row}: {launches[row]} launches on "
+                                  f"its traced path, expected 1")
+        if row in rows:
+            rows[row]["launches"] = launches[row]
 
     # one traced graph request against an untraced one, in turns
     def graph_req(trace):
@@ -942,7 +1062,7 @@ def trace_phase(eng, ds, qlo, qhi, k, fused_args, dot_args, steps, rows):
             events = json.load(f).get("traceEvents", [])
         device_events = sum(1 for e in events if e.get("cat") == "kernel")
     emit({"phase": "trace", "kernel_frac_of_peak": fracs,
-          "path_launches": {n: launches[n] for n in calls},
+          "path_launches": {row: launches[row] for row in calls},
           "graph_spans": len(tres.trace), "graph_kernel_spans":
           len(kernel_spans), "gathered_topk_spans_under_slots": len(under),
           "max_frac_of_peak": max(fr) if fr else None, "steps": t_steps,
@@ -1088,11 +1208,25 @@ def main() -> int:
                        / np.maximum(res.dists[fin_r], 1e-30)).max())
         f_agree = agreement(f_ids, f_d.astype(np.float64), res.ids,
                             res.dists.astype(np.float64), 1e-4)
-        # the route's own scan and top-k, timed beside the fused kernel
+        # the route's own scan and top-k, timed beside the fused kernel;
+        # the kernel's builds for one and two blocks per SM, over the
+        # float32 and the float16 corpus, and its launches' device split
         scan_topk_ms = time_ms(lambda: torch.topk(
             ops.pairwise_l2_masked(*cap.best), k, dim=1, largest=False))
+        fused16_args = (fused_args[0], fused_args[1].half(), *fused_args[2:])
+        builds = {f"{row}@{blocks}": time_ms(
+            lambda a=a, blocks=blocks: ops.fused_topk_l2(
+                *a, blocks_per_sm=blocks))
+            for blocks in (1, 2) for row, a in (
+                ("fused_topk_l2", fused_args),
+                ("fused_topk_l2_f16", fused16_args))}
+        split = {row: device_split(lambda a=a: ops.fused_topk_l2(*a))
+                 for row, a in (("fused_topk_l2", fused_args),
+                                ("fused_topk_l2_f16", fused16_args))}
         emit({"phase": "flat_fused", "Q": Qp, "N": Np, "k": k,
               "scan_topk_ms": scan_topk_ms,
+              "blocks_per_sm_default": ops.FUSED_BLOCKS_PER_SM,
+              "ms_by_build": builds, "device_split_ms": split,
               "id_agreement_vs_flat": f_agree, "max_rel_err_vs_flat": f_rel,
               "dists_bit_equal_vs_flat": bool(np.array_equal(
                   f_d[fin_r], res.dists[fin_r])),
@@ -1108,6 +1242,8 @@ def main() -> int:
                                f"(Q, N)-sized buffer")
         rows["fused_topk_l2"] = measure_kernel("fused_topk_l2", fused_args,
                                                0)
+        rows["fused_topk_l2_f16"] = measure_kernel("fused_topk_l2_f16",
+                                                   fused16_args, 0)
         del eng, cap
         torch.cuda.empty_cache()
 
@@ -1160,7 +1296,7 @@ def main() -> int:
     if "flat" in phases:
         del idx, ds, res
         if "trace" not in phases:
-            del fused_args
+            del fused_args, fused16_args
 
     if "graph" in phases or "routes" in phases:
         t0 = time.perf_counter()
@@ -1367,8 +1503,8 @@ def main() -> int:
         del qeng
 
     if "trace" in phases:
-        trace_phase(eng, ds, qlo, qhi, k, fused_args, dot_args, f32_steps,
-                    rows)
+        trace_phase(eng, ds, qlo, qhi, k, fused_args, fused16_args, dot_args,
+                    f32_steps, rows)
 
     name = torch.cuda.get_device_name(0)
     if rows:

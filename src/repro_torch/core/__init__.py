@@ -18,9 +18,11 @@ from .intervals import (LEFT_OVERLAP, QUERY_CONTAINED, RIGHT_OVERLAP,
 from .predicates import (Predicate, LeftOverlap, RightOverlap, QueryContained,
                          QueryContaining, Contains, ContainedBy, Overlaps,
                          Before, After, as_predicate, as_mask)
-from .api import (IndexSpec, QueryHit, RouteReport, SearchRequest,
-                  SearchResult)
+from .api import (IndexSpec, QueryHit, Rejected, RouteReport, SearchRequest,
+                  SearchResult, SegmentReport, Served, ShardReport)
 from .mstg import MSTGIndex, FrozenVariant, build_variant
+from .quant import STORAGE_DTYPES, QuantizedStore, maybe_quantize
+from .compressed import exact_rerank
 from .search import (device_variant, mstg_graph_search,
                      mstg_graph_search_chunked, merge_topk)
 from .flat import flat_search
@@ -30,11 +32,13 @@ __all__ = [
     "Predicate", "LeftOverlap", "RightOverlap", "QueryContained",
     "QueryContaining", "Contains", "ContainedBy", "Overlaps", "Before",
     "After", "as_predicate", "as_mask",
-    "SearchRequest", "SearchResult", "QueryHit", "RouteReport", "IndexSpec",
+    "SearchRequest", "SearchResult", "QueryHit", "RouteReport",
+    "SegmentReport", "ShardReport", "IndexSpec", "Rejected", "Served",
     "MSTGIndex", "QueryEngine", "EngineConfig", "FrozenVariant",
     "build_variant", "AttributeDomain", "device_variant", "resolve_device",
     "mstg_graph_search", "mstg_graph_search_chunked", "merge_topk",
     "flat_search",
+    "STORAGE_DTYPES", "QuantizedStore", "maybe_quantize", "exact_rerank",
     "SearchTask", "PlanSlot", "plan_searches", "plan_batch_ranked",
     "eval_predicate", "mask_name", "parse_mask", "SelectivityIndex",
     "LEFT_OVERLAP", "QUERY_CONTAINED", "RIGHT_OVERLAP", "QUERY_CONTAINING",

@@ -460,7 +460,8 @@ class QueryEngine:
             if route == ROUTE_FLAT:
                 ids, d = self._run_flat(queries, qlo, qhi, mask, k)
             elif route == ROUTE_PRUNED:
-                ids, d = self._run_pruned(queries, qlo, qhi, mask, k, slots)
+                ids, d = self._run_pruned(queries, qlo, qhi, mask, k,
+                                          slots=slots)
             elif route == ROUTE_GRAPH:
                 ids, d = self._run_graph(queries, qlo, qhi, mask, k,
                                          request.ef, request.max_steps,
@@ -474,6 +475,37 @@ class QueryEngine:
                              variants=tuple(s.variant for s in slots),
                              cache_hits=hits, cache_misses=misses)
         return SearchResult(ids, d, report)
+
+    # Convenience fixed-route entry points (tuple returns, as the
+    # reference's).
+    def search_graph(self, queries, qlo, qhi, mask, k=10, ef=64,
+                     max_steps=None, fanout=1):
+        req = SearchRequest(queries, (qlo, qhi), mask, k=k, ef=ef,
+                            max_steps=max_steps, fanout=fanout,
+                            route=ROUTE_GRAPH)
+        return self.execute(req).astuple()
+
+    def search_pruned(self, queries, qlo, qhi, mask, k=10, block: int = 256,
+                      max_candidates: Optional[int] = None):
+        """The exact pruned scan without the request path; a
+        ``max_candidates`` cap truncates each slot's candidate list (the
+        default, the plan's exact bound, never does)."""
+        queries = np.ascontiguousarray(queries, np.float32)
+        qlo = np.asarray(qlo, np.float64)
+        qhi = np.asarray(qhi, np.float64)
+        mask = as_mask(mask)
+        Q = queries.shape[0]
+        if Q == 0:
+            return _empty_result(0, k)
+        self.route_counts[ROUTE_PRUNED] = self.route_counts.get(ROUTE_PRUNED,
+                                                                0) + 1
+        ids, d = self._run_pruned(queries, qlo, qhi, mask, k, block=block,
+                                  max_candidates=max_candidates)
+        return _host(ids)[:Q], _host(d)[:Q]
+
+    def search_flat(self, queries, qlo, qhi, mask, k=10):
+        req = SearchRequest(queries, (qlo, qhi), mask, k=k, route=ROUTE_FLAT)
+        return self.execute(req).astuple()
 
     # ---- internals ----
     def _padded(self, queries: np.ndarray, qlo: np.ndarray, qhi: np.ndarray):
@@ -587,7 +619,10 @@ class QueryEngine:
         return res
 
     def _run_pruned(self, queries, qlo, qhi, mask, k,
-                    slots: List[iv.PlanSlot], block: int = 256):
+                    slots: Optional[List[iv.PlanSlot]] = None,
+                    block: int = 256, max_candidates: Optional[int] = None):
+        if slots is None:
+            slots = self.plan(mask, qlo, qhi)
         n = self.index.vectors.shape[0]
         queries_p, qlo_p, qhi_p = self._padded(queries, qlo, qhi)
         slots = self._padded_slots(slots, queries_p.shape[0])
@@ -602,11 +637,15 @@ class QueryEngine:
             fv = self.index.variants[s.variant]
             # exact candidate upper bound for this slot: objects with
             # sort_rank <= max version, rounded to a power of two; never
-            # truncates, so the pruned route stays recall-1.0
-            hi_ver = int(s.version.max(initial=-1))
-            cap = int(np.searchsorted(self._sorted_sort_rank(s.variant),
-                                      hi_ver, side="right"))
-            cap = min(n, _next_pow2(cap)) if cap else 0
+            # truncates, so the pruned route stays recall-1.0 (a caller's
+            # max_candidates replaces it, and may truncate)
+            if max_candidates is not None:
+                cap = min(n, int(max_candidates))
+            else:
+                hi_ver = int(s.version.max(initial=-1))
+                cap = int(np.searchsorted(self._sorted_sort_rank(s.variant),
+                                          hi_ver, side="right"))
+                cap = min(n, _next_pow2(cap)) if cap else 0
             if cap == 0:
                 continue  # every query's task in this slot is empty
             with obs.span("slot") as ssp:

@@ -127,6 +127,55 @@ def test_pruned_route_is_exact(small_ds, engines):
     assert res.recall_vs(true_ids) == 1.0
 
 
+def _assert_same_topk(got, want, tol):
+    """Ids equal wherever the reference's distance is not tied, within
+    ``tol``, with another of the row's; dists within ``tol``."""
+    (gi, gd), (wi, wd) = got, want
+    assert gi.shape == wi.shape and gd.shape == wd.shape
+    np.testing.assert_allclose(gd, wd, rtol=tol, atol=tol)
+    with np.errstate(invalid="ignore"):
+        gap = np.abs(wd[:, :, None] - wd[:, None, :])
+    tied = ((gap <= tol * (np.abs(wd[:, :, None]) + 1.0))
+            & np.isfinite(wd[:, :, None])).sum(axis=2) > 1
+    np.testing.assert_array_equal(np.where(tied, -2, gi),
+                                  np.where(tied, -2, wi))
+
+
+@pytest.mark.parametrize("entry", ["search_graph", "search_pruned",
+                                   "search_pruned_capped", "search_flat"])
+def test_fixed_route_entry_points_match_reference(small_ds, engines, entry):
+    """The reference's tuple-returning entry points, on the same numpy
+    inputs: search_graph (its default fanout 1), search_pruned exact and
+    with a max_candidates cap that truncates the candidate list, and
+    search_flat."""
+    ds = small_ds
+    ref_eng, port_eng = engines
+    mask = riv.LEFT_OVERLAP | riv.QUERY_CONTAINED | riv.RIGHT_OVERLAP
+    qlo, qhi = make_queries(ds, mask, 0.3, seed=23)
+    args = (ds.queries, qlo, qhi, mask)
+    if entry == "search_graph":
+        kw, tol = dict(k=10, ef=48), 1e-5
+    elif entry == "search_pruned":
+        kw, tol = dict(k=10, block=64), 1e-5
+    elif entry == "search_pruned_capped":
+        kw, tol = dict(k=10, block=16, max_candidates=48), 1e-5
+    else:
+        kw, tol = dict(k=10), 1e-4
+    name = "search_pruned" if entry == "search_pruned_capped" else entry
+    want = getattr(ref_eng, name)(*args, **kw)
+    got = getattr(port_eng, name)(*args, **kw)
+    assert all(isinstance(a, np.ndarray) for a in got)
+    _assert_same_topk(got, want, tol)
+    if entry == "search_pruned_capped":
+        # the cap truncates: the exact scan finds closer rows
+        exact = port_eng.search_pruned(*args, k=10, block=16)
+        assert not np.array_equal(got[0], exact[0])
+        assert bool(np.all(np.nan_to_num(got[1], posinf=1e30)
+                           >= np.nan_to_num(exact[1], posinf=1e30) - 1e-6))
+    assert port_eng.search_pruned(ds.queries[:0], qlo[:0], qhi[:0], mask,
+                                  k=4)[0].shape == (0, 4)
+
+
 def test_cpu_engine_launches_no_kernel(small_ds, engines):
     ds = small_ds
     _, port_eng = engines
