@@ -22,17 +22,17 @@ Phases, each printing one JSON object per line:
    loads or do not start on 16 bytes, every predicate mask; for
    ``fused_topk_l2``, a corpus that overflows its survivor queues in every
    tile, ties across tiles and splits, selectivity 0 and 1 and NaN
-   endpoints, in both of its builds).
+   endpoints).
 3. ``scan_sweep``: the three scans and ``fused_topk_l2`` (float32 and
-   float16 corpus, one and two blocks per SM) timed at Q = 256 and the flat
-   phase's n over d = 16 .. 256 on random inputs, beside the rate of their
-   tensor-core instructions alone (``csrc/mma_probe.cu``) and a fill of the
-   (Q, N) output: what holds each scan above its bound.
+   float16 corpus) timed at Q = 256 and the flat phase's n over d = 16 ..
+   256 on random inputs, beside the rate of their tensor-core instructions
+   alone (``csrc/mma_probe.cu``) and a fill of the (Q, N) output: what
+   holds each scan above its bound.
 4. ``flat``: the flat route at n = 1M, d = 128 (the SIFT1M shape), checked
    against a float64 NumPy brute force; then ``fused_topk_l2`` on the
    inputs the route handed to ``pairwise_l2_masked``, held against the
-   route's result, without a (Q, N) buffer; its two builds timed over a
-   float32 and a float16 corpus, and each launch's device time.
+   route's result, without a (Q, N) buffer; each launch's device time
+   over a float32 and a float16 corpus.
 5. ``graph``: an MSTG index built by the port's bulk builder, served on the
    graph route with Q = 256, checked against the port's CPU run on the same
    index; recall against the flat route is printed as information;
@@ -376,14 +376,14 @@ def measure_kernel(row: str, args, launches: int):
 
 
 def scan_sweep(dev, Q: int, N: int, seed: int) -> None:
-    """Time the three scans and fused_topk_l2 (float32 and float16 corpus,
-    in both of its builds: one and two blocks per SM) at Q x N over d = 16
-    .. 256 on random inputs: a scan's time against d splits into the part
-    that grows with d (copies and product) and the part that does not (the
-    epilogue and the (Q, N) output), which is what holds it above its
-    bound. Beside them, the rate of the scans' tensor-core instructions
-    alone (``mma_probe``) and a fill of the (Q, N) output (what writing it
-    alone takes). One line per kernel and d; no launch counts."""
+    """Time the three scans and fused_topk_l2 (float32 and float16 corpus)
+    at Q x N over d = 16 .. 256 on random inputs: a scan's time against d
+    splits into the part that grows with d (copies and product) and the
+    part that does not (the epilogue and the (Q, N) output), which is what
+    holds it above its bound. Beside them, the rate of the scans'
+    tensor-core instructions alone (``mma_probe``) and a fill of the (Q, N)
+    output (what writing it alone takes). One line per kernel and d; no
+    launch counts."""
     import torch
     from repro_torch.core import intervals as iv
     from repro_torch.kernels import _build, ops
@@ -426,22 +426,17 @@ def scan_sweep(dev, Q: int, N: int, seed: int) -> None:
         quant = (codes, torch.ones(d, device=dev), torch.zeros(d, device=dev),
                  torch.rand(N, device=dev, generator=g) * d)
         c16 = c.half()
-        # (row, call, corpus, blocks per SM of fused_topk_l2's build)
         runs = [
             ("pairwise_l2_masked", lambda: ops.pairwise_l2_masked(
-                q, c, *ends), c, None),
+                q, c, *ends), c),
             ("pairwise_l2_masked_f16", lambda: ops.pairwise_l2_masked(
-                q, c16, *ends), c16, None),
+                q, c16, *ends), c16),
             ("pairwise_l2_int8", lambda: ops.pairwise_l2_int8(
-                q, *quant, *ends), codes, None)]
-        for blocks in (1, 2):
-            for row, corpus in (("fused_topk_l2", c),
-                                ("fused_topk_l2_f16", c16)):
-                runs.append((row, lambda corpus=corpus, blocks=blocks:
-                             ops.fused_topk_l2(q, corpus, *ends, 10,
-                                               blocks_per_sm=blocks),
-                             corpus, blocks))
-        for name, fn, corpus, blocks in runs:
+                q, *quant, *ends), codes),
+            ("fused_topk_l2", lambda: ops.fused_topk_l2(q, c, *ends, 10), c),
+            ("fused_topk_l2_f16", lambda: ops.fused_topk_l2(
+                q, c16, *ends, 10), c16)]
+        for name, fn, corpus in runs:
             ms = time_ms(fn, reps=10)
             if name == "pairwise_l2_int8":
                 bms, by = bound(ops.int8_scan_stream_bytes(Q, N, d),
@@ -456,11 +451,8 @@ def scan_sweep(dev, Q: int, N: int, seed: int) -> None:
                     Q, N, d, corpus.element_size()),
                     tf32_passes(corpus) * 2.0 * Q * N * d,
                     PEAKS.tf32_flop_per_s)
-            line = {"phase": "scan_sweep", "kernel": name, "Q": Q, "N": N,
-                    "d": d, "ms": ms, "bound_ms": bms, "bound_by": by}
-            if blocks is not None:
-                line["blocks_per_sm"] = blocks
-            emit(line)
+            emit({"phase": "scan_sweep", "kernel": name, "Q": Q, "N": N,
+                  "d": d, "ms": ms, "bound_ms": bms, "bound_by": by})
         del q, c, c16, codes, quant, runs
         torch.cuda.empty_cache()
 
@@ -712,8 +704,8 @@ def fused_topk_edge_checks(dev, rng) -> int:
     version: ragged Q and N, d = 1 and 17, k = 1, 32 and k > N, NaN-padded
     rows, an all-masked query, every mask at small N; duplicate rows across
     tiles and splits (ties to the lowest id); the filtered epilogue's cases
-    (:func:`fused_edge_inputs`) at k = 1, 10 and 32 in both of the kernel's
-    builds (one and two blocks per SM); k beyond the limit refused."""
+    (:func:`fused_edge_inputs`) at k = 1, 10 and 32; k beyond the limit
+    refused."""
     import numpy as np
     import torch
     from repro_torch.core import intervals as iv
@@ -793,21 +785,19 @@ def fused_topk_edge_checks(dev, rng) -> int:
             worst, bad = 0.0, 0
             for k in (1, 10, 32):
                 want = ref.fused_topk_l2_ref(*fargs, k)
-                for blocks in (1, 2):
-                    got = ops.fused_topk_l2(*fargs, k, blocks_per_sm=blocks)
-                    err, b = compare_beams(got, want, RTOL["fused_topk_l2"])
-                    if case in ("falling", "ties", "sel0"):
-                        b += int((got[0] != want[0]).sum()
-                                 + (got[1] != want[1]).sum())
-                    if case == "falling":
-                        top = torch.arange(N - 1, N - 1 - k, -1, device=dev)
-                        b += int((got[0] != top[None, :]).sum())
-                    worst, bad = max(worst, err), bad + b
-                    cases += 1
+                got = ops.fused_topk_l2(*fargs, k)
+                err, b = compare_beams(got, want, RTOL["fused_topk_l2"])
+                if case in ("falling", "ties", "sel0"):
+                    b += int((got[0] != want[0]).sum()
+                             + (got[1] != want[1]).sum())
+                if case == "falling":
+                    top = torch.arange(N - 1, N - 1 - k, -1, device=dev)
+                    b += int((got[0] != top[None, :]).sum())
+                worst, bad = max(worst, err), bad + b
+                cases += 1
             emit({"phase": "kernel_edges", "kernel": row, "Q": Q, "N": N,
                   "d": d, "case": case, "k": [1, 10, 32],
-                  "blocks_per_sm": [1, 2], "max_abs_err": worst,
-                  "mismatches": bad})
+                  "max_abs_err": worst, "mismatches": bad})
             check(bad == 0, f"{row} {case}: {bad} mismatches against the "
                             f"plain version (err={worst})")
     try:
@@ -1209,24 +1199,16 @@ def main() -> int:
         f_agree = agreement(f_ids, f_d.astype(np.float64), res.ids,
                             res.dists.astype(np.float64), 1e-4)
         # the route's own scan and top-k, timed beside the fused kernel;
-        # the kernel's builds for one and two blocks per SM, over the
-        # float32 and the float16 corpus, and its launches' device split
+        # the kernel's launches' device split over the float32 and the
+        # float16 corpus
         scan_topk_ms = time_ms(lambda: torch.topk(
             ops.pairwise_l2_masked(*cap.best), k, dim=1, largest=False))
         fused16_args = (fused_args[0], fused_args[1].half(), *fused_args[2:])
-        builds = {f"{row}@{blocks}": time_ms(
-            lambda a=a, blocks=blocks: ops.fused_topk_l2(
-                *a, blocks_per_sm=blocks))
-            for blocks in (1, 2) for row, a in (
-                ("fused_topk_l2", fused_args),
-                ("fused_topk_l2_f16", fused16_args))}
         split = {row: device_split(lambda a=a: ops.fused_topk_l2(*a))
                  for row, a in (("fused_topk_l2", fused_args),
                                 ("fused_topk_l2_f16", fused16_args))}
         emit({"phase": "flat_fused", "Q": Qp, "N": Np, "k": k,
-              "scan_topk_ms": scan_topk_ms,
-              "blocks_per_sm_default": ops.FUSED_BLOCKS_PER_SM,
-              "ms_by_build": builds, "device_split_ms": split,
+              "scan_topk_ms": scan_topk_ms, "device_split_ms": split,
               "id_agreement_vs_flat": f_agree, "max_rel_err_vs_flat": f_rel,
               "dists_bit_equal_vs_flat": bool(np.array_equal(
                   f_d[fin_r], res.dists[fin_r])),

@@ -74,16 +74,15 @@
 //
 // Occupancy. Without a shared distance tile a block needs 107 KB of
 // shared memory (float32 corpus), so two blocks fit on an SM when the
-// kernel keeps to 128 registers a thread: one block's epilogue then runs
-// under the other's product. The kernel is built for one and for two
-// blocks per SM (kBlocks, __launch_bounds__); two measured faster (PERF.md,
-// chip_smoke.py's scan_sweep), which is the wrapper's default
-// (ops.FUSED_BLOCKS_PER_SM). The wrapper asks the card for the blocks it
-// runs at once (fused_topk_l2_slots), so that the split count makes the
+// kernel keeps to 128 registers a thread (__launch_bounds__(kThreads, 2)):
+// one block's epilogue then runs under the other's product. Two blocks per
+// SM measured faster than one at every d and for both corpus types
+// (PERF.md, kernel 7's findings). The wrapper asks the card for the blocks
+// it runs at once (fused_topk_l2_slots), so that the split count makes the
 // first grid one wave: every block walks the same number of tiles (to
 // one), no SM idles at the tail, and the corpus is read once.
 //
-// What the designs tried before this one taught (PERF.md, PR 16): a
+// What the designs tried before this one taught (PERF.md): a
 // per-survivor pass that indexed the 32 distances at run time spilled them
 // to local memory; folding in place behind two more barriers a tile, or
 // under a per-row lock by whichever warp held the survivor, cost more than
@@ -221,8 +220,8 @@ __device__ __forceinline__ void fold_rows(PartialSmem<Row>& s, int b,
   }
 }
 
-template <typename Row, bool kVec, int kBlocks>
-__global__ void __launch_bounds__(kThreads, kBlocks)
+template <typename Row, bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
 fused_topk_partial(const float* __restrict__ scratch,
                    const Row* __restrict__ corpus,
                    const float* __restrict__ lo, const float* __restrict__ hi,
@@ -385,24 +384,24 @@ fused_topk_merge(const float* __restrict__ part_d,
 
 // Dynamic shared memory of a fused_topk_partial block; the attribute is
 // set before every launch and occupancy query.
-template <typename Row, bool kVec, int kBlocks>
+template <typename Row, bool kVec>
 int partial_smem() {
   const int bytes = static_cast<int>(sizeof(PartialSmem<Row>));
   const cudaError_t err = cudaFuncSetAttribute(
-      fused_topk_partial<Row, kVec, kBlocks>,
+      fused_topk_partial<Row, kVec>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   return err == cudaSuccess ? bytes : -static_cast<int>(err);
 }
 
-template <typename Row, bool kVec, int kBlocks>
+template <typename Row, bool kVec>
 cudaError_t launch_partial(dim3 grid, cudaStream_t st, const void* scratch,
                            const void* corpus, const void* lo,
                            const void* hi, const void* ql, const void* qh,
                            void* part_d, void* part_i, int Q, int N, int d,
                            int mask, int k, int splits, int per) {
-  const int smem = partial_smem<Row, kVec, kBlocks>();
+  const int smem = partial_smem<Row, kVec>();
   if (smem < 0) return static_cast<cudaError_t>(-smem);
-  fused_topk_partial<Row, kVec, kBlocks><<<grid, kThreads, smem, st>>>(
+  fused_topk_partial<Row, kVec><<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(scratch), static_cast<const Row*>(corpus),
       static_cast<const float*>(lo), static_cast<const float*>(hi),
       static_cast<const float*>(ql), static_cast<const float*>(qh),
@@ -411,7 +410,7 @@ cudaError_t launch_partial(dim3 grid, cudaStream_t st, const void* scratch,
   return cudaGetLastError();
 }
 
-template <typename Row, int kBlocks>
+template <typename Row>
 int launch(const void* queries, const void* corpus, const void* lo,
            const void* hi, const void* ql, const void* qh, void* part_d,
            void* part_i, void* out_d, void* out_i, void* scratch, int Q,
@@ -431,10 +430,10 @@ int launch(const void* queries, const void* corpus, const void* lo,
   cudaError_t err = tile::launch_split(queries, scratch, Q, d, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = tile::vec16(scratch, 4LL * d) && tile::vec16(corpus, row)
-            ? launch_partial<Row, true, kBlocks>(
+            ? launch_partial<Row, true>(
                   grid, st, scratch, corpus, lo, hi, ql, qh, part_d, part_i,
                   Q, N, d, mask, k, splits, p)
-            : launch_partial<Row, false, kBlocks>(
+            : launch_partial<Row, false>(
                   grid, st, scratch, corpus, lo, hi, ql, qh, part_d, part_i,
                   Q, N, d, mask, k, splits, p);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -447,50 +446,31 @@ int launch(const void* queries, const void* corpus, const void* lo,
 }
 
 template <typename Row>
-int launch_for(int blocks_per_sm, const void* queries, const void* corpus,
-               const void* lo, const void* hi, const void* ql,
-               const void* qh, void* part_d, void* part_i, void* out_d,
-               void* out_i, void* scratch, int Q, int N, int d, int mask,
-               int k, int splits, void* stream) {
-  if (blocks_per_sm == 1)
-    return launch<Row, 1>(queries, corpus, lo, hi, ql, qh, part_d, part_i,
-                          out_d, out_i, scratch, Q, N, d, mask, k, splits,
-                          stream);
-  if (blocks_per_sm == 2)
-    return launch<Row, 2>(queries, corpus, lo, hi, ql, qh, part_d, part_i,
-                          out_d, out_i, scratch, Q, N, d, mask, k, splits,
-                          stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename Row, int kBlocks>
 int slots() {
   int dev = 0, sms = 0, per_sm = 0;
-  const int smem = partial_smem<Row, true, kBlocks>();
+  const int smem = partial_smem<Row, true>();
   if (smem < 0) return smem;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_topk_partial<Row, true, kBlocks>, kThreads, smem);
+        &per_sm, fused_topk_partial<Row, true>, kThreads, smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
   return sms * per_sm;
 }
 
 }  // namespace
 
-// scratch: tile::scratch_floats(Q, d) floats for the split queries;
-// blocks_per_sm: the build of the first grid's kernel, 1 or 2.
+// scratch: tile::scratch_floats(Q, d) floats for the split queries.
 extern "C" int fused_topk_l2(const void* queries, const void* corpus,
                              const void* lo, const void* hi, const void* ql,
                              const void* qh, void* part_d, void* part_i,
                              void* out_d, void* out_i, void* scratch, int Q,
                              int N, int d, int mask, int k, int splits,
-                             int blocks_per_sm, void* stream) {
-  return launch_for<float>(blocks_per_sm, queries, corpus, lo, hi, ql, qh,
-                           part_d, part_i, out_d, out_i, scratch, Q, N, d,
-                           mask, k, splits, stream);
+                             void* stream) {
+  return launch<float>(queries, corpus, lo, hi, ql, qh, part_d, part_i, out_d,
+                       out_i, scratch, Q, N, d, mask, k, splits, stream);
 }
 
 extern "C" int fused_topk_l2_f16(const void* queries, const void* corpus,
@@ -498,18 +478,15 @@ extern "C" int fused_topk_l2_f16(const void* queries, const void* corpus,
                                  const void* ql, const void* qh, void* part_d,
                                  void* part_i, void* out_d, void* out_i,
                                  void* scratch, int Q, int N, int d, int mask,
-                                 int k, int splits, int blocks_per_sm,
-                                 void* stream) {
-  return launch_for<__half>(blocks_per_sm, queries, corpus, lo, hi, ql, qh,
-                            part_d, part_i, out_d, out_i, scratch, Q, N, d,
-                            mask, k, splits, stream);
+                                 int k, int splits, void* stream) {
+  return launch<__half>(queries, corpus, lo, hi, ql, qh, part_d, part_i,
+                        out_d, out_i, scratch, Q, N, d, mask, k, splits,
+                        stream);
 }
 
-// Blocks of the first grid the current device runs at once for the build
-// with blocks_per_sm (blocks per SM at its occupancy, times the SMs); a
-// negative cudaError_t on failure.
-extern "C" int fused_topk_l2_slots(int f16, int blocks_per_sm) {
-  if (blocks_per_sm == 1) return f16 ? slots<__half, 1>() : slots<float, 1>();
-  if (blocks_per_sm == 2) return f16 ? slots<__half, 2>() : slots<float, 2>();
-  return -static_cast<int>(cudaErrorInvalidValue);
+// Blocks of the first grid the current device runs at once (blocks per SM
+// at the kernel's occupancy, times the SMs); a negative cudaError_t on
+// failure.
+extern "C" int fused_topk_l2_slots(int f16) {
+  return f16 ? slots<__half>() : slots<float>();
 }

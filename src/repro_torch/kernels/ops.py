@@ -48,9 +48,6 @@ MAX_SHARED_BYTES = 232448
 STEP_CHUNK = 2048
 # a fused_topk_l2 list is one warp wide
 FUSED_TOPK_MAX_K = 32
-# blocks per SM of fused_topk.cu's first grid: it is built for 1 and 2, and
-# 2 measured faster on an H100 (PERF.md, chip_smoke.py's scan_sweep)
-FUSED_BLOCKS_PER_SM = 2
 # the query block and corpus tile of fused_topk.cu (pairwise_tile.cuh's BQ,
 # BN)
 _FUSED_QBLOCK = 64
@@ -267,30 +264,27 @@ def pairwise_l2_int8(queries, codes, scale, offset, sq_norm, lo, hi, ql, qh,
 
 
 @functools.cache
-def _fused_slots(index: int, f16: bool, blocks_per_sm: int) -> int:
-    """Blocks of fused_topk.cu's first grid, in its build for
-    ``blocks_per_sm``, that card ``index`` runs at once."""
+def _fused_slots(index: int, f16: bool) -> int:
+    """Blocks of fused_topk.cu's first grid that card ``index`` runs at
+    once."""
     from . import _build
     with torch.cuda.device(index):
-        slots = _build.load().fused_topk_l2_slots(int(f16), blocks_per_sm)
+        slots = _build.load().fused_topk_l2_slots(int(f16))
     if slots <= 0:
         raise RuntimeError(f"fused_topk_l2: occupancy query failed "
                            f"(cudaError {-slots})")
     return slots
 
 
-@_traced("fused_topk_l2", lambda q, c, lo, hi, ql, qh, mask, k=10, **kw:
+@_traced("fused_topk_l2", lambda q, c, lo, hi, ql, qh, mask, k=10:
          fused_topk_stream_bytes(q.shape[0], c.shape[0], q.shape[1], k,
                                  c.element_size()))
-def fused_topk_l2(queries, corpus, lo, hi, ql, qh, mask: int, k: int = 10,
-                  *, blocks_per_sm: int = FUSED_BLOCKS_PER_SM):
+def fused_topk_l2(queries, corpus, lo, hi, ql, qh, mask: int, k: int = 10):
     """Exact filtered k-NN in one pass: (Q, d) float32 x (N, d) float32 or
     float16 -> ((Q, k) int32 ids, (Q, k) float32 squared L2), ordered by
     (dist, id); (NO_EDGE, +inf) where fewer than k rows qualify. The
     (Q, N) matrix is never built. On the card k is at most
-    :data:`FUSED_TOPK_MAX_K`; ``blocks_per_sm`` (1 or 2) picks the kernel's
-    build, and only ``chip_smoke.py``'s comparison of the two asks for the
-    one that is not :data:`FUSED_BLOCKS_PER_SM`."""
+    :data:`FUSED_TOPK_MAX_K`."""
     if _on_cpu(queries, corpus, lo, hi, ql, qh):
         return ref.fused_topk_l2_ref(queries, corpus, lo, hi, ql, qh, mask,
                                      k)
@@ -298,9 +292,6 @@ def fused_topk_l2(queries, corpus, lo, hi, ql, qh, mask: int, k: int = 10,
     if not 1 <= k <= FUSED_TOPK_MAX_K:
         raise ValueError(f"fused_topk_l2: k={k} outside [1, "
                          f"{FUSED_TOPK_MAX_K}], the kernel's limit")
-    if blocks_per_sm not in (1, 2):
-        raise ValueError(f"fused_topk_l2: blocks_per_sm={blocks_per_sm}, "
-                         f"the kernel is built for 1 and 2")
     Q, d = queries.shape
     N = corpus.shape[0]
     f32 = torch.float32
@@ -315,7 +306,7 @@ def fused_topk_l2(queries, corpus, lo, hi, ql, qh, mask: int, k: int = 10,
     # one wave of the first grid: every block walks as many corpus tiles
     tiles = -(-N // _FUSED_TILE)
     qblocks = -(-Q // _FUSED_QBLOCK)
-    splits = max(1, min(tiles, _fused_slots(dev.index, f16, blocks_per_sm)
+    splits = max(1, min(tiles, _fused_slots(dev.index, f16)
                             // max(qblocks, 1)))
     part_d = torch.empty((Q, splits, k), dtype=f32, device=dev)
     part_i = torch.empty((Q, splits, k), dtype=torch.int32, device=dev)
@@ -326,8 +317,7 @@ def fused_topk_l2(queries, corpus, lo, hi, ql, qh, mask: int, k: int = 10,
             queries.data_ptr(), corpus.data_ptr(), lo.data_ptr(),
             hi.data_ptr(), ql.data_ptr(), qh.data_ptr(), part_d.data_ptr(),
             part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-            scratch.data_ptr(), Q, N, d, int(mask), k, splits,
-            blocks_per_sm)
+            scratch.data_ptr(), Q, N, d, int(mask), k, splits)
     return out_i, out_d
 
 

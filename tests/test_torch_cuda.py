@@ -5,10 +5,15 @@ only PyTorch; from the root of a checkout:
 
     python -m pytest -q --noconftest tests/test_torch_cuda.py
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the edge inputs the card check also runs)
 from repro_torch.core import (ANY_OVERLAP, QUERY_CONTAINED, EngineConfig,
                               MSTGIndex, QueryEngine, SearchRequest)
 from repro_torch.core.quant import QuantizedStore
@@ -336,40 +341,10 @@ def test_fused_topk_matches_the_flat_scan(dev):
 
 
 def _fused_edge_inputs(case, Q, N, d, seed):
-    """Inputs of the filtered epilogue's edge cases (numpy, then torch):
-    "falling": every query's distance falls strictly as the id grows
-    (integer coordinates, exact in any order), so every entry beats the
-    k-th entry and a row's queue overflows in every tile; "ties": identical
-    integer rows, every distance of a query tied across tiles and splits;
-    "sel0" / "sel1": no row / every row qualifies; "nan": NaN endpoints on a
-    tenth of the rows (lo, hi or both) and on a few queries."""
-    rng = np.random.default_rng(seed)
-    lo = rng.integers(0, 50, N).astype(np.float32)
-    hi = lo + rng.integers(0, 20, N).astype(np.float32)
-    ql = rng.integers(0, 50, Q).astype(np.float32)
-    qh = ql + rng.integers(0, 20, Q).astype(np.float32)
-    q = rng.normal(size=(Q, d)).astype(np.float32)
-    c = rng.normal(size=(N, d)).astype(np.float32)
-    if case == "falling":
-        n = np.arange(N)
-        c = np.zeros((N, d), np.float32)
-        c[:, 0], c[:, 1] = n // 64, n % 64
-        q = np.zeros((Q, d), np.float32)
-        q[:, 0] = 2400 + N // 64 + np.arange(Q) % 7
-        q[:, 1] = 64 + np.arange(Q) % 5
-    elif case == "ties":
-        c = np.repeat(rng.integers(-3, 4, (1, d)), N, 0).astype(np.float32)
-        q = rng.integers(-3, 4, (Q, d)).astype(np.float32)
-    elif case == "sel0":
-        ql[:], qh[:] = -100, -90
-    elif case == "nan":
-        nan = rng.random(N) < 0.1
-        lo[nan & (rng.random(N) < 0.5)] = np.nan
-        hi[nan & (rng.random(N) < 0.5)] = np.nan
-        ql[::37] = np.nan
-    if case in ("falling", "sel1"):
-        lo[:], hi[:], ql[:], qh[:] = 0, 100, 10, 20
-    return [torch.from_numpy(a) for a in (q, c, lo, hi, ql, qh)]
+    """chip_smoke.py's inputs of the filtered epilogue's edge cases, as
+    tensors."""
+    return [torch.from_numpy(a)
+            for a in chip_smoke.fused_edge_inputs(case, Q, N, d, seed)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
@@ -394,23 +369,11 @@ def test_fused_topk_filter_edges(dev, case, k, dtype):
         assert bool((ids == ops.NO_EDGE).all())
 
 
-@pytest.mark.parametrize("case", ["nan", "falling"])
-def test_fused_topk_builds_agree(dev, case):
-    """The builds for one and two blocks per SM give the same answer."""
-    args = [a.to(dev) for a in _fused_edge_inputs(case, 130, 50000, 128,
-                                                  seed=1)]
-    one = ops.fused_topk_l2(*args, ANY_OVERLAP, 10, blocks_per_sm=1)
-    two = ops.fused_topk_l2(*args, ANY_OVERLAP, 10, blocks_per_sm=2)
-    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
-
-
 def test_new_wrappers_refuse_bad_input(dev):
     args = [a.to(dev) for a in _fused_inputs(4, 50, 8, seed=0)]
     ops.reset_launches()
     with pytest.raises(ValueError, match=str(ops.FUSED_TOPK_MAX_K)):
         ops.fused_topk_l2(*args, ANY_OVERLAP, ops.FUSED_TOPK_MAX_K + 1)
-    with pytest.raises(ValueError, match="blocks_per_sm"):
-        ops.fused_topk_l2(*args, ANY_OVERLAP, 5, blocks_per_sm=3)
     with pytest.raises(TypeError):
         ops.fused_topk_l2(args[0], args[1].double(), *args[2:], ANY_OVERLAP,
                           5)

@@ -18,10 +18,15 @@ tile's fold leaves it, and with one a tile staler (a threshold that lags
 admits a superset, so the answer must not change). The kernel itself is
 held to the plain version on the card (``tests/test_torch_cuda.py``).
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import fused_edge_inputs  # noqa: E402
 from repro_torch.core import intervals as iv
 from repro_torch.kernels import ref
 
@@ -143,39 +148,28 @@ def inputs(case: str, Q: int, N: int, d: int, seed: int):
     """(queries, corpus, lo, hi, ql, qh, mask) as float32 tensors.
 
     "random": normal vectors and integer ranges, NaN endpoints on a tenth
-    of the rows and on one query; "falling": every query's distance falls
-    strictly as the id grows (integer coordinates, exact in any order), so
-    every qualifying entry beats the k-th entry and the queue overflows in
-    every tile; "ties": identical integer rows, so every distance of a
-    query ties and the lowest ids must win.
+    of the rows and on one query; "falling" and "ties" are the card check's
+    (``chip_smoke.fused_edge_inputs``): every query's distance falls
+    strictly as the id grows, so every qualifying entry beats the k-th
+    entry and the queue overflows in every tile; identical integer rows,
+    so every distance of a query ties and the lowest ids must win.
     """
-    rng = np.random.default_rng(seed)
-    lo = rng.integers(0, 50, N).astype(np.float32)
-    hi = lo + rng.integers(0, 20, N).astype(np.float32)
-    ql = rng.integers(0, 50, Q).astype(np.float32)
-    qh = ql + rng.integers(0, 20, Q).astype(np.float32)
-    mask = iv.ANY_OVERLAP
-    if case == "random":
+    if case != "random":
+        arrays = fused_edge_inputs(case, Q, N, d, seed)
+    else:
+        rng = np.random.default_rng(seed)
+        lo = rng.integers(0, 50, N).astype(np.float32)
+        hi = lo + rng.integers(0, 20, N).astype(np.float32)
+        ql = rng.integers(0, 50, Q).astype(np.float32)
+        qh = ql + rng.integers(0, 20, Q).astype(np.float32)
         q = rng.normal(size=(Q, d)).astype(np.float32)
         c = rng.normal(size=(N, d)).astype(np.float32)
         nan = rng.random(N) < 0.1
         lo[nan & (rng.random(N) < 0.5)] = np.nan
         hi[nan] = np.nan
         ql[Q // 2] = np.nan
-    elif case == "falling":
-        n = np.arange(N)
-        c = np.zeros((N, d), np.float32)
-        c[:, 0], c[:, 1] = n // 64, n % 64
-        q = np.zeros((Q, d), np.float32)
-        q[:, 0] = 2400 + N // 64 + np.arange(Q) % 7
-        q[:, 1] = 64 + np.arange(Q) % 5
-        lo[:], hi[:], ql[:], qh[:] = 0, 100, 10, 20     # every row qualifies
-    elif case == "ties":
-        c = np.repeat(rng.integers(-3, 4, (1, d)), N, 0).astype(np.float32)
-        q = rng.integers(-3, 4, (Q, d)).astype(np.float32)
-    else:
-        raise ValueError(case)
-    return [torch.from_numpy(a) for a in (q, c, lo, hi, ql, qh)] + [mask]
+        arrays = q, c, lo, hi, ql, qh
+    return [torch.from_numpy(a) for a in arrays] + [iv.ANY_OVERLAP]
 
 
 CASES = {"random": (16, 3001, 24), "falling": (8, 2100, 8),
