@@ -8,6 +8,9 @@
                                      # without the 50k graph build
     python3 chip_smoke.py --phases env,scan_sweep
                                      # the scans' time against d
+    python3 chip_smoke.py --phases env,kernels,gathered_sweep
+                                     # gathered_l2 / gathered_l2_dot against
+                                     # S, beside torch.bmm and torch.cdist
     python3 chip_smoke.py --phases env,kernels,flat,graph,routes,profile
                                      # also profile one flat and one graph
                                      # request (device busy share)
@@ -28,6 +31,12 @@ Phases, each printing one JSON object per line:
    256 on random inputs, beside the rate of their tensor-core instructions
    alone (``csrc/mma_probe.cu``) and a fill of the (Q, N) output: what
    holds each scan above its bound.
+   ``gathered_sweep``: ``gathered_l2`` and ``gathered_l2_dot`` timed at Q =
+   256, d = 128, float32 over S = 1, 88, 176, 512 and 2048, beside
+   ``torch.bmm`` (the cross term alone), ``torch.cdist`` (the unsquared
+   distance) and an empty kernel: S = 1 shows the fixed cost of a launch,
+   S = 88 to 176 the rate from L2, S = 2048 (268 MB) the rate from device
+   memory.
 4. ``flat``: the flat route at n = 1M, d = 128 (the SIFT1M shape), checked
    against a float64 NumPy brute force; then ``fused_topk_l2`` on the
    inputs the route handed to ``pairwise_l2_masked``, held against the
@@ -76,6 +85,7 @@ the card's TF32 rate.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import re
@@ -86,8 +96,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
-ALL_PHASES = ("env", "kernels", "scan_sweep", "flat", "quant_flat", "graph",
-              "quant_graph", "routes", "quant_routes", "trace")
+ALL_PHASES = ("env", "kernels", "scan_sweep", "gathered_sweep", "flat",
+              "quant_flat", "graph", "quant_graph", "routes", "quant_routes",
+              "trace")
 # the card's published peaks (repro_torch.obs.profile.PEAKS), set in main
 PEAKS = None
 
@@ -146,10 +157,22 @@ SCAN_EDGES = ((1, 1, 1, ""), (3, 5, 8, ""), (67, 1000, 17, ""),
               (130, 4099, 128, ""), (256, 3001, 64, ""), (300, 2055, 129, ""),
               (1, 777, 256, ""), (256, 20000, 128, ""),
               (67, 1000, 128, "misaligned"), (300, 333, 17, "misaligned"))
-# (Q, S, d, case) of gathered_l2 / gathered_l2_dot
+# (Q, S, d, case) of gathered_l2 / gathered_l2_dot, each run through both
+# kernels over float32, float16 and bfloat16 candidates. d = 1, 17 and 129
+# (and d = 4 over 16-bit types) take the element path, the rest the 16-byte
+# one, with 1 to 514 units a row (17 and 34: a short last round). Only S =
+# 44, 12 and 20 are a multiple of the 4-row unroll, and no S is one of a
+# block's 16-row strip. "misaligned": the candidates start one element past
+# 16 bytes; "qmisaligned": the float32 query does; "nonfinite": inf, -inf
+# and NaN entries and one inf row among the candidates. Q = 70,000 is past
+# the 65,535 a grid's y or z could hold.
 GATHERED_EDGES = ((1, 1, 1, ""), (5, 37, 17, ""), (13, 9, 1, ""),
                   (256, 44, 128, ""), (67, 30, 64, ""), (300, 12, 129, ""),
-                  (1, 20, 256, ""), (67, 30, 128, "misaligned"))
+                  (1, 20, 256, ""), (67, 30, 128, "misaligned"),
+                  (3, 13, 128, ""), (9, 37, 4, ""), (33, 70, 8, ""),
+                  (17, 29, 136, ""), (5, 9, 2056, ""),
+                  (67, 30, 128, "qmisaligned"), (70000, 1, 128, ""),
+                  (40, 21, 128, "nonfinite"), (13, 9, 17, "nonfinite"))
 
 
 class CheckFailed(RuntimeError):
@@ -318,9 +341,12 @@ def measure_kernel(row: str, args, launches: int):
         bad = 0 if ok else 1
         queries, cand = args
         Q, S, d = cand.shape
-        nbytes = ops.gathered_l2_stream_bytes(Q, S, d)
+        nbytes = ops.gathered_l2_stream_bytes(Q, S, d, cand.element_size())
         if name == "gathered_l2":          # diff, square, add
             bms, by = bound(nbytes, 3.0 * Q * S * d)
+            # the unsquared distance over the same bytes
+            qrow = queries.to(cand.dtype)[:, None, :]
+            lib = time_ms(lambda: torch.cdist(qrow, cand))
         else:
             # q.c and |c|^2 per element, |q|^2 per query; the yardstick is
             # the cross term alone
@@ -457,6 +483,59 @@ def scan_sweep(dev, Q: int, N: int, seed: int) -> None:
         torch.cuda.empty_cache()
 
 
+def gathered_sweep(dev, Q: int, d: int, seed: int) -> None:
+    """Time gathered_l2 and gathered_l2_dot on random float32 inputs at Q x
+    d over S = 1, 88, 176, 512 and 2048, beside torch.bmm (the cross term
+    alone) and torch.cdist (the unsquared distance) on the same inputs, and
+    an empty kernel (``torch.cuda._sleep(0)``), what ``time_ms`` reads for a
+    launch that does nothing. S = 1 shows the fixed cost of a launch; S =
+    88 and 176 (11.5 and 23 MB at d = 128) stay in the 50 MB L2, S = 2048
+    (268 MB) streams from device memory. One line per call and S (ms, GB/s,
+    the share of the bound), then each call's split into a fixed cost (its
+    S = 1 time), an L2 rate (the bytes S = 176 adds to S = 88 over the time
+    it adds) and a device-memory rate (the same from S = 1 to 2048). No
+    launch counts."""
+    import torch
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(Q, d, device=dev, generator=g)
+    emit({"phase": "gathered_sweep", "kernel": "empty",
+          "ms": time_ms(lambda: torch.cuda._sleep(0))})
+    sizes = (1, 88, 176, 512, 2048)
+    times = {}
+    for S in sizes:
+        cand = torch.randn(Q, S, d, device=dev, generator=g)
+        nbytes = ops.gathered_l2_stream_bytes(Q, S, d)
+        elems = Q * S * d
+        runs = (("gathered_l2", lambda: ops.gathered_l2(q, cand), 3.0 * elems),
+                ("gathered_l2_dot", lambda: ops.gathered_l2_dot(q, cand),
+                 4.0 * elems + 2.0 * Q * d),
+                ("torch.bmm", lambda: torch.bmm(cand, q[:, :, None]),
+                 2.0 * elems),
+                ("torch.cdist", lambda: torch.cdist(q[:, None, :], cand),
+                 3.0 * elems))
+        for name, fn, n_ops in runs:
+            ms = time_ms(fn)
+            bms, by = bound(nbytes, n_ops)
+            times[name, S] = ms
+            emit({"phase": "gathered_sweep", "kernel": name, "Q": Q, "S": S,
+                  "d": d, "ms": ms, "gb_per_s": nbytes / ms / 1e6,
+                  "bound_ms": bms, "bound_by": by, "frac_of_bound": bms / ms})
+        del cand
+        torch.cuda.empty_cache()
+
+    def rate(name, s0, s1):
+        added = (ops.gathered_l2_stream_bytes(Q, s1, d)
+                 - ops.gathered_l2_stream_bytes(Q, s0, d))
+        return added / (times[name, s1] - times[name, s0]) / 1e6
+    for name in ("gathered_l2", "gathered_l2_dot", "torch.bmm",
+                 "torch.cdist"):
+        emit({"phase": "gathered_sweep_fit", "kernel": name,
+              "fixed_ms": times[name, 1],
+              "l2_gb_per_s": rate(name, 88, 176),
+              "hbm_gb_per_s": rate(name, 1, 2048)})
+
+
 # ---- phase 2: edge shapes ----------------------------------------------------
 
 def kernel_edge_checks(dev, S_wide: int):
@@ -468,7 +547,7 @@ def kernel_edge_checks(dev, S_wide: int):
 
     rng = np.random.default_rng(7)
     t = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
-    cases = 0
+    cases = collections.Counter()       # cases checked, by ops entry point
 
     # pairwise scans (float32 and float16 corpus, int8 codes): ragged Q, N
     # and d, on both copy paths (d = 1, 17, 129: rows of no whole number of
@@ -518,33 +597,29 @@ def kernel_edge_checks(dev, S_wide: int):
                 check(ok, f"{row} Q={Q} N={N} d={d} {case} mask={mask}: "
                           f"err={err}")
                 worst = max(worst, err)
-                cases += 1
+                cases[KERNELS[row][0]] += 1
             emit({"phase": "kernel_edges", "kernel": row, "Q": Q, "N": N,
                   "d": d, "case": case, "masks": len(masks),
                   "max_abs_err": worst})
 
-    # gathered_l2 and gathered_l2_dot: ragged Q, S and d; float32, float16
-    # and bfloat16 candidates (a float16 query with the float16 ones)
+    # gathered_l2 and gathered_l2_dot: GATHERED_EDGES over float32,
+    # float16 and bfloat16 candidates
     for (Q, S, d, case) in GATHERED_EDGES:
-        q32 = t(rng.normal(size=(Q, d)).astype(np.float32))
-        cv32 = t(rng.normal(size=(Q, S, d)).astype(np.float32))
+        q_np, cv_np = gathered_edge_inputs(rng, Q, S, d, case)
         for dtype in (torch.float32, torch.float16, torch.bfloat16):
-            cv = cv32.to(dtype)
-            q = q32.half() if dtype == torch.float16 else q32
-            if case == "misaligned":
-                cv = step_table(cv, case)
+            q, cv = gathered_edge_tensors(q_np, cv_np, dtype, case, dev)
             for name in ("gathered_l2", "gathered_l2_dot"):
                 err, ok = compare_dists(getattr(ops, name)(q, cv),
                                         getattr(ref, name + "_ref")(q, cv),
                                         RTOL[name])
                 check(ok, f"{name} Q={Q} S={S} d={d} {dtype} {case}: "
                           f"err={err}")
-                cases += 1
+                cases[name] += 1
                 emit({"phase": "kernel_edges", "kernel": name, "Q": Q,
                       "S": S, "d": d, "dtype": str(dtype), "case": case,
                       "max_abs_err": err})
 
-    cases += fused_topk_edge_checks(dev, rng)
+    cases["fused_topk_l2"] += fused_topk_edge_checks(dev, rng)
 
     # gathered_topk over a float32, int8 and float16 table: ragged Q,
     # NO_EDGE ids, all-masked rows, exact ties (duplicate table rows and
@@ -586,7 +661,7 @@ def kernel_edge_checks(dev, S_wide: int):
                 bad += int((got[0] != want[0]).sum())
             check(bad == 0, f"{row} Q={Q} n={n} d={d} M={M} L={L} {case}: "
                             f"err={err} mismatches={bad}")
-            cases += 1
+            cases[name] += 1
             smem = (ops.gathered_topk_smem_bytes if len(tab) == 1
                     else ops.gathered_topk_quant_smem_bytes)(d, M, L)
             emit({"phase": "kernel_edges", "kernel": row, "Q": Q, "n": n,
@@ -594,6 +669,38 @@ def kernel_edge_checks(dev, S_wide: int):
                   "mismatched_ids": bad, "smem_bytes": smem})
     torch.cuda.synchronize()
     return cases
+
+
+def gathered_edge_inputs(rng, Q, S, d, case):
+    """NumPy (queries, candidates) of one GATHERED_EDGES case; "nonfinite"
+    puts an inf, a -inf and a NaN entry and one all-inf row among the
+    candidates, each in another (query, slot) row."""
+    import numpy as np
+    q = rng.normal(size=(Q, d)).astype(np.float32)
+    cv = rng.normal(size=(Q, S, d)).astype(np.float32)
+    if case == "nonfinite":
+        cv[0, 0, 0] = np.inf
+        cv[Q // 2, S // 2] = np.inf
+        cv[Q // 3, 0, d // 2] = -np.inf
+        cv[Q - 1, S - 1, d - 1] = np.nan
+    return q, cv
+
+
+def gathered_edge_tensors(q_np, cv_np, dtype, case, dev):
+    """A GATHERED_EDGES case on the card: candidates of ``dtype`` and a
+    query of the same type where it is float16 (the wrapper widens it),
+    else float32; "misaligned" and "qmisaligned" hand over the candidates
+    or the float32 query one element past 16 bytes."""
+    import torch
+    cv = torch.as_tensor(cv_np).to(dev).to(dtype)
+    q = torch.as_tensor(q_np).to(dev)
+    if case == "qmisaligned":
+        q = step_table(q, "misaligned")
+    elif dtype == torch.float16:
+        q = q.half()
+    if case == "misaligned":
+        cv = step_table(cv, case)
+    return q, cv
 
 
 def step_case(rng, Q, n, d, M, L, case):
@@ -1123,10 +1230,13 @@ def main() -> int:
 
     rows = {}
     if "kernels" in phases:
-        n_cases = kernel_edge_checks(dev, S_wide=767)
-        emit({"phase": "kernel_edges_done", "cases": n_cases})
+        cases = kernel_edge_checks(dev, S_wide=767)
+        emit({"phase": "kernel_edges_done", "cases": sum(cases.values()),
+              "cases_by_kernel": dict(cases)})
     if "scan_sweep" in phases:
         scan_sweep(dev, 256, args.flat_n, args.seed)
+    if "gathered_sweep" in phases:
+        gathered_sweep(dev, 256, 128, args.seed)
 
     k = 10
     Qn = 256

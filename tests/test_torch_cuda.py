@@ -496,3 +496,27 @@ def test_gathered_kernels_take_half_candidates(dev, dtype, shape):
         rtol = 1e-5 if name == "gathered_l2" else 1e-4
         torch.testing.assert_close(got, want, rtol=rtol, atol=rtol)
         assert ops.LAUNCHES[name] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("shape", chip_smoke.GATHERED_EDGES,
+                         ids=lambda s: "-".join(map(str, s)).rstrip("-"))
+def test_gathered_kernels_at_the_card_checks_edges(dev, dtype, shape):
+    """chip_smoke.py's GATHERED_EDGES through kernels 3 and 4: both load
+    paths, S no multiple of the unroll, a misaligned query or candidate
+    view, Q past a grid dimension's 65,535, non-finite candidates (non-
+    finite exactly where the plain version is)."""
+    Q, S, d, case = shape
+    q_np, cv_np = chip_smoke.gathered_edge_inputs(
+        np.random.default_rng(Q + S + d), Q, S, d, case)
+    q, cv = chip_smoke.gathered_edge_tensors(q_np, cv_np, dtype, case, dev)
+    ops.reset_launches()
+    for name in ("gathered_l2", "gathered_l2_dot"):
+        got = getattr(ops, name)(q, cv)
+        want = getattr(ref, name + "_ref")(q, cv)
+        assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+        fin = torch.isfinite(want)
+        rtol = 1e-5 if name == "gathered_l2" else 1e-4
+        torch.testing.assert_close(got[fin], want[fin], rtol=rtol, atol=rtol)
+        assert ops.LAUNCHES[name] == 1
