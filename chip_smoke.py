@@ -14,6 +14,9 @@
     python3 chip_smoke.py --phases env,kernels,flat,graph,routes,profile
                                      # also profile one flat and one graph
                                      # request (device busy share)
+    python3 chip_smoke.py --phases env,streaming,sharded
+                                     # the streaming index and sharded
+                                     # serving (pulls in the flat phase)
 
 Phases, each printing one JSON object per line:
 
@@ -65,13 +68,33 @@ Phases, each printing one JSON object per line:
    (0, 1.05]; a traced graph request equal to an untraced one, with
    ``kernel:gathered_topk`` spans under its slots, and its overhead; one
    flat request under ``obs.profiler_capture``.
+11. ``streaming``: ``repro_torch.streaming.SegmentedIndex`` on the card at
+   ``--stream-n`` rows (70,000: segments of 20k, 10k and 10k rows built by
+   the graph phase's spec, a 16k-row delta, 1,000 tombstones in the first
+   segment, 500 rows of the second upserted into the delta), every route
+   served: flat against a float64 brute force over the live rows by
+   external id, pruned recall 1.0 against flat, graph agreement ≥ 0.99
+   with the port's CPU run of the same index on 32 queries; kernels 1 and
+   3 held against their plain versions at the widest beam (1,010, from
+   the tombstones), kernel 5 at the delta's scan. Then a size-tiered
+   compaction: the policy must pick the two small segments, the exact
+   routes' ids must not change and allocated device bytes must fall.
+12. ``sharded``: ``repro_torch.distributed.ShardedDeployment.flat`` over
+   the flat phase's corpus on D = 4 logical shards of the card, under the
+   ``all_gather``, ``tournament`` and ``host`` merges: ids bit-equal to one
+   another and to the flat route, four ``pairwise_l2_masked`` launches a
+   request; shard 3 failed (degraded, the flat answer over the other
+   rows, three launches); ``per_shard_k = 5``; and ``from_segmented`` over
+   the streaming phase's index on D = 2, equal to the index's own pruned
+   answer. Asking for it pulls in ``flat`` and ``streaming``.
 
 Launch counts are set to 0 just before each main-path run (flat, graph,
-each tier's flat and graph run, and the ``trace`` phase's kernel calls, the
-path of ``gathered_l2_dot`` and ``fused_topk_l2``, which no route calls)
-and read just after. The kernel checks at the main path's shapes use the
-inputs the main path handed to each kernel. The last lines are a ``{"kernels":
-[...]}`` summary, the ``nvidia-smi`` name and power limit, and
+each tier's flat and graph run, the ``trace`` phase's kernel calls, the
+path of ``gathered_l2_dot`` and ``fused_topk_l2``, which no route calls,
+and each streaming and sharded request) and read just after. The kernel
+checks at the main path's shapes use the inputs the main path handed to
+each kernel. The last lines are a ``{"kernels": [...]}`` summary, the
+``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Without
 a CUDA device, or without the repository's ``src/`` beside this file, it
 exits non-zero and prints no result.
@@ -98,7 +121,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
 ALL_PHASES = ("env", "kernels", "scan_sweep", "gathered_sweep", "flat",
               "quant_flat", "graph", "quant_graph", "routes", "quant_routes",
-              "trace")
+              "trace", "streaming", "sharded")
 # the card's published peaks (repro_torch.obs.profile.PEAKS), set in main
 PEAKS = None
 
@@ -312,10 +335,11 @@ def step_live(*args):
 
 # ---- kernel measurements at the main path's shapes ---------------------------
 
-def measure_kernel(row: str, args, launches: int):
+def measure_kernel(row: str, args, launches: int,
+                   phase: str = "kernel_main_shapes"):
     """Hold the kernel of ``row`` against its plain version on the main
     path's captured ``args``, and time the kernel, the plain version and
-    the library yardstick."""
+    the library yardstick; the line printed is tagged ``phase``."""
     import torch
     from repro_torch.kernels import ops, ref
     name, src, replaces = KERNELS[row]
@@ -393,8 +417,8 @@ def measure_kernel(row: str, args, launches: int):
            "launches": launches, "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
            "library_ms": lib}
-    emit({"phase": "kernel_main_shapes", "shapes": [list(a.shape) for a in args
-                                                    if hasattr(a, "shape")],
+    emit({"phase": phase, "shapes": [list(a.shape) for a in args
+                                     if hasattr(a, "shape")],
           "mismatches": bad, **out})
     check(bad == 0, f"{row} disagrees with its plain version at the main "
                     f"path's shapes (max_abs_err={err}, mismatches={bad})")
@@ -1174,6 +1198,354 @@ def trace_phase(eng, ds, qlo, qhi, k, fused_args, fused16_args, dot_args,
           f"profiler_capture failed: {pcap.error}")
 
 
+# ---- streaming and sharded serving -------------------------------------------
+
+def launched(counts: dict) -> dict:
+    """The kernels of a launch count that ran."""
+    return {name: n for name, n in counts.items() if n}
+
+
+def segment_steps(trace) -> dict:
+    """Wavefront steps of a traced SegmentedIndex request, by segment."""
+    out = {}
+    for root in trace.roots:
+        for sp in descendants(root):
+            if sp.name.startswith("segment-"):
+                out[sp.name[len("segment-"):]] = sum(
+                    int(ch.args.get("steps", 0)) for ch in descendants(sp)
+                    if ch.name == "wavefront_totals")
+    return out
+
+
+def streaming_corpus(ds, n_rows: int, deleted, moved, new_rows):
+    """The live rows the streaming phase's op sequence leaves, by external
+    id: rows ``0 .. n_rows`` of ``ds`` less ``deleted``, the ``moved`` ids
+    holding the vectors and ranges of rows ``new_rows``. Returns (the
+    external ids, ascending; a RangeDataset of their rows with ``ds``'s
+    queries)."""
+    import numpy as np
+    from repro_torch.data import RangeDataset
+    vecs = ds.vectors[:n_rows].copy()
+    lo, hi = ds.lo[:n_rows].copy(), ds.hi[:n_rows].copy()
+    vecs[moved] = ds.vectors[new_rows]
+    lo[moved], hi[moved] = ds.lo[new_rows], ds.hi[new_rows]
+    alive = np.ones(n_rows, bool)
+    alive[deleted] = False
+    ext = np.flatnonzero(alive)
+    return ext, RangeDataset(vectors=vecs[ext], lo=lo[ext], hi=hi[ext],
+                             queries=ds.queries, span=ds.span)
+
+
+def streaming_phase(dev, args, Qn: int, k: int) -> dict:
+    """The streaming path (``repro_torch.streaming``): segments A (20k
+    rows), B and C (10k each) and a 16k-row delta on the card, 1,000
+    tombstones in A and 500 rows of B upserted into the delta; every route
+    checked; then a size-tiered compaction. Sizes scale with
+    ``--stream-n`` (70,000 gives these). Returns the index, its pruned
+    request and that request's ids after the compaction."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.core import (ANY_OVERLAP, IndexSpec, Overlaps,
+                                  SearchRequest)
+    from repro_torch.data import make_range_dataset, recall_at_k
+    from repro_torch.kernels import ops
+    from repro_torch.streaming import CompactionPolicy, SegmentedIndex
+
+    scale = args.stream_n / 70_000
+    n_a, n_b = round(20_000 * scale), round(10_000 * scale)
+    n_delta = round(16_000 * scale)
+    n_del, n_up = round(1_000 * scale), round(500 * scale)
+    ds = make_range_dataset(n=args.stream_n, d=128, n_queries=Qn,
+                            quantize=1024, seed=args.seed)
+    spec = IndexSpec(predicate=Overlaps(), m=16, ef_con=64,
+                     candidate_stage="coarse")
+    sidx = SegmentedIndex(spec, policy=CompactionPolicy(tier_ratio=1.5),
+                          build_workers=args.workers, device=dev)
+    rng = np.random.default_rng(args.seed + 7)
+    build_s = {}
+    bounds = np.cumsum([0, n_a, n_b, n_b])
+    for name, a, b in zip("ABC", bounds[:-1], bounds[1:]):
+        sidx.add(np.arange(a, b), ds.vectors[a:b], ds.lo[a:b], ds.hi[a:b])
+        t0 = time.perf_counter()
+        sidx.flush()
+        build_s[name] = time.perf_counter() - t0
+    seg_b, seg_c = sidx.segments[1].seg_id, sidx.segments[2].seg_id
+    n_rows = int(bounds[-1]) + n_delta
+    tail = slice(int(bounds[-1]), n_rows)
+    sidx.add(np.arange(bounds[-1], n_rows), ds.vectors[tail], ds.lo[tail],
+             ds.hi[tail])
+    deleted = rng.choice(n_a, n_del, replace=False)
+    sidx.delete(deleted)
+    moved = rng.choice(np.arange(bounds[1], bounds[2]), n_up, replace=False)
+    new_rows = np.arange(n_rows, n_rows + n_up)
+    sidx.add(moved, ds.vectors[new_rows], ds.lo[new_rows], ds.hi[new_rows])
+    ext, live = streaming_corpus(ds, n_rows, deleted, moved, new_rows)
+    emit({"phase": "streaming_build", "n_live": len(sidx),
+          "segments": [{"id": s.seg_id, "n": s.n, "tombstones": len(s.tombs)}
+                       for s in sidx.segments],
+          "delta": len(sidx.delta), "delta_capacity": sidx.delta._cap,
+          "workers": args.workers, "flush_build_s": build_s,
+          "ops": dict(sidx.ops)})
+    check(len(sidx) == ext.size, f"streaming: {len(sidx)} live rows, the "
+                                 f"op sequence leaves {ext.size}")
+    qlo, qhi = subset_queries(live, ANY_OVERLAP, 0.10, seed=args.seed + 1)
+    F = 4     # the CUDA default fanout, pinned so the CPU run takes it too
+
+    def request(route, rows=slice(None), trace=False):
+        return SearchRequest(ds.queries[rows], (qlo[rows], qhi[rows]),
+                             ANY_OVERLAP, k=k, ef=64, route=route, fanout=F,
+                             trace=trace)
+
+    res, ms, launches = {}, {}, {}
+    for route in ("flat", "pruned", "auto", "graph"):
+        sidx.execute(request(route))           # stage the segments
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with Capture(ops, "gathered_topk", lambda *a: a[-2].shape[1]) as ct, \
+                Capture(ops, "gathered_l2", lambda q, c: c.shape[1]) as cl, \
+                Capture(ops, "pairwise_l2_masked",
+                        lambda q, c, *a: c.shape[0]) as cp:
+            res[route] = sidx.execute(request(route, trace=route == "graph"))
+        launches[route] = launched(ops.LAUNCHES)
+        _, sec = timed_execute(sidx, request(route),
+                               reps=1 if route == "graph" else 3)
+        ms[route] = sec * 1e3
+        # each kernel at its widest call on this path: the graph route's
+        # beam over A's tombstones, the delta's scan
+        for cap in ((ct, cl) if route == "graph"
+                    else (cp,) if route == "flat" else ()):
+            measure_kernel(cap.name, cap.best,
+                           launches[route].get(cap.name, 0),
+                           phase="streaming_kernel")
+        del ct, cl, cp
+    g = launches["graph"]
+    check(g.get("gathered_topk", 0) > 0 and g.get("gathered_l2", 0) > 0
+          and g.get("pairwise_l2_masked") == 1,
+          f"streaming graph request: expected kernels 1 and 3 and one delta "
+          f"scan, got {g}")
+    check(launches["flat"] == {"pairwise_l2_masked": len(sidx.segments) + 1},
+          f"streaming flat request: {launches['flat']} for "
+          f"{len(sidx.segments)} segments and the delta")
+
+    # the exact routes against float64 over the live rows, by external id
+    bf_ids, bf_d = brute_force64(live, qlo, qhi, ANY_OVERLAP, k,
+                                 list(range(Qn)))
+    bf_ext = np.where(bf_ids >= 0, ext[np.clip(bf_ids, 0, None)], -1)
+    fl_ids, fl_d = res["flat"].ids, res["flat"].dists
+    pr_ids, pr_d = res["pruned"].ids, res["pruned"].dists
+    fin = np.isfinite(bf_d)
+    rel = np.abs(fl_d[fin] - bf_d[fin]) / np.maximum(bf_d[fin], 1e-30)
+    flat_agree = agreement(fl_ids, fl_d.astype(np.float64), bf_ext, bf_d,
+                           1e-4)
+    pruned_recall = recall_at_k(pr_ids, fl_ids)
+    pruned_ties = misses_are_ties(pr_ids, pr_d, fl_ids, fl_d, 1e-4)
+
+    # the graph route against the port's CPU run of the same index
+    n_cpu = 32
+    cpu = SegmentedIndex(spec, device="cpu")
+    cpu.segments, cpu.delta = sidx.segments, sidx.delta
+    before_cpu = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    cres = cpu.execute(request("graph", slice(0, n_cpu)))
+    cpu_s = time.perf_counter() - t0
+    check(ops.LAUNCHES == before_cpu, "the CPU run launched a kernel")
+    gr = res["graph"]
+    graph_agree = agreement(gr.ids[:n_cpu], gr.dists[:n_cpu], cres.ids,
+                            cres.dists, 1e-5)
+    emit({"phase": "streaming", "n_live": len(sidx), "Q": Qn, "k": k,
+          "fanout": F, "request_ms": ms, "launches": launches,
+          "segment_routes": {r: [(s.segment, s.route, s.k_fetched)
+                                 for s in res[r].report.segments]
+                             for r in res},
+          "graph_steps_by_segment": segment_steps(gr.trace),
+          "flat_id_agreement_vs_f64": flat_agree,
+          "flat_max_rel_err_vs_f64": float(rel.max()),
+          "pruned_recall_vs_flat": pruned_recall,
+          "pruned_ties_only": bool(pruned_ties),
+          "graph_cpu_agreement": graph_agree, "graph_cpu_queries": n_cpu,
+          "graph_cpu_request_s": cpu_s,
+          "graph_recall_vs_flat": recall_at_k(gr.ids, fl_ids),
+          "auto_recall_vs_flat": recall_at_k(res["auto"].ids, fl_ids)})
+    check(bool(np.all(np.isfinite(fl_d) == fin)),
+          "streaming flat: +inf pattern differs from the brute force")
+    check(float(rel.max()) <= 1e-4, f"streaming flat: dists off by "
+                                    f"{rel.max()}")
+    check(flat_agree == 1.0, f"streaming flat: ids disagree with float64 "
+                             f"({flat_agree})")
+    check(pruned_recall == 1.0 or bool(pruned_ties),
+          f"streaming pruned recall {pruned_recall} < 1.0")
+    check(graph_agree >= 0.99, f"streaming graph: GPU/CPU agreement "
+                               f"{graph_agree} < 0.99")
+    check(bool(np.all(np.isfinite(gr.dists) | (gr.ids < 0))),
+          "streaming graph: a returned id has a non-finite distance")
+    del cpu, cres, res, gr
+
+    # size-tiered compaction: the policy merges B and C and their engines,
+    # with every route's arrays staged, go
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    rep = sidx.compact()
+    compact_s = time.perf_counter() - t0
+    gc.collect()
+    mem_compacted = torch.cuda.memory_allocated()
+    after = {r: sidx.execute(request(r)) for r in ("flat", "pruned")}
+    torch.cuda.synchronize()
+    mem_served = torch.cuda.memory_allocated()
+    # ids may differ only where two distances are exactly equal
+    same = {r: agreement(after[r].ids, after[r].dists, ids, d, 0.0)
+            for r, ids, d in (("flat", fl_ids, fl_d),
+                              ("pruned", pr_ids, pr_d))}
+    emit({"phase": "streaming_compact", "policy_picked": rep["merged"],
+          "new_segment": rep["new_segment"], "rows": rep["rows"],
+          "dropped": rep["dropped"], "compact_s": compact_s,
+          "segments": [{"id": s.seg_id, "n": s.n, "tombstones": len(s.tombs)}
+                       for s in sidx.segments],
+          "allocated_before": mem_before,
+          "allocated_after_compact": mem_compacted,
+          "allocated_after_exact_routes": mem_served,
+          "exact_id_agreement_across_compact": same,
+          "exact_ids_bit_equal": {r: bool(np.array_equal(
+              after[r].ids, fl_ids if r == "flat" else pr_ids))
+              for r in after}})
+    check(set(rep["merged"]) == {seg_b, seg_c},
+          f"compaction picked {rep['merged']}, expected B and C "
+          f"({seg_b}, {seg_c})")
+    check(all(v == 1.0 for v in same.values()),
+          f"exact routes' ids changed across the compaction: {same}")
+    check(mem_compacted < mem_before and mem_served < mem_before,
+          f"allocated bytes did not fall across the compaction: "
+          f"{mem_before} -> {mem_compacted} -> {mem_served}")
+    return {"index": sidx, "request": request("pruned"),
+            "pruned_ids": after["pruned"].ids}
+
+
+def sharded_phase(dev, ds, qlo, qhi, k: int, flat_ids, flat_ms: float,
+                  stream: dict) -> None:
+    """Sharded serving (``repro_torch.distributed``) on the one card: the
+    flat phase's corpus as ``ShardedDeployment.flat`` over D = 4 logical
+    shards under each merge schedule, a lost shard, a narrow fan-in, and
+    the streaming phase's index dealt onto D = 2 shards."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.core import ANY_OVERLAP, SearchRequest, flat_search
+    from repro_torch.data import recall_at_k
+    from repro_torch.distributed import DeploymentSpec, ShardedDeployment
+    from repro_torch.kernels import ops
+    from repro_torch.launch import make_mesh
+
+    D = 4
+    mesh = make_mesh((D,), ("data",), device=dev)
+    req = SearchRequest(ds.queries, (qlo, qhi), ANY_OVERLAP, k=k)
+
+    def served(dep, reps=5):
+        """One counted request after a warm one; then the timed ones."""
+        dep.execute(req)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        out = dep.execute(req)
+        launches = launched(ops.LAUNCHES)
+        _, sec = timed_execute(dep, req, reps=reps)
+        return out, launches, sec * 1e3
+
+    out, ms, launches, stage_s = {}, {}, {}, {}
+    for merge in ("all_gather", "tournament", "host"):
+        t0 = time.perf_counter()
+        dep = ShardedDeployment.flat(ds.vectors, ds.lo, ds.hi, mesh=mesh,
+                                     spec=DeploymentSpec(n_shards=D,
+                                                         merge=merge))
+        stage_s[merge] = time.perf_counter() - t0
+        out[merge], launches[merge], ms[merge] = served(dep)
+        check(out[merge].report.merge == merge,
+              f"sharded: asked for {merge}, ran {out[merge].report.merge}")
+        check(launches[merge] == {"pairwise_l2_masked": D},
+              f"sharded {merge}: expected {D} pairwise_l2_masked launches, "
+              f"got {launches[merge]}")
+    a = out["all_gather"]
+    schedules_equal = all(np.array_equal(o.ids, a.ids)
+                          and np.array_equal(o.dists, a.dists)
+                          for o in out.values())
+    equal_flat = bool(np.array_equal(a.ids, flat_ids))
+
+    # shard 3 lost: the answer over the other three shards' rows
+    dep.fail(D - 1)
+    ops.reset_launches()
+    lost = dep.execute(req)
+    lost_launches = launched(ops.LAUNCHES)
+    dep.restore(D - 1)
+    corpus, lo, hi = dep._flat
+    keep = (D - 1) * (ds.n // D)
+    want, _ = flat_search(corpus[:keep], lo[:keep], hi[:keep],
+                          *dep._query_tensors(req), mask=ANY_OVERLAP, k=k)
+    lost_equal = bool(np.array_equal(lost.ids, want.cpu().numpy()))
+    del dep, corpus, lo, hi
+    gc.collect()
+
+    narrow = ShardedDeployment.flat(ds.vectors, ds.lo, ds.hi, mesh=mesh,
+                                    spec=DeploymentSpec(n_shards=D,
+                                                        per_shard_k=5))
+    nres, nlaunches, nms = served(narrow)
+    del narrow
+    gc.collect()
+
+    # the views share the source's segment engines: serving them stages
+    # nothing more on the card
+    torch.cuda.synchronize()
+    seg_mem0 = torch.cuda.memory_allocated()
+    seg = ShardedDeployment.from_segmented(
+        stream["index"], mesh=make_mesh((2,), ("data",), device=dev),
+        spec=DeploymentSpec(n_shards=2))
+    sreq = stream["request"]
+    seg.execute(sreq)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    sres = seg.execute(sreq)
+    slaunches = launched(ops.LAUNCHES)
+    _, ssec = timed_execute(seg, sreq, reps=3)
+    torch.cuda.synchronize()
+    seg_mem1 = torch.cuda.memory_allocated()
+    seg_equal = bool(np.array_equal(sres.ids, stream["pruned_ids"]))
+    shared = all(s.engine._engines is stream["index"]._engines
+                 for s in seg.shards)
+    emit({"phase": "sharded", "n": ds.n, "shards": D, "Q": len(req), "k": k,
+          "request_ms": ms, "flat_route_request_ms": flat_ms,
+          "stage_s": stage_s, "launches": launches,
+          "schedules_bit_equal": schedules_equal,
+          "ids_equal_flat_route": equal_flat,
+          "lost_shard": {"missing_shards": list(lost.report.missing_shards),
+                         "degraded": lost.degraded,
+                         "launches": lost_launches,
+                         "ids_equal_flat_over_rest": lost_equal},
+          "per_shard_k5": {"recall_vs_flat": recall_at_k(nres.ids, flat_ids),
+                           "merge": nres.report.merge,
+                           "request_ms": nms, "launches": nlaunches},
+          "from_segmented": {"shards": 2, "route": "pruned",
+                             "merge": sres.report.merge,
+                             "shard_n": [s.n for s in seg.shards],
+                             "request_ms": ssec * 1e3,
+                             "launches": slaunches,
+                             "ids_equal_segmented": seg_equal,
+                             "engines_shared": shared,
+                             "allocated_before": seg_mem0,
+                             "allocated_after_served": seg_mem1}})
+    check(schedules_equal, "sharded: the merge schedules disagree")
+    check(equal_flat, "sharded: ids differ from the single-device flat route")
+    check(lost.report.missing_shards == (D - 1,) and lost.degraded,
+          f"sharded: lost shard reported as {lost.report.missing_shards}")
+    check(lost_launches == {"pairwise_l2_masked": D - 1},
+          f"sharded: a lost shard was scanned ({lost_launches})")
+    check(lost_equal, "sharded: the degraded answer differs from the flat "
+                      "route over the live shards' rows")
+    check(seg_equal, "sharded from_segmented: ids differ from the "
+                     "SegmentedIndex's own pruned answer")
+    check(shared and seg_mem1 - seg_mem0 < 64 << 20,
+          f"sharded from_segmented: the views staged segments again "
+          f"(engines shared: {shared}; allocated {seg_mem0} -> {seg_mem1})")
+
+
 # ---- main --------------------------------------------------------------------
 
 def main() -> int:
@@ -1181,6 +1553,7 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
     ap.add_argument("--flat-n", type=int, default=1_000_000)
     ap.add_argument("--graph-n", type=int, default=50_000)
+    ap.add_argument("--stream-n", type=int, default=70_000)
     ap.add_argument("--workers", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -1246,6 +1619,10 @@ def main() -> int:
         phases.add("flat")                     # its dataset, index and result
     if "quant_graph" in phases or "quant_routes" in phases:
         phases.add("graph")
+    if "sharded" in phases:          # the flat corpus, the streaming index
+        phases.update(("flat", "streaming"))
+    if "streaming" in phases:
+        stream = streaming_phase(dev, args, Qn, k)
     if "flat" in phases:
         t0 = time.perf_counter()
         ds = make_range_dataset(n=args.flat_n, d=128, n_queries=Qn,
@@ -1385,6 +1762,11 @@ def main() -> int:
             del qeng, cap, qres
             torch.cuda.empty_cache()
 
+    if "sharded" in phases:
+        sharded_phase(dev, ds, qlo, qhi, k, res.ids, f32_ms, stream)
+    if "streaming" in phases:
+        del stream
+        torch.cuda.empty_cache()
     if "flat" in phases:
         del idx, ds, res
         if "trace" not in phases:

@@ -520,3 +520,80 @@ def test_gathered_kernels_at_the_card_checks_edges(dev, dtype, shape):
         rtol = 1e-5 if name == "gathered_l2" else 1e-4
         torch.testing.assert_close(got[fin], want[fin], rtol=rtol, atol=rtol)
         assert ops.LAUNCHES[name] == 1
+
+
+def test_delta_scan_with_dead_rows_on_cuda_agrees_with_cpu(dev):
+    """The streaming delta's scan (one ``pairwise_l2_masked`` launch) over
+    an arena with NaN-dead rows (upserts and kills) and NaN unused rows,
+    k past the live rows and past the capacity, against the same scan's
+    plain version on the CPU."""
+    from repro_torch.streaming import DeltaBuffer
+    ds = make_range_dataset(n=300, d=24, n_queries=9, quantize=32, seed=2)
+    delta = DeltaBuffer()
+    delta.add(np.arange(200), ds.vectors[:200], ds.lo[:200], ds.hi[:200])
+    delta.add(np.arange(10), ds.vectors[200:210], ds.lo[200:210],
+              ds.hi[200:210])
+    dead = list(range(50, 90, 3))
+    for e in dead:
+        assert delta.kill(e)
+    qlo, qhi = make_queries(ds, ANY_OVERLAP, 0.3, seed=1)
+    for k in (10, 250, 300):
+        ops.reset_launches()
+        a = delta.search(ds.queries, qlo, qhi, ANY_OVERLAP, k, device=dev)
+        assert ops.LAUNCHES["pairwise_l2_masked"] == 1
+        assert sum(ops.LAUNCHES.values()) == 1
+        b = delta.search(ds.queries, qlo, qhi, ANY_OVERLAP, k, device="cpu")
+        assert a[0].shape == b[0].shape == (9, min(k, 256))
+        assert not np.isin(a[0], dead).any()
+        np.testing.assert_array_equal(np.isfinite(a[1]), np.isfinite(b[1]))
+        np.testing.assert_array_equal(a[0][~np.isfinite(a[1])], -1)
+        fin = np.isfinite(b[1])
+        np.testing.assert_allclose(a[1][fin], b[1][fin], rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_array_equal(a[0], b[0])
+
+
+@pytest.mark.parametrize("merge", ["all_gather", "tournament"])
+def test_merge_with_ties_on_cuda_equals_cpu(dev, merge):
+    """Both schedules on the card, integer distances (ties everywhere) and
+    a dead shard, against the same code on the CPU: the stable sort keeps
+    the lowest position among ties on both."""
+    from repro_torch.distributed import sharded_topk_merge
+    from repro_torch.launch import make_mesh
+    rng = np.random.default_rng(5)
+    D, Q, w, k = 8, 33, 4, 11
+    dists = np.sort(rng.integers(0, 5, (D, Q, w)).astype(np.float32), axis=2)
+    ids = rng.integers(0, 10_000, (D, Q, w)).astype(np.int64)
+    alive = np.arange(D) != 5
+    got = sharded_topk_merge(make_mesh((D,), ("data",), device=dev), ids,
+                             dists, k, merge=merge, alive=alive)
+    want = sharded_topk_merge(make_mesh((D,), ("data",), device="cpu"), ids,
+                              dists, k, merge=merge, alive=alive)
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(g, x)
+    assert np.isin(got[0][got[0] >= 0], ids[alive]).all()
+
+
+def test_sharded_flat_on_cuda_launches_once_per_live_shard(dev):
+    from repro_torch.distributed import DeploymentSpec, ShardedDeployment
+    from repro_torch.launch import make_mesh
+    ds = make_range_dataset(n=800, d=32, n_queries=16, quantize=64, seed=4)
+    qlo, qhi = make_queries(ds, ANY_OVERLAP, 0.2, seed=2)
+    req = SearchRequest(ds.queries, (qlo, qhi), ANY_OVERLAP, k=10)
+    spec = DeploymentSpec(n_shards=4, merge="tournament")
+    gpu = ShardedDeployment.flat(ds.vectors, ds.lo, ds.hi, spec=spec,
+                                 mesh=make_mesh((4,), ("data",), device=dev))
+    cpu = ShardedDeployment.flat(ds.vectors, ds.lo, ds.hi, spec=spec,
+                                 mesh=make_mesh((4,), ("data",),
+                                                device="cpu"))
+    for failed in (None, 2):
+        if failed is not None:
+            gpu.fail(failed)
+            cpu.fail(failed)
+        ops.reset_launches()
+        a = gpu.execute(req)
+        assert ops.LAUNCHES["pairwise_l2_masked"] == (4 if failed is None
+                                                      else 3)
+        b = cpu.execute(req)
+        np.testing.assert_array_equal(a.ids, b.ids)
+        np.testing.assert_allclose(a.dists, b.dists, rtol=1e-4, atol=1e-4)

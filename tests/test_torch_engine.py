@@ -223,7 +223,8 @@ def test_fanout_default_by_device(engines):
 def test_port_imports_neither_jax_nor_repro():
     code = ("import sys, repro_torch.core, repro_torch.core.compressed, "
             "repro_torch.kernels.ops, repro_torch.convert, repro_torch.data, "
-            "repro_torch.obs.profile\n"
+            "repro_torch.obs.profile, repro_torch.streaming, "
+            "repro_torch.distributed, repro_torch.launch\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\n")
