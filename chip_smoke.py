@@ -17,6 +17,9 @@
     python3 chip_smoke.py --phases env,streaming,sharded
                                      # the streaming index and sharded
                                      # serving (pulls in the flat phase)
+    python3 chip_smoke.py --phases env,graph,streaming,sharded,serving
+                                     # the serving front ends on those
+                                     # backends
 
 Phases, each printing one JSON object per line:
 
@@ -87,11 +90,32 @@ Phases, each printing one JSON object per line:
    rows, three launches); ``per_shard_k = 5``; and ``from_segmented`` over
    the streaming phase's index on D = 2, equal to the index's own pruned
    answer. Asking for it pulls in ``flat`` and ``streaming``.
+13. ``serving``: the serving front ends (``repro_torch.serving``) on the
+   backends the phases above built (it pulls in ``graph`` and ``sharded``;
+   it builds no index). After ``sharded``: ``RetrievalServer`` on the
+   streaming index, one tick of 100 upserts, deletes of 50 ids that its
+   first 32 queries returned before the tick, those 32 queries and 32
+   probes with the upserted vectors (no deleted id comes back, each probe
+   finds its row first, the answers equal ``execute`` after the tick); then
+   ``AsyncRetrievalServer`` on the D = 4 deployment with shard 3 failed
+   (every response degraded, ids equal the degraded batched request's up
+   to exact ties). After ``graph``: the 256 graph queries through
+   ``AsyncRetrievalServer`` on the float32 engine, route ``graph``, in 4
+   waves (``chunk`` 16, ``max_batch`` 64): a slot refilled, every hit
+   bit-equal to the batched request and 16 of them to solo ``execute``,
+   kernels 1 and 3 launched and held against their plain versions at the
+   shapes the stream handed them; the same queries on the flat route
+   (dists bit-equal to the batched flat route, ids up to exact ties;
+   kernel 5 held at its micro-batch shape); and ``RetrievalServer`` over
+   two masks on an engine whose config routes graph (each mask group
+   equal to ``execute``, kernels 1 and 3 launched). Each line has the wall
+   time, QPS and the server's e2e and queue-wait p50 / p99 (host clock).
 
 Launch counts are set to 0 just before each main-path run (flat, graph,
 each tier's flat and graph run, the ``trace`` phase's kernel calls, the
 path of ``gathered_l2_dot`` and ``fused_topk_l2``, which no route calls,
-and each streaming and sharded request) and read just after. The kernel
+each streaming and sharded request, and each serving run) and read just
+after. The kernel
 checks at the main path's shapes use the inputs the main path handed to
 each kernel. The last lines are a ``{"kernels": [...]}`` summary, the
 ``nvidia-smi`` name and power limit, and
@@ -121,7 +145,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
 ALL_PHASES = ("env", "kernels", "scan_sweep", "gathered_sweep", "flat",
               "quant_flat", "graph", "quant_graph", "routes", "quant_routes",
-              "trace", "streaming", "sharded")
+              "trace", "streaming", "sharded", "serving")
 # the card's published peaks (repro_torch.obs.profile.PEAKS), set in main
 PEAKS = None
 
@@ -1419,15 +1443,17 @@ def streaming_phase(dev, args, Qn: int, k: int) -> dict:
           f"allocated bytes did not fall across the compaction: "
           f"{mem_before} -> {mem_compacted} -> {mem_served}")
     return {"index": sidx, "request": request("pruned"),
-            "pruned_ids": after["pruned"].ids}
+            "pruned_ids": after["pruned"].ids, "ds": ds,
+            "free_row": int(new_rows[-1]) + 1}
 
 
 def sharded_phase(dev, ds, qlo, qhi, k: int, flat_ids, flat_ms: float,
-                  stream: dict) -> None:
+                  stream: dict):
     """Sharded serving (``repro_torch.distributed``) on the one card: the
     flat phase's corpus as ``ShardedDeployment.flat`` over D = 4 logical
     shards under each merge schedule, a lost shard, a narrow fan-in, and
-    the streaming phase's index dealt onto D = 2 shards."""
+    the streaming phase's index dealt onto D = 2 shards. Returns the last
+    D = 4 deployment (the host merge), for the serving phase."""
     import gc
     import numpy as np
     import torch
@@ -1481,7 +1507,7 @@ def sharded_phase(dev, ds, qlo, qhi, k: int, flat_ids, flat_ms: float,
     want, _ = flat_search(corpus[:keep], lo[:keep], hi[:keep],
                           *dep._query_tensors(req), mask=ANY_OVERLAP, k=k)
     lost_equal = bool(np.array_equal(lost.ids, want.cpu().numpy()))
-    del dep, corpus, lo, hi
+    del corpus, lo, hi
     gc.collect()
 
     narrow = ShardedDeployment.flat(ds.vectors, ds.lo, ds.hi, mesh=mesh,
@@ -1544,13 +1570,286 @@ def sharded_phase(dev, ds, qlo, qhi, k: int, flat_ids, flat_ms: float,
     check(shared and seg_mem1 - seg_mem0 < 64 << 20,
           f"sharded from_segmented: the views staged segments again "
           f"(engines shared: {shared}; allocated {seg_mem0} -> {seg_mem1})")
+    return dep
+
+
+# ---- serving front ends -------------------------------------------------------
+
+def serving_snapshot(srv, wall_s: float, n: int) -> dict:
+    """Wall time, QPS and the server's latency percentiles (host clock)."""
+    snap = srv.snapshot()
+    out = {"wall_s": wall_s, "qps": n / wall_s,
+           "e2e_ms": {p: snap["e2e_ms"][p] for p in ("p50", "p99")},
+           "queue_wait_ms": {p: snap["queue_wait_ms"][p]
+                             for p in ("p50", "p99")},
+           "server_steps": snap["steps"], "served": snap["served"],
+           "degraded": snap["degraded"], "shed_total": snap["shed_total"]}
+    for key in ("batch_occupancy", "refill_efficiency", "refills",
+                "refilled_rows", "chunks"):
+        if key in snap:
+            out[key] = snap[key]
+    return out
+
+
+def serve_waves(srv, ds, qlo, qhi, mask, waves: int, steps_between: int):
+    """Submit the queries in ``waves`` equal waves with server steps in
+    between (later waves are admitted mid-flight), then drain. Returns
+    (outcome per query, wall seconds, tickets)."""
+    import numpy as np
+    import torch
+    Q = len(qlo)
+    per = -(-Q // waves)
+    tickets = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for w in range(waves):
+        for i in range(w * per, min(Q, (w + 1) * per)):
+            tickets[srv.submit(i, qlo[i], qhi[i], mask)] = i
+        for _ in range(steps_between):
+            srv.step()
+    res = srv.run_until_idle(max_steps=10_000)
+    wall = time.perf_counter() - t0
+    check(set(res) == set(tickets), f"serving: {len(res)} outcomes for "
+                                    f"{len(tickets)} submissions")
+    out = [None] * Q
+    for t, i in tickets.items():
+        check(bool(res[t]), f"serving: query {i} was shed ({res[t]})")
+        out[i] = res[t]
+    return out, wall
+
+
+def serving_backends(stream: dict, dep, ds, qlo, qhi, k: int) -> None:
+    """The serving front ends over the mutable and the sharded backend:
+    ``RetrievalServer`` on the streaming phase's ``SegmentedIndex``
+    (upserts, deletes and queries in one tick), and the async server on the
+    sharded phase's 1M-row D = 4 deployment with shard 3 failed."""
+    import numpy as np
+    from repro_torch.core import ANY_OVERLAP, SearchRequest
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (AsyncRetrievalServer, RetrievalServer,
+                                     SLOPolicy)
+
+    # -- the sync server on the streaming index: the tick's deletes are the
+    # top answers of its first 32 queries before the tick, its upserts fresh
+    # rows that 32 probe queries (their own vectors) must find first
+    sidx, sds = stream["index"], stream["ds"]
+    req = stream["request"]
+    n_q, n_up = 32, 100
+    before = sidx.execute(SearchRequest(req.vectors[:n_q],
+                                        (req.qlo[:n_q], req.qhi[:n_q]),
+                                        ANY_OVERLAP, k=k))
+    dead = np.unique(before.ids[:, :2][before.ids[:, :2] >= 0])[:50]
+    up = np.arange(stream["free_row"], stream["free_row"] + n_up)
+    probes = up[:n_q]
+
+    def embed(items):
+        return np.stack([sds.vectors[it[1]] if isinstance(it, tuple)
+                         else req.vectors[it] for it in items])
+
+    srv = RetrievalServer(sidx, embed, k=k, ef=64, auto_compact=False)
+    for e in up:
+        srv.submit_upsert(int(e), ("row", int(e)), sds.lo[e], sds.hi[e])
+    for e in dead:
+        srv.submit_delete(int(e))
+    for i in range(n_q):
+        srv.submit(i, req.qlo[i], req.qhi[i], ANY_OVERLAP)
+    for e in probes:
+        srv.submit(("row", int(e)), sds.lo[e], sds.hi[e], ANY_OVERLAP)
+    ops.reset_launches()
+    got = srv.tick()
+    launches = launched(ops.LAUNCHES)
+    hits = [got[i] for i in sorted(got)]
+    ids = np.stack([h.ids for h in hits])
+    dists = np.stack([h.dists for h in hits])
+    vecs = np.concatenate([req.vectors[:n_q], sds.vectors[probes]])
+    after = sidx.execute(SearchRequest(
+        vecs, (np.concatenate([req.qlo[:n_q], sds.lo[probes]]),
+               np.concatenate([req.qhi[:n_q], sds.hi[probes]])),
+        ANY_OVERLAP, k=k, ef=64))
+    equal = bool(np.array_equal(ids, after.ids)
+                 and np.array_equal(dists, after.dists))
+    dead_returned = int(np.isin(ids, dead).sum())
+    found = int((ids[n_q:, 0] == probes).sum())
+    emit({"phase": "serving_streaming", "upserts": n_up,
+          "deletes": int(dead.size), "queries": 2 * n_q,
+          "tick_stats": srv.tick_stats, "launches": launches,
+          "n_live": len(sidx), "equal_execute_after_tick": equal,
+          "deleted_ids_returned": dead_returned,
+          "upserted_probes_found_first": found})
+    check(dead.size > 0 and dead_returned == 0,
+          f"serving streaming: {dead_returned} deleted ids returned")
+    check(found == n_q, f"serving streaming: {found} of {n_q} upserted rows "
+                        f"came first for their own vectors")
+    check(equal, "serving streaming: the tick's answers differ from "
+                 "execute after it")
+
+    # -- the async server on the sharded deployment with shard 3 lost
+    D = dep.spec.n_shards
+    dep.fail(D - 1)
+    want = dep.execute(SearchRequest(ds.queries, (qlo, qhi), ANY_OVERLAP,
+                                     k=k))
+    asrv = AsyncRetrievalServer(
+        dep, lambda items: ds.queries[np.asarray(items)], k=k, ef=64,
+        policy=SLOPolicy(max_wait_ms=0.0, max_batch=64))
+    ops.reset_launches()
+    out, wall = serve_waves(asrv, ds, qlo, qhi, ANY_OVERLAP, waves=4,
+                            steps_between=1)
+    launches = launched(ops.LAUNCHES)
+    dep.restore(D - 1)
+    a_ids = np.stack([o.hit.ids for o in out])
+    a_d = np.stack([o.hit.dists for o in out])
+    degraded = sum(o.degraded for o in out)
+    agree = agreement(a_ids, a_d, want.ids, want.dists, 0.0)
+    emit({"phase": "serving_sharded", "shards": D, "failed": [D - 1],
+          "Q": len(qlo), **serving_snapshot(asrv, wall, len(qlo)),
+          "launches": launches, "degraded_responses": degraded,
+          "dists_bit_equal_batched": bool(np.array_equal(a_d, want.dists)),
+          "id_agreement_batched": agree})
+    check(degraded == len(qlo), f"serving sharded: {degraded} of "
+                                f"{len(qlo)} responses degraded")
+    check(launches.get("pairwise_l2_masked", 0) > 0,
+          f"serving sharded: no scan launched ({launches})")
+    check(agree == 1.0, f"serving sharded: ids differ from the degraded "
+                        f"batched request beyond ties ({agree})")
+
+
+def serving_front_ends(eng, idx, ds, qlo, qhi, k: int, F: int, gres,
+                       flat_res, graph_ms: float,
+                       graph_launches: dict) -> None:
+    """The serving front ends on the graph phase's float32 engine: the async
+    server's continuous path (graph) and micro-batches (flat), then the
+    sync server on an engine whose config routes graph. Kernels 1, 3 and 5
+    are held against their plain versions at the shapes serving hands
+    them."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (ANY_OVERLAP, QUERY_CONTAINED, EngineConfig,
+                                  QueryEngine, SearchRequest)
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (AsyncRetrievalServer, RetrievalServer,
+                                     SLOPolicy)
+
+    Q, waves, chunk, max_batch = len(qlo), 4, 16, 64
+
+    def embed(items):
+        return ds.queries[np.asarray(items)]
+
+    def server(route):
+        return AsyncRetrievalServer(
+            eng, embed, k=k, ef=64, route=route, chunk=chunk,
+            max_inflight=256, policy=SLOPolicy(max_wait_ms=0.0,
+                                               max_batch=max_batch))
+
+    # -- continuous path: one warm run, then the counted and timed one
+    serve_waves(server("graph"), ds, qlo, qhi, ANY_OVERLAP, waves, 1)
+    srv = server("graph")
+    ops.reset_launches()
+    with Capture(ops, "gathered_topk", step_live) as cap_t, \
+            Capture(ops, "gathered_l2",
+                    lambda q, c: c.shape[0] * c.shape[1]) as cap_l:
+        out, wall = serve_waves(srv, ds, qlo, qhi, ANY_OVERLAP, waves, 1)
+    launches = launched(ops.LAUNCHES)
+    g_ids = np.stack([o.hit.ids for o in out])
+    g_d = np.stack([o.hit.dists for o in out])
+    batched_equal = bool(np.array_equal(g_ids, gres.ids)
+                         and np.array_equal(g_d, gres.dists))
+    n_solo = 16
+    solo_equal = 0
+    for i in range(n_solo):
+        s = eng.execute(SearchRequest(ds.queries[i:i + 1],
+                                      (qlo[i:i + 1], qhi[i:i + 1]),
+                                      ANY_OVERLAP, k=k, ef=64,
+                                      route="graph"))
+        solo_equal += bool(np.array_equal(s.ids[0], g_ids[i])
+                           and np.array_equal(s.dists[0], g_d[i]))
+    snap = serving_snapshot(srv, wall, Q)
+    emit({"phase": "serving_async_graph", "Q": Q, "k": k, "ef": 64,
+          "fanout": F, "waves": waves, "steps_between": 1, "chunk": chunk,
+          "max_batch": max_batch, **snap, "launches": launches,
+          "batched_request_ms": graph_ms,
+          "batched_request_launches": graph_launches,
+          "bit_equal_batched": batched_equal,
+          "bit_equal_solo": f"{solo_equal}/{n_solo}"})
+    check(snap["refills"] > 0, "serving graph: no slot was refilled")
+    check(launches.get("gathered_topk", 0) > 0
+          and launches.get("gathered_l2", 0) > 0,
+          f"serving graph: kernels 1 and 3 not launched ({launches})")
+    check(batched_equal, "serving graph: hits differ from the batched "
+                         "request")
+    check(solo_equal == n_solo, f"serving graph: {solo_equal} of {n_solo} "
+                                f"hits equal solo execute")
+    for cap in (cap_t, cap_l):
+        measure_kernel(cap.name, cap.best, launches.get(cap.name, 0),
+                       phase="serving_kernel")
+    del cap_t, cap_l
+
+    # -- flat micro-batches
+    srv = server("flat")
+    serve_waves(srv, ds, qlo, qhi, ANY_OVERLAP, waves, 1)
+    srv = server("flat")
+    ops.reset_launches()
+    with Capture(ops, "pairwise_l2_masked") as cap_p:
+        out, wall = serve_waves(srv, ds, qlo, qhi, ANY_OVERLAP, waves, 1)
+    launches = launched(ops.LAUNCHES)
+    f_ids = np.stack([o.hit.ids for o in out])
+    f_d = np.stack([o.hit.dists for o in out])
+    d_equal = bool(np.array_equal(f_d, flat_res.dists))
+    ids_equal = bool(np.array_equal(f_ids, flat_res.ids))
+    ties_only = agreement(f_ids, f_d, flat_res.ids, flat_res.dists,
+                          0.0) == 1.0
+    emit({"phase": "serving_async_flat", "Q": Q, "k": k,
+          **serving_snapshot(srv, wall, Q), "launches": launches,
+          "dists_bit_equal_batched": d_equal,
+          "ids_equal_batched": ids_equal,
+          "ids_differ_only_at_ties": ties_only})
+    check(d_equal, "serving flat: dists differ from the batched flat route")
+    check(ties_only, "serving flat: ids differ from the batched flat route "
+                     "beyond exact ties")
+    measure_kernel("pairwise_l2_masked", cap_p.best,
+                   launches.get("pairwise_l2_masked", 0),
+                   phase="serving_kernel")
+    del cap_p
+
+    # -- the sync server, two masks in one tick, on a graph-routed engine
+    geng = QueryEngine(idx, EngineConfig(route="graph"), device="cuda")
+    masks = (ANY_OVERLAP, QUERY_CONTAINED)
+    ssrv = RetrievalServer(geng, embed, k=k, ef=64)
+    for i in range(Q):
+        ssrv.submit(i, qlo[i], qhi[i], masks[i % 2])
+    geng.execute(SearchRequest(ds.queries[:8], (qlo[:8], qhi[:8]),
+                               ANY_OVERLAP, k=k))    # stage the variants
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    got = ssrv.tick()
+    launches = launched(ops.LAUNCHES)
+    groups = {}
+    for m in masks:
+        sel = np.flatnonzero(np.arange(Q) % 2 == (0 if m == masks[0] else 1))
+        res = geng.execute(SearchRequest(ds.queries[sel], (qlo[sel], qhi[sel]),
+                                         m, k=k, ef=64))
+        groups[str(m)] = bool(
+            np.array_equal(np.stack([got[i].ids for i in sel]), res.ids)
+            and np.array_equal(np.stack([got[i].dists for i in sel]),
+                               res.dists))
+    emit({"phase": "serving_sync", "Q": Q, "masks": list(masks),
+          "tick_stats": ssrv.tick_stats, "launches": launches,
+          "groups_equal_execute": groups})
+    check(launches.get("gathered_topk", 0) > 0
+          and launches.get("gathered_l2", 0) > 0,
+          f"serving sync: the graph-routed tick launched {launches}")
+    check(all(groups.values()), f"serving sync: a mask group differs from "
+                                f"execute ({groups})")
+    del geng, ssrv
 
 
 # ---- main --------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(ALL_PHASES))
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
+                    help="comma-separated phases, all by default: "
+                         + ", ".join(ALL_PHASES) + " (serving pulls in "
+                         "graph, streaming, sharded and flat)")
     ap.add_argument("--flat-n", type=int, default=1_000_000)
     ap.add_argument("--graph-n", type=int, default=50_000)
     ap.add_argument("--stream-n", type=int, default=70_000)
@@ -1619,6 +1918,8 @@ def main() -> int:
         phases.add("flat")                     # its dataset, index and result
     if "quant_graph" in phases or "quant_routes" in phases:
         phases.add("graph")
+    if "serving" in phases:     # the graph index, the streaming index and
+        phases.update(("graph", "sharded"))        # the sharded deployment
     if "sharded" in phases:          # the flat corpus, the streaming index
         phases.update(("flat", "streaming"))
     if "streaming" in phases:
@@ -1762,8 +2063,14 @@ def main() -> int:
             del qeng, cap, qres
             torch.cuda.empty_cache()
 
+    serving_s = {}
     if "sharded" in phases:
-        sharded_phase(dev, ds, qlo, qhi, k, res.ids, f32_ms, stream)
+        dep = sharded_phase(dev, ds, qlo, qhi, k, res.ids, f32_ms, stream)
+        if "serving" in phases:
+            t0 = time.perf_counter()
+            serving_backends(stream, dep, ds, qlo, qhi, k)
+            serving_s["backends"] = time.perf_counter() - t0
+        del dep
     if "streaming" in phases:
         del stream
         torch.cuda.empty_cache()
@@ -1811,6 +2118,7 @@ def main() -> int:
                 Capture(ops, "gathered_l2", lambda q, c: c.shape[1]) as cap_l:
             gres = eng.execute(greq)
         launches = dict(ops.LAUNCHES)
+        graph_launches = launched(launches)
         check(launches["gathered_topk"] > 0 and launches["gathered_l2"] > 0,
               f"graph route did not launch its kernels: {launches}")
         steps = wavefront_steps(gres.trace)
@@ -1975,6 +2283,14 @@ def main() -> int:
         check(qeng._corpus_dev is None,
               "int8 pruned/auto: the float32 corpus was staged")
         del qeng
+
+    if "serving" in phases:
+        t0 = time.perf_counter()
+        serving_front_ends(eng, idx, ds, qlo, qhi, k, F, gres, flat_res,
+                           f32_graph_ms, graph_launches)
+        serving_s["front_ends"] = time.perf_counter() - t0
+        emit({"phase": "serving", "seconds": serving_s,
+              "total_s": sum(serving_s.values())})
 
     if "trace" in phases:
         trace_phase(eng, ds, qlo, qhi, k, fused_args, fused16_args, dot_args,

@@ -7,6 +7,8 @@
   (host NumPy; the same ``mstg-index`` v1 ``.npz`` as the reference)
 * execution          — :class:`QueryEngine` with an :class:`EngineConfig`,
   on an explicit device (auto-routed graph / pruned / flat)
+* continuous batching — :class:`WavefrontStream` admits queries into the
+  slots converged rows free between wavefront chunks
 """
 from . import build, intervals, segment_tree
 from .intervals import (LEFT_OVERLAP, QUERY_CONTAINED, RIGHT_OVERLAP,
@@ -23,7 +25,7 @@ from .api import (IndexSpec, QueryHit, Rejected, RouteReport, SearchRequest,
 from .mstg import MSTGIndex, FrozenVariant, build_variant
 from .quant import STORAGE_DTYPES, QuantizedStore, maybe_quantize
 from .compressed import exact_rerank
-from .search import (device_variant, mstg_graph_search,
+from .search import (WavefrontStream, device_variant, mstg_graph_search,
                      mstg_graph_search_chunked, merge_topk)
 from .flat import flat_search
 from .engine import EngineConfig, QueryEngine, resolve_device
@@ -37,7 +39,7 @@ __all__ = [
     "MSTGIndex", "QueryEngine", "EngineConfig", "FrozenVariant",
     "build_variant", "AttributeDomain", "device_variant", "resolve_device",
     "mstg_graph_search", "mstg_graph_search_chunked", "merge_topk",
-    "flat_search",
+    "WavefrontStream", "flat_search",
     "STORAGE_DTYPES", "QuantizedStore", "maybe_quantize", "exact_rerank",
     "SearchTask", "PlanSlot", "plan_searches", "plan_batch_ranked",
     "eval_predicate", "mask_name", "parse_mask", "SelectivityIndex",

@@ -405,6 +405,317 @@ def mstg_graph_search_chunked(arrays: dict, queries, version, key_lo, key_hi,
     return out_ids, out_d, stats
 
 
+# ---- continuous-batching stream (slot refill between chunks) ---------------
+
+def _rows(tree, idx):
+    """Row-select every tensor of a nested tuple of per-row tensors."""
+    if isinstance(tree, tuple):
+        return tuple(_rows(a, idx) for a in tree)
+    return tree[idx]
+
+
+def _concat_rows(a, b):
+    """Concatenate two nested tuples of per-row tensors along the rows."""
+    if isinstance(a, tuple):
+        return tuple(_concat_rows(x, y) for x, y in zip(a, b))
+    return torch.cat([a, b], dim=0)
+
+
+class WavefrontStream:
+    """Continuous-batching wavefront driver over one MSTG variant.
+
+    The chunked driver (:func:`mstg_graph_search_chunked`) compacts
+    converged rows *out* of the active batch; this driver also admits newly
+    arrived queries *into* the freed slots between chunks, so the device
+    batch stays near-full while single queries enter and leave mid-flight.
+
+    Correctness contract: per-row trajectories are independent (the step is
+    the identity for converged rows, and init, distances and merge are all
+    row-local), so every query's ``(ids, dists)`` is **bit-identical** to
+    running it alone through :func:`mstg_graph_search` /
+    :func:`mstg_graph_search_chunked` with the same ``ef`` / ``fanout`` /
+    ``packed`` / ``max_steps``, whatever shared its batch and whenever it
+    was admitted.
+
+    Usage::
+
+        stream = WavefrontStream(engine.graph_dev("T"), ef=64,
+                                 Kpad=index.variants["T"].Kpad)
+        stream.admit(tags, queries, version, key_lo, key_hi, max_steps=320)
+        while not stream.idle:
+            for tag, ids, dists, steps in stream.step():
+                ...   # one converged (or budget-truncated) query
+
+    ``tags`` are opaque non-negative ints the caller routes results by;
+    harvested rows return the full ``ef``-wide beam and the row's step
+    count (slice ``[:k]`` for a request's k).
+
+    Batch mechanics follow the reference: rows live in power-of-two buckets
+    (``min_bucket`` .. ``max_bucket``, a power of two); pad rows are
+    empty-task or duplicated rows with tag -1, never harvested. A chunk's
+    step budget is ``min(chunk, min remaining budget over live rows)``, so
+    a truncated query stops at exactly its ``max_steps``. Within a chunk
+    the stream checks every :data:`CHECK_EVERY` steps whether any row is
+    still live and stops early once none is (one device sync per check);
+    a converged row's step is the identity, so this changes no result, and
+    the steps a chunk counts are the reference's (the most any row was
+    live for, from ``alive_steps``).
+
+    Counters read by the serving metrics: ``executed_row_steps`` (slots x
+    steps paid), ``useful_row_steps`` (per-row convergence steps),
+    ``refills`` / ``refilled_rows`` (admissions into a running batch),
+    ``occupancy_rows`` / ``occupancy_capacity`` (live rows and bucket width
+    summed per chunk), ``chunks``.
+    """
+
+    def __init__(self, arrays: dict, *, ef: int, Kpad: int, fanout: int = 1,
+                 chunk: int = 16, min_bucket: int = 8, max_bucket: int = 256,
+                 packed: bool = True):
+        if max_bucket < 1 or (max_bucket & (max_bucket - 1)):
+            raise ValueError(f"max_bucket must be a power of two, got "
+                             f"{max_bucket}")
+        self.arrays = arrays
+        self.ef = int(ef)
+        self.Kpad = int(Kpad)
+        self.fanout = max(1, int(fanout))
+        self.chunk = max(1, int(chunk))
+        self.min_bucket = min(int(min_bucket), max_bucket)
+        self.max_bucket = int(max_bucket)
+        self.packed = bool(packed)
+        # pending admissions (host-side, FIFO)
+        self._pending: list = []
+        # in-flight device rows: queries, versions, plan nodes, search
+        # state; perm -1 marks pad and harvested rows
+        self._rows = None
+        self._perm = np.zeros(0, np.int64)
+        self._steps_run = np.zeros(0, np.int64)
+        self._budget = np.zeros(0, np.int64)
+        self._active = np.zeros(0, bool)
+        self.admitted = 0
+        self.completed = 0
+        self.refills = 0
+        self.refilled_rows = 0
+        self.chunks = 0
+        self.executed_row_steps = 0
+        self.useful_row_steps = 0
+        self.occupancy_rows = 0
+        self.occupancy_capacity = 0
+
+    # ---- introspection ----
+    @property
+    def inflight(self) -> int:
+        """Real (tagged) rows currently in the device batch."""
+        return int((self._perm >= 0).sum())
+
+    @property
+    def n_pending(self) -> int:
+        return len(self._pending)
+
+    @property
+    def idle(self) -> bool:
+        return not self._pending and self.inflight == 0
+
+    @property
+    def refill_efficiency(self) -> float:
+        """useful / executed row-steps (1.0: every paid slot-step advanced
+        an unconverged query)."""
+        if not self.executed_row_steps:
+            return 1.0
+        return self.useful_row_steps / self.executed_row_steps
+
+    # ---- admission ----
+    def admit(self, tags, queries, version, key_lo, key_hi,
+              max_steps) -> None:
+        """Queue rows for admission at the next :meth:`step`, one entry per
+        row; ``max_steps`` is a scalar or per row."""
+        queries = np.ascontiguousarray(queries, np.float32)
+        tags = np.asarray(tags, np.int64).ravel()
+        version = np.asarray(version, np.int64).ravel()
+        key_lo = np.asarray(key_lo, np.int64).ravel()
+        key_hi = np.asarray(key_hi, np.int64).ravel()
+        budget = np.broadcast_to(np.asarray(max_steps, np.int64),
+                                 tags.shape).copy()
+        if np.any(tags < 0):
+            raise ValueError("tags must be >= 0 (-1 is the pad sentinel)")
+        if np.any(budget < 1):
+            raise ValueError("max_steps must be >= 1")
+        for i in range(tags.shape[0]):
+            self._pending.append((int(tags[i]), queries[i], int(version[i]),
+                                  int(key_lo[i]), int(key_hi[i]),
+                                  int(budget[i])))
+        self.admitted += int(tags.shape[0])
+
+    # ---- internals ----
+    def _init_new(self, count: int):
+        """Pop ``count`` pending rows and build their search state, padded
+        to a power-of-two block (pad rows carry empty tasks: version -1,
+        key_lo > key_hi, converged before their first step)."""
+        rows = self._pending[:count]
+        del self._pending[:count]
+        Nb = max(self.min_bucket, _next_pow2(count))
+        d = rows[0][1].shape[0]
+        q = np.zeros((Nb, d), np.float32)
+        ver = np.full(Nb, -1, np.int64)
+        klo = np.ones(Nb, np.int64)
+        khi = np.zeros(Nb, np.int64)
+        perm = np.full(Nb, -1, np.int64)
+        budget = np.zeros(Nb, np.int64)
+        for i, (tag, qv, v, lo, hi, b) in enumerate(rows):
+            q[i], ver[i], klo[i], khi[i] = qv, v, lo, hi
+            perm[i], budget[i] = tag, b
+        qs, vj, nodes = _prepare(self.arrays, q, ver, klo, khi, self.Kpad)
+        state = _graph_init(self.arrays, qs, vj, nodes, ef=self.ef,
+                            packed=self.packed)
+        active = _active_rows(state[1], state[2]).cpu().numpy()
+        return (qs, vj, nodes, state), active, perm, budget
+
+    def _compose(self) -> bool:
+        """Drop dead rows, admit pending ones into the freed slots, and
+        repack to a power-of-two bucket. Returns True when a runnable batch
+        exists."""
+        keep_mask = ((self._perm >= 0) & self._active
+                     & (self._steps_run < self._budget))
+        keep = np.flatnonzero(keep_mask)
+        n_live = keep.size
+        n_new = min(len(self._pending), max(0, self.max_bucket - n_live))
+        if n_live == 0 and n_new == 0:
+            self._rows = None
+            self._perm = np.zeros(0, np.int64)
+            self._active = np.zeros(0, bool)
+            return False
+        if n_new == 0:
+            # no admissions: rebucket only when shrinking pays or a live but
+            # budget-exhausted row must be evicted; converged rows ride
+            # along as identity steps, as in the chunked driver
+            cur = self._perm.shape[0]
+            bucket = min(max(self.min_bucket, _next_pow2(n_live)), cur)
+            zombies = bool(np.any(self._active & ~keep_mask))
+            if bucket == cur and not zombies:
+                return True
+            idx, n_pad = self._pad_idx(keep, bucket,
+                                       np.flatnonzero(~self._active))
+            self._take(self._rows, self._active, self._perm, self._budget,
+                       self._steps_run, idx, n_pad)
+            return True
+        if n_live:
+            self.refills += 1
+            self.refilled_rows += n_new
+        new_rows, nactive, nperm, nbudget = self._init_new(n_new)
+        nsteps = np.zeros(nperm.shape[0], np.int64)
+        if n_live == 0:
+            # nothing in flight survives: adopt the newcomer block as is
+            self._rows = new_rows
+            self._active, self._perm = nactive, nperm
+            self._budget, self._steps_run = nbudget, nsteps
+            return True
+        # (kept live rows | newcomer rows | pads) from [old; newcomers]
+        old_rows = self._perm.shape[0]
+        active = np.concatenate([self._active, nactive])
+        bucket = max(self.min_bucket, _next_pow2(n_live + n_new))
+        take = np.concatenate([keep, old_rows + np.arange(n_new)])
+        idx, n_pad = self._pad_idx(take, bucket, np.flatnonzero(~active))
+        self._take(_concat_rows(self._rows, new_rows), active,
+                   np.concatenate([self._perm, nperm]),
+                   np.concatenate([self._budget, nbudget]),
+                   np.concatenate([self._steps_run, nsteps]), idx, n_pad)
+        return True
+
+    @staticmethod
+    def _pad_idx(take: np.ndarray, bucket: int, inactive: np.ndarray):
+        """Row-index vector of length ``bucket``: the kept rows plus pad
+        slots. Pads point at an inactive source row when one exists (no
+        marginal work: converged rows run the identity), else duplicate the
+        first kept row. Returns ``(idx, n_pad)``."""
+        pad = bucket - take.size
+        if pad <= 0:
+            return take, 0
+        src = inactive[0] if inactive.size else take[0]
+        return np.concatenate([take, np.full(pad, src, np.int64)]), pad
+
+    def _take(self, rows, active, perm, budget, steps, idx, n_pad) -> None:
+        """Keep rows ``idx`` of the given batch; the last ``n_pad`` are
+        pads."""
+        ix = torch.as_tensor(idx, device=rows[0].device)
+        self._rows = _rows(rows, ix)
+        self._active = active[idx]
+        perm = perm[idx]
+        if n_pad:
+            perm[idx.size - n_pad:] = -1
+        self._perm = perm
+        self._budget = budget[idx]
+        self._steps_run = steps[idx]
+
+    def _run_chunk(self, limit: int, any_live: bool) -> int:
+        """Advance the batch by up to ``limit`` steps, stopping early once
+        no row is live; returns the steps the reference's loop would run."""
+        qs, ver, nodes, state = self._rows
+        before = state[4]
+        steps = 0
+        while any_live and steps < limit:
+            for _ in range(min(CHECK_EVERY, limit - steps)):
+                state = _step(self.arrays, qs, ver, nodes, state,
+                              F=self.fanout, packed=self.packed)
+                steps += 1
+            any_live = (steps < limit
+                        and bool(_active_rows(state[1], state[2]).any()))
+        self._rows = (qs, ver, nodes, state)
+        return int((state[4] - before).max()) if steps else 0
+
+    # ---- the serving loop entry point ----
+    def step(self):
+        """Compose (drop converged rows, refill from pending), run one
+        chunk, and harvest rows that converged or used up their budget.
+
+        Returns a list of ``(tag, ids, dists, steps)``: ids and dists are
+        the full ``ef``-wide beam as numpy (NO_EDGE / +inf padded), steps
+        the row's convergence (or truncation) step count.
+        """
+        with obs.span("chunk") as csp:
+            if not self._compose():
+                return []
+            real = self._perm >= 0
+            live = real & self._active & (self._steps_run < self._budget)
+            remaining = self._budget[live] - self._steps_run[live]
+            limit = (min(self.chunk, int(remaining.min())) if remaining.size
+                     else self.chunk)
+            bucket = self._perm.shape[0]
+            n_live = int(live.sum())
+            self.occupancy_rows += n_live
+            self.occupancy_capacity += bucket
+            ran = self._run_chunk(limit, n_live > 0)
+            state = self._rows[3]
+            self._active = _active_rows(state[1], state[2]).cpu().numpy()
+            self._steps_run = self._steps_run + ran
+            self.chunks += 1
+            self.executed_row_steps += bucket * ran
+            # harvest: converged, or truncated at exactly their step budget
+            done = np.flatnonzero(real & (~self._active
+                                          | (self._steps_run >= self._budget)))
+            if obs.tracing():
+                csp.set("live", n_live).set("bucket", bucket)
+                csp.set("steps", ran).set("harvested", int(done.size))
+                csp.set("occupancy", round(n_live / bucket, 4))
+            if done.size == 0:
+                return []
+            r = torch.as_tensor(done, device=state[0].device)
+            ids_h = state[0][r].cpu().numpy()
+            d_h = state[1][r].cpu().numpy()
+            steps_h = state[4][r].cpu().numpy()
+            out = [(int(self._perm[row]), ids_h[j], d_h[j], int(steps_h[j]))
+                   for j, row in enumerate(done)]
+            self._perm[done] = -1
+            self.completed += done.size
+            self.useful_row_steps += int(steps_h.sum())
+            return out
+
+    def drain(self):
+        """Run :meth:`step` until idle; returns every harvested row."""
+        out = []
+        while not self.idle:
+            out.extend(self.step())
+        return out
+
+
 def merge_topk(ids_a, d_a, ids_b, d_b, k: int):
     """Merge two (Q, k) result sets, dropping duplicate ids (Theorem 4.1
     plans may overlap at predicate boundaries)."""

@@ -597,3 +597,36 @@ def test_sharded_flat_on_cuda_launches_once_per_live_shard(dev):
         b = cpu.execute(req)
         np.testing.assert_array_equal(a.ids, b.ids)
         np.testing.assert_allclose(a.dists, b.dists, rtol=1e-4, atol=1e-4)
+
+
+def test_async_graph_server_on_cuda_equals_solo_execute(dev):
+    """The continuous path on the card: queries admitted in waves into a
+    running wavefront give solo ``execute``'s ids and dists bit for bit,
+    with a refill and the step kernels launched."""
+    from repro_torch.serving import AsyncRetrievalServer, SLOPolicy
+    ds = make_range_dataset(n=600, d=16, n_queries=12, quantize=32, seed=0)
+    idx = MSTGIndex(ds.vectors, ds.lo, ds.hi, variants=("T", "Tp"), m=8,
+                    ef_con=40)
+    eng = QueryEngine(idx, device=dev)
+    qlo, qhi = make_queries(ds, ANY_OVERLAP, 0.15, seed=3)
+    want = [eng.execute(SearchRequest(ds.queries[i:i + 1],
+                                      (qlo[i:i + 1], qhi[i:i + 1]),
+                                      ANY_OVERLAP, k=8, ef=32,
+                                      route="graph"))
+            for i in range(len(qlo))]
+    srv = AsyncRetrievalServer(
+        eng, lambda items: ds.queries[np.asarray(items)], k=8, ef=32,
+        route="graph", max_inflight=16, chunk=2,
+        policy=SLOPolicy(max_wait_ms=0.0, max_batch=4))
+    ops.reset_launches()
+    tickets = {}
+    for wave in (range(0, 5), range(5, 9), range(9, 12)):
+        for i in wave:
+            tickets[srv.submit(i, qlo[i], qhi[i], ANY_OVERLAP)] = i
+        srv.step()
+    got = srv.run_until_idle()
+    assert ops.LAUNCHES["gathered_topk"] > 0 and ops.LAUNCHES["gathered_l2"] > 0
+    assert srv.snapshot()["refills"] > 0
+    for t, i in tickets.items():
+        np.testing.assert_array_equal(got[t].hit.ids, want[i].ids[0])
+        np.testing.assert_array_equal(got[t].hit.dists, want[i].dists[0])
