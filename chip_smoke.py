@@ -20,6 +20,9 @@
     python3 chip_smoke.py --phases env,graph,streaming,sharded,serving
                                      # the serving front ends on those
                                      # backends
+    python3 chip_smoke.py --phases env,baselines,lm
+                                     # the paper's baselines and the LM
+                                     # serving path (no other index build)
 
 Phases, each printing one JSON object per line:
 
@@ -110,11 +113,41 @@ Phases, each printing one JSON object per line:
    two masks on an engine whose config routes graph (each mask group
    equal to ``execute``, kernels 1 and 3 launched). Each line has the wall
    time, QPS and the server's e2e and queue-wait p50 / p99 (host clock).
+14. ``baselines``: ``repro_torch.core.baselines.IRangeGraphLike`` (exp3's
+   RFANN setting: m = 12, ef_con = 64, 256 queries between the point
+   attribute's 0.3 and 0.4 quantiles, ef = 64) at ``--baselines-n`` rows
+   (20,000), built once on the host and searched on the card and on the
+   CPU: agreement ≥ 0.99 (ties within 1e-5 agree), every id inside the
+   query range, recall@10 against the brute force reported; kernels 1
+   and 3 held against their plain versions at the search's shapes
+   (``baselines_kernel`` lines); ``Prefiltering`` on the same data must
+   have recall 1.0.
+15. ``lm``: the dense LM and ``ServeEngine``. Smoke olmo-1b and gemma3-1b
+   (float32, one CPU init): tokens on the card equal the CPU's, last
+   logits within 1e-4. olmo-1b at full width in bfloat16 (16 x 2048,
+   vocab 50,304), B = 8 prompts of 128 tokens, 32 new: init s, prefill
+   ms, decode ms a token against the parameters' bytes over the HBM
+   rate, tokens/s, peak allocated bytes, one prefill's and one decode
+   step's device busy share (torch.profiler); the port's ``flash_attention``
+   timed beside ``scaled_dot_product_attention`` at the prefill's shapes
+   (a yardstick, not on the path). The same weights in float64: greedy
+   tokens equal argmax over repeated full prefills (8 steps); in float32,
+   on a (2, 32) prompt, every layer's output on the card from the CPU's
+   input (and the head's logits) within 1e-3 of the CPU's. The reference's
+   init makes the full-width model amplify rounding to O(1) logits, so
+   float32's teacher forcing and end-to-end logits are reported, not held,
+   beside the CPU logits' move under a 1e-7 relative change of the
+   weights. Then
+   ``repro_torch.launch.serve.main`` in-process in each mode (plain,
+   ``--async``, ``--streaming --n 400``, ``--shards 4 --n 1200``): 24 of
+   24 requests served, none empty. The LM path runs no hand-written
+   kernel (the reference's has no Pallas kernel).
 
 Launch counts are set to 0 just before each main-path run (flat, graph,
 each tier's flat and graph run, the ``trace`` phase's kernel calls, the
 path of ``gathered_l2_dot`` and ``fused_topk_l2``, which no route calls,
-each streaming and sharded request, and each serving run) and read just
+each streaming and sharded request, each serving run, the baselines' card
+search and each ``launch.serve`` mode) and read just
 after. The kernel
 checks at the main path's shapes use the inputs the main path handed to
 each kernel. The last lines are a ``{"kernels": [...]}`` summary, the
@@ -145,7 +178,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
 ALL_PHASES = ("env", "kernels", "scan_sweep", "gathered_sweep", "flat",
               "quant_flat", "graph", "quant_graph", "routes", "quant_routes",
-              "trace", "streaming", "sharded", "serving")
+              "trace", "streaming", "sharded", "serving", "baselines", "lm")
 # the card's published peaks (repro_torch.obs.profile.PEAKS), set in main
 PEAKS = None
 
@@ -1040,19 +1073,25 @@ def port_kernel_names() -> set:
 
 
 def profile_request(eng, req) -> dict:
-    """Device busy share of one request, from a torch.profiler trace: the
-    union of CUDA kernel intervals over the host's wall time, device time
-    by kernel name (the top eight), and the device time of each of the
-    port's own kernels (:func:`port_kernel_names`), ranked or not."""
+    """:func:`profile_call` of one ``eng.execute(req)``."""
+    return profile_call(lambda: eng.execute(req))
+
+
+def profile_call(fn) -> dict:
+    """Device busy share of one warm call of ``fn``, from a torch.profiler
+    trace: the union of CUDA kernel intervals over the host's wall time,
+    device time by kernel name (the top eight), and the device time of
+    each of the port's own kernels (:func:`port_kernel_names`), ranked or
+    not."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    eng.execute(req)                           # warm
+    fn()                                       # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.execute(req)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -1844,12 +1883,338 @@ def serving_front_ends(eng, idx, ds, qlo, qhi, k: int, F: int, gres,
 
 # ---- main --------------------------------------------------------------------
 
+# ---- the paper's baselines and the LM serving path ---------------------------
+
+def baselines_phase(dev, n: int, Qn: int, k: int, seed: int) -> None:
+    """``IRangeGraphLike`` (exp3's RFANN setting: m = 12, ef_con = 64, the
+    attribute's 0.3 / 0.4 quantiles, ~10% selectivity) built once on the
+    host and searched on the card and on the CPU; kernels 1 and 3 held
+    against their plain versions at the shapes the search handed them;
+    ``Prefiltering`` on the same data as a host check (recall 1.0)."""
+    import numpy as np
+    from repro_torch.core import intervals as iv
+    from repro_torch.core.baselines import IRangeGraphLike, Prefiltering
+    from repro_torch.data import (brute_force_topk, make_range_dataset,
+                                  recall_at_k)
+    from repro_torch.kernels import ops
+
+    ds = make_range_dataset(n=n, d=128, n_queries=Qn, quantize=1024,
+                            seed=seed)
+    attr = (ds.lo + ds.hi) / 2
+    qlo = np.full(Qn, np.quantile(attr, 0.3))
+    qhi = np.full(Qn, np.quantile(attr, 0.4))
+    selectivity = float(np.mean((attr >= qlo[0]) & (attr <= qhi[0])))
+    tids, _ = brute_force_topk(ds.vectors, attr, attr, ds.queries, qlo, qhi,
+                               iv.RFANN_MASK, k)
+    t0 = time.perf_counter()
+    irg = IRangeGraphLike(ds.vectors, attr, m=12, ef_con=64, device=dev)
+    build_s = time.perf_counter() - t0
+    cpu_irg = irg.to("cpu")                    # the same host index
+
+    def search(b):
+        return b.search(ds.queries, qlo, qhi, k=k, ef=64)
+
+    t0 = time.perf_counter()
+    search(irg)                                # stages the variant
+    first_s = time.perf_counter() - t0
+    ops.reset_launches()
+    with Capture(ops, "gathered_topk", step_live) as cap_t, \
+            Capture(ops, "gathered_l2", lambda q, c: c.shape[1]) as cap_l:
+        ids, d = search(irg)
+    launches = launched(dict(ops.LAUNCHES))
+    check(launches.get("gathered_topk", 0) > 0
+          and launches.get("gathered_l2", 0) > 0,
+          f"IRangeGraphLike.search did not launch kernels 1 and 3: "
+          f"{launches}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        search(irg)
+        times.append(time.perf_counter() - t0)
+    before = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    cids, cd = search(cpu_irg)
+    cpu_s = time.perf_counter() - t0
+    check(ops.LAUNCHES == before, "the CPU run launched a kernel")
+    agree = agreement(ids, d, cids, cd, 1e-5)
+    recall = recall_at_k(ids, tids)
+    got = ids[ids >= 0]
+    valid = bool(np.all((attr[got] >= qlo[0]) & (attr[got] <= qhi[0])))
+    pf = Prefiltering(ds.vectors, attr, attr)
+    t0 = time.perf_counter()
+    pids, _ = pf.search(ds.queries, qlo, qhi, iv.RFANN_MASK, k=k)
+    pf_s = time.perf_counter() - t0
+    pf_recall = recall_at_k(pids, tids)
+    emit({"phase": "baselines", "n": n, "d": 128, "Q": Qn, "k": k, "ef": 64,
+          "selectivity": selectivity, "build_s": build_s,
+          "first_request_s": first_s,
+          "request_ms": statistics.median(times) * 1e3,
+          "qps": Qn / statistics.median(times), "launches": launches,
+          "cpu_agreement": agree, "cpu_request_s": cpu_s,
+          "recall_at_10": recall, "ids_in_range": valid,
+          "index_bytes": irg.index_bytes(),
+          "prefilter_recall": pf_recall, "prefilter_s": pf_s,
+          "prefilter_dist_evals": pf.last_dist_evals})
+    check(agree >= 0.99, f"IRangeGraphLike: card/CPU agreement {agree} < "
+                         f"0.99")
+    check(valid, "IRangeGraphLike returned an id outside the query range")
+    check(pf_recall == 1.0, f"Prefiltering recall {pf_recall} != 1.0")
+    for row, cap in (("gathered_topk", cap_t), ("gathered_l2", cap_l)):
+        measure_kernel(row, cap.best, launches.get(row, 0),
+                       phase="baselines_kernel")
+
+
+def _close(got, want, rtol: float):
+    """(max abs difference, ok): |got - want| <= rtol |want| + rtol / 10 *
+    max(1, max |want|), the tolerance the CPU parity tests hold."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.abs(got - want)
+    atol = rtol / 10 * max(1.0, float(np.abs(want).max()))
+    return float(err.max()), bool(np.all(err <= rtol * np.abs(want) + atol))
+
+
+def lm_phase(dev, seed: int) -> None:
+    """The dense LM and ``ServeEngine`` on the card: smoke-size parity with
+    the CPU (olmo-1b, gemma3-1b), olmo-1b at full width in bfloat16
+    (init, prefill, decode per token against its byte bound, memory),
+    float64 and float32 copies of the same weights (teacher forcing in
+    float64, the CPU's layers in float32), and ``launch.serve.main`` in
+    its four modes."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.params import map_tree, tree_bytes
+    from repro_torch.serving import ServeEngine, seed_caches
+
+    rng = np.random.default_rng(seed)
+    # 1. smoke size: one CPU init, generated on the CPU and on the card
+    for arch in ("olmo-1b", "gemma3-1b"):
+        cfg = configs.get_smoke_config(arch)
+        lm = LM(cfg)
+        lm.init(torch.Generator().manual_seed(seed), device="cpu")
+        toks = rng.integers(0, cfg.vocab, (2, 16))
+        want = ServeEngine(lm, device="cpu").generate({"tokens": toks},
+                                                      n_new=8, max_len=32)
+        got = ServeEngine(lm, device=dev).generate({"tokens": toks},
+                                                   n_new=8, max_len=32)
+        err, ok = _close(got.logits_last, want.logits_last, 1e-4)
+        same = bool(np.array_equal(got.tokens, want.tokens))
+        emit({"phase": "lm_smoke", "arch": arch, "tokens_equal_cpu": same,
+              "logits_max_abs_err": err, "logits_ok": ok})
+        check(same, f"{arch} smoke: card tokens differ from the CPU's")
+        check(ok, f"{arch} smoke: last logits off by {err}")
+
+    # 2. olmo-1b at full width, bfloat16 as published
+    cfg = configs.get_config("olmo-1b")
+    B, P, n_new, max_len = 8, 128, 32, 256
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    lm.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pbytes = tree_bytes(lm.abstract_params())
+    eng = ServeEngine(lm, device=dev)
+    toks = rng.integers(0, cfg.vocab, (B, P))
+    eng.generate({"tokens": toks[:, :16]}, n_new=2, max_len=32)  # warm up
+    toks_t = torch.as_tensor(toks, device=dev)
+    with torch.inference_mode():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t_all = time.perf_counter()
+        ev[0].record()
+        logits, pc = lm.prefill(None, {"tokens": toks_t})
+        ev[1].record()
+        caches = seed_caches(lm, pc, B, max_len, P)
+        cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        steps, out = [], []
+        for i in range(n_new):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            out.append(cur)
+            a.record()
+            logits, caches = lm.decode_step(None, caches, cur, P + i)
+            cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            b.record()
+            steps.append((a, b))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t_all
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    step_ms = [a.elapsed_time(b) for a, b in steps]
+    tokens = torch.cat(out, 1).cpu().numpy()
+    gen = eng.generate({"tokens": toks}, n_new=n_new, max_len=max_len)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.inference_mode():
+        profiles = {
+            "prefill": profile_call(
+                lambda: lm.prefill(None, {"tokens": toks_t})),
+            "decode_step": profile_call(
+                lambda: lm.decode_step(None, caches, cur, P + n_new))}
+    for prof in profiles.values():
+        prof.pop("port_kernel_ms")
+    decode_ms = statistics.median(step_ms)
+    bound_ms = pbytes / PEAKS.hbm_bytes_per_s * 1e3
+    # the attention yardstick: the port's flash_attention against torch's
+    # scaled_dot_product_attention at the prefill's shapes (not on the path)
+    H, Dh = cfg.n_heads, cfg.head_dim
+    qkv = [torch.randn(B, P, H, Dh, device=dev, dtype=cfg.adtype)
+           for _ in range(3)]
+    fa_ms = time_ms(lambda: attn_mod.flash_attention(*qkv, causal=True),
+                    reps=10)
+    sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        *[t.transpose(1, 2) for t in qkv], is_causal=True), reps=10)
+    finite = bool(np.isfinite(gen.logits_last).all())
+    emit({"phase": "lm_full", "arch": cfg.name, "dtype": cfg.param_dtype,
+          "params": lm.param_count(), "param_bytes": pbytes,
+          "batch": B, "prompt": P, "new_tokens": n_new, "max_len": max_len,
+          "init_s": init_s, "prefill_ms": prefill_ms,
+          "decode_ms_median": decode_ms, "decode_ms_min": min(step_ms),
+          "decode_ms_max": max(step_ms),
+          "decode_bound_ms": bound_ms, "decode_bound_by": "bytes",
+          "tokens_per_s": B * n_new / (sum(step_ms) / 1e3),
+          "wall_s": wall_s, "max_memory_allocated": peak,
+          "tokens_equal_generate": bool(np.array_equal(tokens, gen.tokens)),
+          "logits_finite": finite, "flash_attention_ms": fa_ms,
+          "sdpa_ms": sdpa_ms, "profile": profiles})
+    check(gen.tokens.shape == (B, n_new), "olmo-1b: wrong token shape")
+    check(finite, "olmo-1b: non-finite logits")
+    check(bool(((gen.tokens >= 0) & (gen.tokens < cfg.vocab)).all()),
+          "olmo-1b: a token outside the vocabulary")
+    check(bool(np.array_equal(tokens, gen.tokens)),
+          "olmo-1b: ServeEngine.generate differs from the timed loop")
+
+    # 3. the same weights in float64 and float32. The reference's init
+    # draws wq / wk at 1/sqrt(fan_in) with fan_in = heads, so at full width
+    # the attention scores have a std of ~126 and 16 layers amplify any
+    # rounding difference to O(1) logits: the CPU's logits move by O(1)
+    # when the weights move by 1e-7 relative (the control below). So the
+    # card is held to the CPU layer by layer (each layer's output from the
+    # CPU's input), and greedy decoding to teacher forcing in float64;
+    # float32's teacher forcing and end-to-end logits are reported.
+    from repro_torch.models.common import logits_fn, make_norm
+    from repro_torch.models.transformer import layer_apply
+    params = lm.params
+    del eng, lm, caches, pc, logits, qkv
+    toks = rng.integers(0, cfg.vocab, (2, 32))
+
+    def teacher_forcing(lm_x):
+        out = ServeEngine(lm_x, device=dev).generate(
+            {"tokens": toks}, n_new=8, max_len=64)
+        cur, want = toks.copy(), []
+        for _ in range(8):
+            lg, _ = lm_x.prefill(None, {"tokens": cur})
+            nxt = torch.argmax(lg[:, -1], dim=-1).cpu().numpy()
+            want.append(nxt)
+            cur = np.concatenate([cur, nxt[:, None]], axis=1)
+        return bool(np.array_equal(out.tokens, np.stack(want, 1)))
+
+    def as_dtype(dtype):
+        name = str(dtype).split(".")[-1]
+        lm_x = LM(cfg.scaled(param_dtype=name, activ_dtype=name))
+        lm_x.set_params(map_tree(lambda t: t.to(dtype), params))
+        return lm_x
+
+    lm64 = as_dtype(torch.float64)
+    teacher64 = teacher_forcing(lm64)
+    del lm64
+    torch.cuda.empty_cache()
+    lm32 = as_dtype(torch.float32)
+    teacher32 = teacher_forcing(lm32)
+    gpu_logits = lm32.prefill(None, {"tokens": toks})[0].cpu()
+    lm_cpu = LM(lm32.cfg)
+    lm_cpu.set_params(map_tree(lambda t: t.cpu(), lm32.params))
+    t0 = time.perf_counter()
+    cpu_logits = lm_cpu.prefill(None, {"tokens": toks})[0]
+    cpu_s = time.perf_counter() - t0
+    e2e_err, _ = _close(gpu_logits.numpy(), cpu_logits.numpy(), 1e-3)
+    gen = torch.Generator().manual_seed(seed + 1)
+    moved = map_tree(lambda t: t * (1 + 1e-7 * torch.randn(
+        t.shape, generator=gen)), lm_cpu.params)
+    control = float((lm_cpu.prefill(moved, {"tokens": toks})[0]
+                     - cpu_logits).abs().max())
+    del moved
+    # layer by layer: both devices take the CPU's hidden state
+    gp, cp = lm32.params, lm_cpu.params
+    with torch.inference_mode():
+        x = lm_cpu._embed_tokens(cp, torch.as_tensor(toks))
+        pos = torch.arange(toks.shape[1])
+        layer_errs, layer_ok = [], True
+        for sp_g, sp_c, seg in zip(gp["segments"], cp["segments"],
+                                   lm32.layout):
+            for r in range(seg.repeats):
+                pick = (lambda t: t[r]) if seg.repeats > 1 else (lambda t: t)
+                for j, desc in enumerate(seg.pattern):
+                    kw = dict(cfg=lm32.cfg, mode="prefill", cache=None,
+                              cur_pos=None)
+                    lc = map_tree(pick, sp_c)[f"L{j}"]
+                    lg_ = map_tree(pick, sp_g)[f"L{j}"]
+                    y_c, _ = layer_apply(lc, x, desc, positions=pos, **kw)
+                    y_g, _ = layer_apply(lg_, x.to(dev), desc,
+                                         positions=pos.to(dev), **kw)
+                    err, ok = _close(y_g.cpu().numpy(), y_c.numpy(), 1e-3)
+                    layer_errs.append(err)
+                    layer_ok &= ok
+                    x = y_c
+        _, norm = make_norm(lm32.cfg)
+        head_c = logits_fn(cp.get("head", {}), cp["embed"],
+                           norm(cp["final_norm"], x[:, -1:]), True)
+        head_g = logits_fn(gp.get("head", {}), gp["embed"],
+                           norm(gp["final_norm"], x[:, -1:].to(dev)), True)
+    head_err, head_ok = _close(head_g.cpu().numpy(), head_c.numpy(), 1e-3)
+    emit({"phase": "lm_full_f32", "arch": cfg.name, "prompt": [2, 32],
+          "steps": 8, "teacher_forcing_equal_f64": teacher64,
+          "teacher_forcing_equal_f32": teacher32,
+          "layers_within_1e-3_of_cpu": layer_ok,
+          "layer_max_abs_err": max(layer_errs),
+          "layer_errs": layer_errs, "head_max_abs_err": head_err,
+          "head_within_1e-3_of_cpu": head_ok,
+          "e2e_logits_max_abs_err_vs_cpu": e2e_err,
+          "logits_scale": float(cpu_logits.abs().max()),
+          "cpu_logits_moved_by_1e-7_weights": control,
+          "cpu_prefill_s": cpu_s})
+    check(teacher64, "olmo-1b float64: greedy tokens differ from argmax "
+                     "over repeated prefills")
+    check(layer_ok and head_ok, f"olmo-1b float32: a layer is off the "
+                                f"CPU's by {max(layer_errs + [head_err])}")
+    del lm32, lm_cpu, gp, cp
+    a = torch.randn(2048, 2048, device=dev)
+    b = torch.randn(2048, 2048, device=dev)
+    exact = a.double() @ b.double()
+    emit({"phase": "lm_fp32_matmul", "allow_tf32":
+          torch.backends.cuda.matmul.allow_tf32,
+          "max_rel_err_vs_f64": float(((a @ b).double() - exact).abs().max()
+                                      / exact.abs().max())})
+    del params, a, b, exact
+    torch.cuda.empty_cache()
+
+    # 4. the serving driver, in-process, in each mode
+    for mode in ([], ["--async"], ["--streaming", "--n", "400"],
+                 ["--shards", "4", "--n", "1200"]):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = serve.main(["--requests", "24"] + mode)
+        sec = time.perf_counter() - t0
+        emit({"phase": "lm_serve", "argv": mode, "main_s": sec,
+              "launches": launched(dict(ops.LAUNCHES)), **res})
+        check(res["served"] == 24 and res["non_empty"] == 24,
+              f"launch.serve {mode}: served {res['served']}, non-empty "
+              f"{res['non_empty']} of 24")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma-separated phases, all by default: "
                          + ", ".join(ALL_PHASES) + " (serving pulls in "
                          "graph, streaming, sharded and flat)")
+    ap.add_argument("--baselines-n", type=int, default=20_000,
+                    help="corpus rows of the baselines phase")
     ap.add_argument("--flat-n", type=int, default=1_000_000)
     ap.add_argument("--graph-n", type=int, default=50_000)
     ap.add_argument("--stream-n", type=int, default=70_000)
@@ -1912,6 +2277,10 @@ def main() -> int:
 
     k = 10
     Qn = 256
+    if "baselines" in phases:
+        baselines_phase(dev, args.baselines_n, Qn, k, args.seed)
+    if "lm" in phases:
+        lm_phase(dev, args.seed)
     if "trace" in phases:
         phases.update(("flat", "graph"))
     if "quant_flat" in phases:

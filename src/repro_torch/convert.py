@@ -1,22 +1,26 @@
-"""Carry an index from the JAX reference package into the port.
-
-Two ways, both without importing the reference:
+"""Carry an index or a model's weights from the JAX reference package
+into the port, without importing the reference:
 
 * ``MSTGIndex.load(path)`` reads the reference's ``mstg-index`` v1 ``.npz``
   artifact as it is (the port writes the same format);
 * :func:`index_from_arrays` builds a port index from the reference's
   ``FrozenVariant`` arrays handed over as numpy, and optionally its
   quantized store (``QuantizedStore.to_arrays()``), which the port's engine
-  then serves as it is, without quantizing again.
+  then serves as it is, without quantizing again;
+* :func:`lm_params_from_arrays` turns the reference LM's parameter tree,
+  its leaves handed over as numpy, into the port's LM parameters: the
+  layouts are the same, so this is a rename and a copy, never a transpose.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
+import torch
 
 from .core import intervals as iv
 from .core.api import IndexSpec
+from .core.engine import resolve_device
 from .core.mstg import _FV_ARRAYS, _INDEX_FORMAT, _INDEX_FORMAT_VERSION, MSTGIndex
 
 _STORE_ARRAYS = ("codes", "code_scale", "code_offset", "code_sq_norm")
@@ -84,3 +88,79 @@ def index_from_arrays(vectors: np.ndarray, lo: np.ndarray, hi: np.ndarray,
         for f in _FV_ARRAYS:
             arrays[f"{name}.{f}"] = np.asarray(fv[f])
     return MSTGIndex.from_payload(arrays, meta, path="<arrays>")
+
+
+def _flat_paths(tree, prefix=()) -> Dict[tuple, Any]:
+    """{(key, ...): leaf} of nested dicts and lists (a list position is an
+    int key)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out: Dict[tuple, Any] = {}
+    for k, v in items:
+        out.update(_flat_paths(v, prefix + (k,)))
+    return out
+
+
+def _path_key(entry):
+    """A key of a ``jax.tree_util`` key path (``DictKey.key``,
+    ``SequenceKey.idx``), or a plain str / int key as it is."""
+    for attr in ("key", "idx", "name"):
+        if hasattr(entry, attr):
+            return getattr(entry, attr)
+    return entry
+
+
+def _host_tensor(a) -> torch.Tensor:
+    """A copy of ``a`` as a host tensor (numpy's bfloat16 from
+    ``ml_dtypes`` included, which ``torch.from_numpy`` does not take)."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def lm_params_from_arrays(cfg, tree, device=None):
+    """The port's parameter tree for ``LM(cfg)`` from the reference's.
+
+    ``tree`` is the reference's parameter pytree with numpy leaves (nested
+    dicts and lists, e.g. ``jax.tree.map(np.asarray, params)``), or the
+    ``(key_path, leaf)`` pairs that ``jax.tree_util.tree_flatten_with_path``
+    gives. Each leaf is copied to ``device`` (``None`` means ``"cuda"``) in
+    the config's parameter dtype. A missing or unknown path raises
+    ``KeyError``, a leaf of another shape ``ValueError``. The result goes
+    to ``LM.set_params`` or ``ServeEngine(lm, params)``."""
+    from .models.transformer import LM
+    device = resolve_device(device)
+    metas = LM(cfg).abstract_params()
+    want = _flat_paths(metas)
+    if isinstance(tree, dict):
+        have = _flat_paths(tree)
+    else:
+        have = {tuple(_path_key(e) for e in path): leaf
+                for path, leaf in tree}
+    name = lambda p: ".".join(str(k) for k in p)
+    missing = sorted(name(p) for p in want if p not in have)
+    unknown = sorted(name(p) for p in have if p not in want)
+    if missing or unknown:
+        raise KeyError(f"lm_params_from_arrays({cfg.name!r}): missing "
+                       f"{missing}, unknown {unknown}")
+    out = {}
+    for path, m in want.items():
+        t = _host_tensor(have[path])
+        if tuple(t.shape) != m.shape:
+            raise ValueError(f"{name(path)}: shape {tuple(t.shape)}, "
+                             f"{cfg.name} needs {m.shape}")
+        out[path] = t.to(device=device, dtype=m.dtype)
+
+    def build(t, prefix=()):
+        if isinstance(t, dict):
+            return {k: build(v, prefix + (k,)) for k, v in t.items()}
+        if isinstance(t, list):
+            return [build(v, prefix + (i,)) for i, v in enumerate(t)]
+        return out[prefix]
+
+    return build(metas)

@@ -1,26 +1,120 @@
-"""The sync retrieval front end (the reference's ``repro.serving.engine``,
-without its LM pieces).
+"""Serving: cache seeding (prefill -> decode layout), greedy generation,
+and the sync retrieval front end (the reference's ``repro.serving.engine``).
 
-:class:`RetrievalServer` queues requests and answers a whole tick at once:
-the tick's queue is embedded in one ``embed_fn`` call and executed grouped
-by predicate mask against any ``execute(SearchRequest)`` backend
-(:class:`repro_torch.core.QueryEngine`,
-:class:`repro_torch.streaming.SegmentedIndex` or
-:class:`repro_torch.distributed.ShardedDeployment`). The reference's
-``ServeEngine`` and ``seed_caches`` (greedy decoding over its LM) are not
-part of the port; this module imports nothing of a model.
+* :class:`ServeEngine` — batched greedy decoding over the port's
+  :class:`repro_torch.models.LM` on a device (the card unless the caller
+  asks for the CPU); :func:`seed_caches` places prefill caches into the
+  decode layout.
+* :class:`RetrievalServer` — queues requests and answers a whole tick at
+  once: the tick's queue is embedded in one ``embed_fn`` call and executed
+  grouped by predicate mask against any ``execute(SearchRequest)`` backend
+  (:class:`repro_torch.core.QueryEngine`,
+  :class:`repro_torch.streaming.SegmentedIndex` or
+  :class:`repro_torch.distributed.ShardedDeployment`).
+
+This module takes a model instance and never imports one, so importing
+the serving layer pulls in no model code.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from .. import obs
 from ..core import QueryEngine, QueryHit, SearchRequest, as_mask
+from ..core.engine import resolve_device
 from .ops import DeleteOp, QueryOp, UpsertOp
 from .scheduler import ServerMetrics
+
+
+def _seed_leaf(prefill_leaf, target, prompt_len: int):
+    """Place a prefill cache leaf into its decode-capacity layout: zeros of
+    ``target``'s shape and dtype with the prompt's entries written in.
+
+    A leaf is (..., B, S, Hkv, Dh), its sequence axis third from the end
+    (the repeat axis of a stacked segment comes first). A prompt longer than
+    a ring cache keeps its last M entries at their ring slots (pos % M)."""
+    x = prefill_leaf.to(target.dtype)
+    if tuple(x.shape) == tuple(target.shape):
+        return x
+    z = torch.zeros(target.shape, dtype=target.dtype, device=x.device)
+    ax = x.ndim - 3
+    M, P = target.shape[ax], x.shape[ax]
+    if P <= M:
+        z.narrow(ax, 0, P).copy_(x)
+        return z
+    slots = torch.arange(P - M, P, device=x.device) % M
+    z.index_copy_(ax, slots, x.narrow(ax, P - M, M))
+    return z
+
+
+def seed_caches(lm, prefill_caches, batch: int, max_len: int,
+                prompt_len: int, enc_len: int = 0):
+    """Convert prefill caches (prompt-length kv) into the decode cache
+    layout of ``lm.decode_cache_meta``, on the prefill caches' device."""
+    metas = lm.decode_cache_meta(batch, max_len, enc_len)
+    return [_map_tree(lambda m, leaf: _seed_leaf(leaf, m, prompt_len),
+                      seg_meta, seg_cache)
+            for seg_meta, seg_cache in zip(metas, prefill_caches)]
+
+
+def _map_tree(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts, lists and tuples (the
+    model's ``params.map_tree``; this module imports no model code)."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [_map_tree(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        return out if isinstance(tree, list) else tuple(out)
+    return fn(tree, *rest)
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: np.ndarray        # (B, n_new) int32
+    logits_last: np.ndarray   # (B, 1, vocab) float32
+
+
+class ServeEngine:
+    """Batched greedy decoding over the port's LM.
+
+    ``params`` is a parameter tree (``None``: the LM's registered
+    parameters), moved to ``device`` (``None`` means ``"cuda"``, which
+    raises without a card). :meth:`generate` prefills, seeds the decode
+    caches and decodes token by token, updating the caches in place; it
+    returns host numpy arrays like the reference's. ``torch.argmax`` picks
+    the first maximum, as ``jnp.argmax`` does.
+    """
+
+    def __init__(self, lm, params=None, *, device=None):
+        self.lm = lm
+        self.device = resolve_device(device)
+        params = lm.params if params is None else params
+        self.params = _map_tree(lambda t: t.to(self.device), params)
+
+    @torch.inference_mode()
+    def generate(self, batch: Dict[str, Any], n_new: int,
+                 max_len: int) -> GenerationResult:
+        lm = self.lm
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        B, P = tokens.shape
+        logits, prefill_caches = lm.prefill(self.params, {"tokens": tokens})
+        caches = seed_caches(lm, prefill_caches, B, max_len, P)
+        out = []
+        cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        for i in range(n_new):
+            out.append(cur)
+            logits, caches = lm.decode_step(self.params, caches, cur, P + i)
+            cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        return GenerationResult(
+            tokens=torch.cat(out, 1).to(torch.int32).cpu().numpy(),
+            logits_last=logits.float().cpu().numpy())
 
 
 class _Embedder:

@@ -630,3 +630,50 @@ def test_async_graph_server_on_cuda_equals_solo_execute(dev):
     for t, i in tickets.items():
         np.testing.assert_array_equal(got[t].hit.ids, want[i].ids[0])
         np.testing.assert_array_equal(got[t].hit.dists, want[i].dists[0])
+
+
+def test_irangegraph_on_cuda_agrees_with_its_cpu_run(dev):
+    """``IRangeGraphLike`` built once on the host, searched on the card
+    (kernels 1 and 3 launched) and on the CPU."""
+    from repro_torch.core import intervals as iv
+    from repro_torch.core.baselines import IRangeGraphLike
+    ds = make_range_dataset(n=800, d=16, n_queries=16, quantize=32, seed=9)
+    attr = (ds.lo + ds.hi) / 2
+    qlo = np.full(16, np.quantile(attr, 0.2))
+    qhi = np.full(16, np.quantile(attr, 0.6))
+    gpu = IRangeGraphLike(ds.vectors, attr, m=8, ef_con=40, device=dev)
+    cpu = gpu.to("cpu")
+    ops.reset_launches()
+    gi, gd = gpu.search(ds.queries, qlo, qhi, k=10, ef=64)
+    assert ops.LAUNCHES["gathered_topk"] > 0 and ops.LAUNCHES["gathered_l2"] > 0
+    ci, cd = cpu.search(ds.queries, qlo, qhi, iv.RFANN_MASK, k=10, ef=64)
+    agree = chip_smoke.agreement(gi, gd, ci, cd, 1e-5)
+    assert agree >= 0.99, agree
+    np.testing.assert_allclose(gd, cd, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "gemma3-1b"])
+def test_serve_engine_on_cuda_equals_cpu(dev, arch):
+    """One CPU init of a smoke config, generated on the CPU and, with the
+    parameters copied over, on the card: equal tokens."""
+    from repro_torch import configs
+    from repro_torch.models import LM
+    from repro_torch.serving import ServeEngine
+    lm = LM(configs.get_smoke_config(arch))
+    lm.init(torch.Generator().manual_seed(3), device="cpu")
+    toks = np.random.default_rng(3).integers(0, lm.cfg.vocab, (2, 20))
+    want = ServeEngine(lm, device="cpu").generate({"tokens": toks}, n_new=6,
+                                                  max_len=40)
+    got = ServeEngine(lm, device=dev).generate({"tokens": toks}, n_new=6,
+                                               max_len=40)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    scale = max(1.0, float(np.abs(want.logits_last).max()))
+    np.testing.assert_allclose(got.logits_last, want.logits_last, rtol=1e-4,
+                               atol=1e-5 * scale)
+
+
+def test_serve_driver_on_cuda(dev):
+    from repro_torch.launch import serve
+    out = serve.main(["--requests", "8", "--n", "600"])
+    assert out["device"] == "cuda" and out["served"] == 8
+    assert out["non_empty"] == 8

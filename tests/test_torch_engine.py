@@ -224,7 +224,10 @@ def test_port_imports_neither_jax_nor_repro():
     code = ("import sys, repro_torch.core, repro_torch.core.compressed, "
             "repro_torch.kernels.ops, repro_torch.convert, repro_torch.data, "
             "repro_torch.obs.profile, repro_torch.streaming, "
-            "repro_torch.distributed, repro_torch.launch\n"
+            "repro_torch.distributed, repro_torch.launch, "
+            "repro_torch.core.baselines, repro_torch.configs, "
+            "repro_torch.models, repro_torch.serving, "
+            "repro_torch.launch.serve\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\n")
