@@ -122,8 +122,9 @@ Phases, each printing one JSON object per line:
    and 3 held against their plain versions at the search's shapes
    (``baselines_kernel`` lines); ``Prefiltering`` on the same data must
    have recall 1.0.
-15. ``lm``: the dense LM and ``ServeEngine``. Smoke olmo-1b and gemma3-1b
-   (float32, one CPU init): tokens on the card equal the CPU's, last
+15. ``lm``: the LM and ``ServeEngine``. Smoke olmo-1b, gemma3-1b,
+   qwen3-moe-30b-a3b, recurrentgemma-2b, rwkv6-7b and deepseek-v3-671b
+   (float32, one CPU init each): tokens on the card equal the CPU's, last
    logits within 1e-4. olmo-1b at full width in bfloat16 (16 x 2048,
    vocab 50,304), B = 8 prompts of 128 tokens, 32 new: init s, prefill
    ms, decode ms a token against the parameters' bytes over the HBM
@@ -137,11 +138,23 @@ Phases, each printing one JSON object per line:
    init makes the full-width model amplify rounding to O(1) logits, so
    float32's teacher forcing and end-to-end logits are reported, not held,
    beside the CPU logits' move under a 1e-7 relative change of the
-   weights. Then
-   ``repro_torch.launch.serve.main`` in-process in each mode (plain,
-   ``--async``, ``--streaming --n 400``, ``--shards 4 --n 1200``): 24 of
-   24 requests served, none empty. The LM path runs no hand-written
-   kernel (the reference's has no Pallas kernel).
+   weights. Then, each after freeing the device memory of what ran
+   before, qwen3-moe-30b-a3b (``lm_moe_full``: 48 x 2048, 128 experts
+   top-8, 61.1 GB), recurrentgemma-2b and rwkv6-7b (``lm_rec_full``) at
+   their published widths and full depth in bfloat16, seeded random
+   weights, the same load and report; for the MoE the prefill's dropped
+   assignments at capacity factor 1.25 and the decode step's byte bound
+   counting only the experts its router chose, beside the design's (all
+   128 a layer). Held on each: float64 greedy tokens (a (2, 32) prompt,
+   16 new) equal teacher forcing in one causal forward, on the first
+   layers of the same weights (qwen3-moe 2, rwkv6 4, recurrentgemma all;
+   the MoE at a capacity factor that drops nothing), and each distinct
+   layer kind in float32 on the card within 1e-3 of the CPU's from the
+   CPU's input. Then ``repro_torch.launch.serve.main`` in-process in each
+   mode (plain, ``--async``, ``--streaming --n 400``, ``--shards 4 --n
+   1200``, ``--arch qwen3-moe-30b-a3b``): 24 of 24 requests served, none
+   empty; the MoE mode launches kernels 1, 3 and 5. The LM path runs no
+   hand-written kernel (the reference's has no Pallas kernel).
 
 Launch counts are set to 0 just before each main-path run (flat, graph,
 each tier's flat and graph run, the ``trace`` phase's kernel calls, the
@@ -1974,52 +1987,39 @@ def _close(got, want, rtol: float):
     return float(err.max()), bool(np.all(err <= rtol * np.abs(want) + atol))
 
 
-def lm_phase(dev, seed: int) -> None:
-    """The dense LM and ``ServeEngine`` on the card: smoke-size parity with
-    the CPU (olmo-1b, gemma3-1b), olmo-1b at full width in bfloat16
-    (init, prefill, decode per token against its byte bound, memory),
-    float64 and float32 copies of the same weights (teacher forcing in
-    float64, the CPU's layers in float32), and ``launch.serve.main`` in
-    its four modes."""
+# Smoke configs held card = CPU; the full-width models of lm_moe_full /
+# lm_rec_full with the depth their float64 teacher forcing keeps (None:
+# every layer; float64 copies of all layers would not fit the card).
+LM_SMOKE_ARCHS = ("olmo-1b", "gemma3-1b", "qwen3-moe-30b-a3b",
+                  "recurrentgemma-2b", "rwkv6-7b", "deepseek-v3-671b")
+LM_FULL = (("lm_moe_full", "qwen3-moe-30b-a3b", 2),
+           ("lm_rec_full", "recurrentgemma-2b", None),
+           ("lm_rec_full", "rwkv6-7b", 4))
+
+
+def free_device() -> int:
+    """Collect garbage, give cached blocks back and reset the peak; the
+    bytes still allocated."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def lm_timed_run(dev, lm, rng, B: int, P: int, n_new: int, max_len: int):
+    """One timed greedy run on the card: the prefill (CUDA events), the
+    seeded caches, ``n_new`` decode steps each timed with CUDA events;
+    then ``ServeEngine.generate`` on the same prompt (untimed, under
+    ``moe.routing_stats``) must give the same tokens; then one profiled
+    prefill and decode step. Returns (report, routing records)."""
     import numpy as np
     import torch
-    from repro_torch import configs
-    from repro_torch.kernels import ops
-    from repro_torch.launch import serve
-    from repro_torch.models import LM
-    from repro_torch.models import attention as attn_mod
-    from repro_torch.models.params import map_tree, tree_bytes
+    from repro_torch.models import moe
     from repro_torch.serving import ServeEngine, seed_caches
-
-    rng = np.random.default_rng(seed)
-    # 1. smoke size: one CPU init, generated on the CPU and on the card
-    for arch in ("olmo-1b", "gemma3-1b"):
-        cfg = configs.get_smoke_config(arch)
-        lm = LM(cfg)
-        lm.init(torch.Generator().manual_seed(seed), device="cpu")
-        toks = rng.integers(0, cfg.vocab, (2, 16))
-        want = ServeEngine(lm, device="cpu").generate({"tokens": toks},
-                                                      n_new=8, max_len=32)
-        got = ServeEngine(lm, device=dev).generate({"tokens": toks},
-                                                   n_new=8, max_len=32)
-        err, ok = _close(got.logits_last, want.logits_last, 1e-4)
-        same = bool(np.array_equal(got.tokens, want.tokens))
-        emit({"phase": "lm_smoke", "arch": arch, "tokens_equal_cpu": same,
-              "logits_max_abs_err": err, "logits_ok": ok})
-        check(same, f"{arch} smoke: card tokens differ from the CPU's")
-        check(ok, f"{arch} smoke: last logits off by {err}")
-
-    # 2. olmo-1b at full width, bfloat16 as published
-    cfg = configs.get_config("olmo-1b")
-    B, P, n_new, max_len = 8, 128, 32, 256
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    lm = LM(cfg)
-    t0 = time.perf_counter()
-    lm.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    pbytes = tree_bytes(lm.abstract_params())
+    cfg = lm.cfg
     eng = ServeEngine(lm, device=dev)
     toks = rng.integers(0, cfg.vocab, (B, P))
     eng.generate({"tokens": toks[:, :16]}, n_new=2, max_len=32)  # warm up
@@ -2045,11 +2045,11 @@ def lm_phase(dev, seed: int) -> None:
             steps.append((a, b))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t_all
-    prefill_ms = ev[0].elapsed_time(ev[1])
     step_ms = [a.elapsed_time(b) for a, b in steps]
     tokens = torch.cat(out, 1).cpu().numpy()
-    gen = eng.generate({"tokens": toks}, n_new=n_new, max_len=max_len)
-    peak = torch.cuda.max_memory_allocated()
+    del pc, logits
+    with moe.routing_stats() as routing:
+        gen = eng.generate({"tokens": toks}, n_new=n_new, max_len=max_len)
     with torch.inference_mode():
         profiles = {
             "prefill": profile_call(
@@ -2058,38 +2058,220 @@ def lm_phase(dev, seed: int) -> None:
                 lambda: lm.decode_step(None, caches, cur, P + n_new))}
     for prof in profiles.values():
         prof.pop("port_kernel_ms")
-    decode_ms = statistics.median(step_ms)
-    bound_ms = pbytes / PEAKS.hbm_bytes_per_s * 1e3
-    # the attention yardstick: the port's flash_attention against torch's
-    # scaled_dot_product_attention at the prefill's shapes (not on the path)
-    H, Dh = cfg.n_heads, cfg.head_dim
-    qkv = [torch.randn(B, P, H, Dh, device=dev, dtype=cfg.adtype)
-           for _ in range(3)]
-    fa_ms = time_ms(lambda: attn_mod.flash_attention(*qkv, causal=True),
-                    reps=10)
-    sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        *[t.transpose(1, 2) for t in qkv], is_causal=True), reps=10)
     finite = bool(np.isfinite(gen.logits_last).all())
-    emit({"phase": "lm_full", "arch": cfg.name, "dtype": cfg.param_dtype,
-          "params": lm.param_count(), "param_bytes": pbytes,
-          "batch": B, "prompt": P, "new_tokens": n_new, "max_len": max_len,
-          "init_s": init_s, "prefill_ms": prefill_ms,
-          "decode_ms_median": decode_ms, "decode_ms_min": min(step_ms),
-          "decode_ms_max": max(step_ms),
-          "decode_bound_ms": bound_ms, "decode_bound_by": "bytes",
-          "tokens_per_s": B * n_new / (sum(step_ms) / 1e3),
-          "wall_s": wall_s, "max_memory_allocated": peak,
-          "tokens_equal_generate": bool(np.array_equal(tokens, gen.tokens)),
-          "logits_finite": finite, "flash_attention_ms": fa_ms,
-          "sdpa_ms": sdpa_ms, "profile": profiles})
-    check(gen.tokens.shape == (B, n_new), "olmo-1b: wrong token shape")
-    check(finite, "olmo-1b: non-finite logits")
+    name = cfg.name
+    check(gen.tokens.shape == (B, n_new), f"{name}: wrong token shape")
+    check(finite, f"{name}: non-finite logits")
     check(bool(((gen.tokens >= 0) & (gen.tokens < cfg.vocab)).all()),
-          "olmo-1b: a token outside the vocabulary")
+          f"{name}: a token outside the vocabulary")
     check(bool(np.array_equal(tokens, gen.tokens)),
-          "olmo-1b: ServeEngine.generate differs from the timed loop")
+          f"{name}: ServeEngine.generate differs from the timed loop")
+    report = {"batch": B, "prompt": P, "new_tokens": n_new,
+              "max_len": max_len,
+              "prefill_ms": ev[0].elapsed_time(ev[1]),
+              "decode_ms_median": statistics.median(step_ms),
+              "decode_ms_min": min(step_ms), "decode_ms_max": max(step_ms),
+              "tokens_per_s": B * n_new / (sum(step_ms) / 1e3),
+              "wall_s": wall_s, "tokens_equal_generate": True,
+              "logits_finite": finite, "profile": profiles}
+    return report, routing
 
-    # 3. the same weights in float64 and float32. The reference's init
+
+def moe_routing_report(lm, routing, B: int, P: int, pbytes: int) -> dict:
+    """From one generation's routing records: the prefill's dropped
+    assignments at the config's capacity factor, and each decode step's
+    byte bound counting only the experts its router chose (the distinct
+    experts of each MoE layer), beside the design's, which reads all E
+    experts a layer (the capacity buffer's products run over every
+    expert)."""
+    cfg = lm.cfg
+    n_moe = sum(1 for d in lm.descs if d.mlp == "moe")
+    per_expert = 3 * cfg.d_model * cfg.moe_d_ff * cfg.pdtype.itemsize
+    pre = [r for r in routing if r["tokens"] == B * P]
+    dec = [r for r in routing if r["tokens"] == B]
+    check(len(pre) == n_moe and dec and len(dec) % n_moe == 0,
+          f"{cfg.name}: {len(pre)} prefill and {len(dec)} decode MoE calls "
+          f"for {n_moe} MoE layers")
+    used = [int(r["experts_used"].sum()) for r in dec]
+    step_bytes = [pbytes - n_moe * cfg.n_experts * per_expert
+                  + sum(used[i:i + n_moe]) * per_expert
+                  for i in range(0, len(used), n_moe)]
+    routed_ms = [b / PEAKS.hbm_bytes_per_s * 1e3 for b in step_bytes]
+    return {"capacity_factor": cfg.capacity_factor,
+            "prefill_capacity": pre[0]["capacity"],
+            "prefill_assignments": sum(r["assignments"] for r in pre),
+            "prefill_dropped": sum(int(r["dropped"]) for r in pre),
+            "decode_capacity": dec[0]["capacity"],
+            "decode_dropped": sum(int(r["dropped"]) for r in dec),
+            "decode_experts_per_layer_mean": statistics.mean(used),
+            "decode_experts_per_layer_max": max(used),
+            "routed_bytes_per_step_median": statistics.median(step_bytes),
+            "routed_bound_ms_median": statistics.median(routed_ms),
+            "routed_bound_ms_max": max(routed_ms)}
+
+
+def cut_params(params, lm_from, lm_to):
+    """The first layers of ``lm_from``'s parameters, shaped for ``lm_to``
+    (the same config at a smaller depth): each stacked segment keeps its
+    first repeats."""
+    from repro_torch.models.params import map_tree
+    segs = []
+    for sp, seg_f, seg_t in zip(params["segments"], lm_from.layout,
+                                lm_to.layout):
+        check(seg_f.pattern == seg_t.pattern
+              and seg_t.repeats <= seg_f.repeats,
+              f"cut_params: {lm_to.cfg.name} at {lm_to.cfg.n_layers} layers "
+              f"is no cut of its {lm_from.cfg.n_layers}-layer layout")
+        if seg_f.repeats == seg_t.repeats:
+            segs.append(sp)
+        elif seg_t.repeats == 1:
+            segs.append(map_tree(lambda t: t[0], sp))
+        else:
+            segs.append(map_tree(lambda t, r=seg_t.repeats: t[:r], sp))
+    return {**params, "segments": segs}
+
+
+def all_logits(lm, tokens):
+    """Logits at every position of ``tokens`` (B, S) in one causal
+    forward, which is teacher forcing: the prefill's layers, then the head
+    on every position instead of the last."""
+    import torch
+    from repro_torch.models.common import logits_fn, make_norm
+    from repro_torch.models.transformer import segment_apply
+    cfg, params = lm.cfg, lm.params
+    with torch.inference_mode():
+        x = lm._embed_tokens(params, tokens)
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        for sp, seg in zip(params["segments"], lm.layout):
+            x, _ = segment_apply(sp, x, seg, cfg=cfg, mode="prefill",
+                                 caches=None, positions=pos, cur_pos=None)
+        _, norm = make_norm(cfg)
+        return logits_fn(params.get("head", {}), params["embed"],
+                         norm(params["final_norm"], x), cfg.tie_embeddings)
+
+
+def layers_f32_vs_cpu(dev, lm_cut, params_cpu, toks):
+    """Each distinct layer kind of ``lm_cut`` (mixer + MLP), in float32, on
+    the card and on the CPU from the same input, the CPU's: the first
+    layer of that kind, fed the CPU's output of the kind before it (the
+    embedded tokens for the first). Returns ({kind: max abs error},
+    whether each is within 1e-3 of the CPU's, atol 1e-4 of the output's
+    magnitude)."""
+    import torch
+    from repro_torch.models.params import map_tree
+    from repro_torch.models.transformer import layer_apply
+    cfg = lm_cut.cfg.scaled(param_dtype="float32", activ_dtype="float32")
+    f32 = lambda t: t.to(torch.float32) if t.is_floating_point() else t
+    errs, ok_all = {}, True
+    with torch.inference_mode():
+        x = f32(params_cpu["embed"]["table"])[torch.as_tensor(toks)]
+        if cfg.embed_scale:
+            x = x * torch.sqrt(torch.tensor(float(cfg.d_model)))
+        pos = torch.arange(toks.shape[1])
+        kw = dict(cfg=cfg, mode="prefill", cache=None, cur_pos=None)
+        for sp, seg in zip(params_cpu["segments"], lm_cut.layout):
+            for j, desc in enumerate(seg.pattern):
+                kind = f"{desc.mixer}+{desc.mlp}"
+                if kind in errs:
+                    continue
+                pick = (lambda t: t[0]) if seg.repeats > 1 else (lambda t: t)
+                lc = map_tree(lambda t: f32(pick(t)), sp[f"L{j}"])
+                y_c, _ = layer_apply(lc, x, desc, positions=pos, **kw)
+                y_g, _ = layer_apply(map_tree(lambda t: t.to(dev), lc),
+                                     x.to(dev), desc, positions=pos.to(dev),
+                                     **kw)
+                errs[kind], ok = _close(y_g.cpu().numpy(), y_c.numpy(), 1e-3)
+                ok_all &= ok
+                x = y_c
+    return errs, ok_all
+
+
+def lm_full_phase(dev, phase: str, arch: str, depth, seed: int, rng) -> None:
+    """``arch`` at its published widths and full depth in bfloat16 on the
+    card, seeded random weights (:func:`lm_timed_run`; a MoE's routing
+    with :func:`moe_routing_report`); then the held checks on the first
+    ``depth`` layers of the same weights (all of them for ``None``):
+    float64 greedy tokens equal teacher forcing, a MoE at a capacity
+    factor that drops nothing (>= E / k: a prefill and a decode step drop
+    differently at 1.25), and each distinct layer kind in float32 on the
+    card within 1e-3 of the CPU's from the CPU's input."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import LM
+    from repro_torch.models.params import map_tree, tree_bytes
+    from repro_torch.serving import ServeEngine
+    cfg = configs.get_config(arch)
+    B, P, n_new, max_len = 8, 128, 32, 256
+    before = free_device()
+    lm = LM(cfg)
+    pbytes = tree_bytes(lm.abstract_params())
+    t0 = time.perf_counter()
+    lm.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    report, routing = lm_timed_run(dev, lm, rng, B, P, n_new, max_len)
+    line = {"phase": phase, "arch": arch, "dtype": cfg.param_dtype,
+            "layers": cfg.n_layers, "params": lm.param_count(),
+            "active_params": lm.active_param_count(),
+            "param_bytes": pbytes, "allocated_before": before,
+            "init_s": init_s, **report,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "decode_bound_ms": pbytes / PEAKS.hbm_bytes_per_s * 1e3,
+            "decode_bound_by": "bytes"}
+    if cfg.n_experts:
+        line["moe"] = moe_routing_report(lm, routing, B, P, pbytes)
+    del routing
+    cut_cfg = cfg if depth is None else cfg.scaled(n_layers=depth)
+    lm_cut = LM(cut_cfg)
+    params_cpu = map_tree(lambda t: t.cpu(),
+                          cut_params(lm.params, lm, lm_cut))
+    del lm
+    free_device()
+    # float64: greedy decoding against teacher forcing over the prompt and
+    # the generated tokens (one causal forward)
+    cf = cfg.capacity_factor
+    if cfg.n_experts:
+        cf = max(cf, cfg.n_experts / cfg.top_k)
+    lm64 = LM(cut_cfg.scaled(param_dtype="float64", activ_dtype="float64",
+                             capacity_factor=cf))
+    lm64.set_params(map_tree(lambda t: t.to(dev, torch.float64)
+                             if t.is_floating_point() else t.to(dev),
+                             params_cpu))
+    P64, n64 = 32, 16
+    toks = rng.integers(0, cfg.vocab, (2, P64))
+    gen = ServeEngine(lm64, device=dev).generate({"tokens": toks},
+                                                 n_new=n64, max_len=64)
+    seq = torch.as_tensor(np.concatenate([toks, gen.tokens], 1), device=dev)
+    forced = torch.argmax(all_logits(lm64, seq)[:, P64 - 1:P64 - 1 + n64],
+                          dim=-1).cpu().numpy()
+    teacher64 = bool(np.array_equal(forced, gen.tokens))
+    del lm64, seq
+    free_device()
+    layer_errs, layers_ok = layers_f32_vs_cpu(dev, lm_cut, params_cpu, toks)
+    line.update({
+        "f64_layers": cut_cfg.n_layers,
+        "f64_reduced": [] if depth is None else
+        [f"n_layers {cfg.n_layers} -> {depth} (float64 of every layer "
+         f"does not fit the card)"],
+        "f64_capacity_factor": cf if cfg.n_experts else None,
+        "f64_prompt": [2, P64], "f64_steps": n64,
+        "teacher_forcing_equal_f64": teacher64,
+        "f32_layer_max_abs_err": layer_errs,
+        "f32_layers_within_1e-3_of_cpu": layers_ok})
+    emit(line)
+    check(teacher64, f"{arch} float64 ({cut_cfg.n_layers} layers): greedy "
+                     f"tokens differ from teacher forcing")
+    check(layers_ok, f"{arch} float32: a layer is off the CPU's: "
+                     f"{layer_errs}")
+    del params_cpu
+    free_device()
+
+
+def olmo_held_checks(dev, cfg, params, rng, seed: int) -> None:
+    """olmo-1b's full-width weights (``params``) in float64 and float32 on
+    the card (``lm_full_f32``, ``lm_fp32_matmul`` lines)."""
+    # The same weights in float64 and float32. The reference's init
     # draws wq / wk at 1/sqrt(fan_in) with fan_in = heads, so at full width
     # the attention scores have a std of ~126 and 16 layers amplify any
     # rounding difference to O(1) logits: the CPU's logits move by O(1)
@@ -2097,10 +2279,13 @@ def lm_phase(dev, seed: int) -> None:
     # card is held to the CPU layer by layer (each layer's output from the
     # CPU's input), and greedy decoding to teacher forcing in float64;
     # float32's teacher forcing and end-to-end logits are reported.
+    import numpy as np
+    import torch
+    from repro_torch.models import LM
     from repro_torch.models.common import logits_fn, make_norm
+    from repro_torch.models.params import map_tree
     from repro_torch.models.transformer import layer_apply
-    params = lm.params
-    del eng, lm, caches, pc, logits, qkv
+    from repro_torch.serving import ServeEngine
     toks = rng.integers(0, cfg.vocab, (2, 32))
 
     def teacher_forcing(lm_x):
@@ -2190,21 +2375,112 @@ def lm_phase(dev, seed: int) -> None:
           torch.backends.cuda.matmul.allow_tf32,
           "max_rel_err_vs_f64": float(((a @ b).double() - exact).abs().max()
                                       / exact.abs().max())})
-    del params, a, b, exact
-    torch.cuda.empty_cache()
 
-    # 4. the serving driver, in-process, in each mode
+
+def lm_phase(dev, seed: int) -> None:
+    """The LM and ``ServeEngine`` on the card: smoke-size parity with the
+    CPU (every ported family), olmo-1b at full width in bfloat16 (init,
+    prefill, decode per token against its byte bound, memory), float64
+    and float32 copies of the same weights (teacher forcing in float64,
+    the CPU's layers in float32), then qwen3-moe-30b-a3b,
+    recurrentgemma-2b and rwkv6-7b the same way (:func:`lm_full_phase`),
+    and ``launch.serve.main`` in its four modes and with the MoE."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.params import map_tree, tree_bytes
+    from repro_torch.serving import ServeEngine
+
+    rng = np.random.default_rng(seed)
+    # 1. smoke size: one CPU init, generated on the CPU and on the card
+    for arch in LM_SMOKE_ARCHS:
+        cfg = configs.get_smoke_config(arch)
+        lm = LM(cfg)
+        lm.init(torch.Generator().manual_seed(seed), device="cpu")
+        toks = rng.integers(0, cfg.vocab, (2, 16))
+        want = ServeEngine(lm, device="cpu").generate({"tokens": toks},
+                                                      n_new=8, max_len=32)
+        got = ServeEngine(lm, device=dev).generate({"tokens": toks},
+                                                   n_new=8, max_len=32)
+        err, ok = _close(got.logits_last, want.logits_last, 1e-4)
+        same = bool(np.array_equal(got.tokens, want.tokens))
+        emit({"phase": "lm_smoke", "arch": arch, "tokens_equal_cpu": same,
+              "logits_max_abs_err": err, "logits_ok": ok})
+        check(same, f"{arch} smoke: card tokens differ from the CPU's")
+        check(ok, f"{arch} smoke: last logits off by {err}")
+
+    # 2. olmo-1b at full width, bfloat16 as published
+    cfg = configs.get_config("olmo-1b")
+    B, P, n_new, max_len = 8, 128, 32, 256
+    free_device()
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    lm.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pbytes = tree_bytes(lm.abstract_params())
+    report, _ = lm_timed_run(dev, lm, rng, B, P, n_new, max_len)
+    peak = torch.cuda.max_memory_allocated()
+    # the attention yardstick: the port's flash_attention against torch's
+    # scaled_dot_product_attention at the prefill's shapes (not on the path)
+    H, Dh = cfg.n_heads, cfg.head_dim
+    qkv = [torch.randn(B, P, H, Dh, device=dev, dtype=cfg.adtype)
+           for _ in range(3)]
+    fa_ms = time_ms(lambda: attn_mod.flash_attention(*qkv, causal=True),
+                    reps=10)
+    sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        *[t.transpose(1, 2) for t in qkv], is_causal=True), reps=10)
+    emit({"phase": "lm_full", "arch": cfg.name, "dtype": cfg.param_dtype,
+          "params": lm.param_count(), "param_bytes": pbytes,
+          "init_s": init_s, **report, "max_memory_allocated": peak,
+          "decode_bound_ms": pbytes / PEAKS.hbm_bytes_per_s * 1e3,
+          "decode_bound_by": "bytes", "flash_attention_ms": fa_ms,
+          "sdpa_ms": sdpa_ms})
+
+    # 3. the same weights in float64 and float32 (olmo_held_checks)
+    params = lm.params
+    del lm, qkv
+    olmo_held_checks(dev, cfg, params, rng, seed)
+    del params
+
+    # 4. full width: the MoE, the hybrid recurrent model and RWKV-6
+    for phase, arch, depth in LM_FULL:
+        lm_full_phase(dev, phase, arch, depth, seed, rng)
+
+    # 5. the serving driver, in-process, in each mode, and with the MoE.
+    # At the driver's 1,500 rows the work-model router sends both mask
+    # groups to the pruned route (plain torch): the plain mode launches no
+    # kernel, the streaming mode kernel 5 on its delta. The MoE modes must
+    # launch what the same modes launch with olmo-1b: the arch changes
+    # nothing on the retrieval side.
+    by_mode = {}
     for mode in ([], ["--async"], ["--streaming", "--n", "400"],
-                 ["--shards", "4", "--n", "1200"]):
+                 ["--shards", "4", "--n", "1200"],
+                 ["--arch", "qwen3-moe-30b-a3b"],
+                 ["--arch", "qwen3-moe-30b-a3b", "--streaming", "--n", "400"]):
         ops.reset_launches()
         t0 = time.perf_counter()
         res = serve.main(["--requests", "24"] + mode)
         sec = time.perf_counter() - t0
+        launches = launched(dict(ops.LAUNCHES))
         emit({"phase": "lm_serve", "argv": mode, "main_s": sec,
-              "launches": launched(dict(ops.LAUNCHES)), **res})
+              "launches": launches, **res})
         check(res["served"] == 24 and res["non_empty"] == 24,
               f"launch.serve {mode}: served {res['served']}, non-empty "
               f"{res['non_empty']} of 24")
+        rest = tuple(mode[2:]) if mode[:1] == ["--arch"] else tuple(mode)
+        if mode[:1] == ["--arch"]:
+            check(launches == by_mode[rest],
+                  f"launch.serve {mode}: launches {launches}, olmo-1b's "
+                  f"{by_mode[rest]}")
+        else:
+            by_mode[rest] = launches
+    check(by_mode[("--streaming", "--n", "400")].get("pairwise_l2_masked"),
+          "launch.serve --streaming: kernel 5 not launched on the delta")
 
 
 def main() -> int:

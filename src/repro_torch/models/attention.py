@@ -1,5 +1,6 @@
 """Attention: the chunked (flash-style) prefill path, the cache decode path,
-GQA with qk-norm / bias / sliding window.
+GQA with qk-norm / bias / sliding window, and MLA (DeepSeek's latent
+attention).
 
 The port of the reference's ``repro.models.attention``, as plain torch
 loops over blocks. The (Sq, Skv) score matrix is never materialized: a loop
@@ -11,8 +12,7 @@ inputs (float64 inputs keep float64 throughout, see
 :func:`repro_torch.models.common.acc_dtype`).
 
 Cross-attention (``is_cross`` / ``cross_memory``, the encoder-decoder
-configs) and MLA (DeepSeek's latent attention) are not ported yet: they
-raise ``NotImplementedError`` (ROADMAP §1).
+configs) is not ported yet: it raises ``NotImplementedError`` (ROADMAP §1).
 """
 from __future__ import annotations
 
@@ -234,4 +234,86 @@ def attn_apply(p, x, *, cfg, rope_theta: float, window: Optional[int],
                               kv_len=kv_len)
         new_cache = (k, v)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return y, new_cache
+
+
+# ---------------- MLA (DeepSeek-V3) ----------------
+def mla_meta(cfg, dtype):
+    D, H = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "w_dq": meta((D, qr), ("embed", "q_lora"), dtype),
+        "q_norm": meta((qr,), ("q_lora",), dtype, init="ones"),
+        "w_uq": meta((qr, H, dn + dr), ("q_lora", "heads", "head_dim"),
+                     dtype),
+        "w_dkv": meta((D, kvr + dr), ("embed", None), dtype),
+        "kv_norm": meta((kvr,), (None,), dtype, init="ones"),
+        "w_uk": meta((kvr, H, dn), (None, "heads", "head_dim"), dtype),
+        "w_uv": meta((kvr, H, dv), (None, "heads", "head_dim"), dtype),
+        "wo": meta((H, dv, D), ("heads", "head_dim", "embed"), dtype),
+    }
+
+
+def mla_apply(p, x, *, cfg, positions, mode: str, cache=None, cur_pos=None):
+    """Latent attention. ``prefill`` expands the latent into per-head keys
+    (nope part from the latent, one shared rope part) and values and runs
+    :func:`flash_attention` with Dk = dn + dr against Dv; it returns the
+    prompt's (latent (B, S, kv_lora_rank), k_rope (B, S, qk_rope_dim)) as
+    the cache. ``decode`` writes this token's latent and rope key into the
+    caches **in place** at ``cur_pos`` and attends in the latent space
+    (the absorbed form: the query is taken through ``w_uk``, the context
+    back through ``w_uv``). Returns (y, new_cache)."""
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"mla_apply mode {mode!r}: training waits "
+                                  f"for the port's training slice (ROADMAP "
+                                  f"§1)")
+    B, S, D = x.shape
+    H = cfg.n_heads
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    kvr = cfg.kv_lora_rank
+    acc_t = acc_dtype(x.dtype)
+    # queries
+    ql = rmsnorm({"scale": p["q_norm"]}, x @ p["w_dq"])
+    q = torch.einsum("bsr,rhk->bshk", ql, p["w_uq"])
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    # latent kv
+    dkv = x @ p["w_dkv"]
+    latent, k_rope = dkv[..., :kvr], dkv[..., kvr:]
+    latent = rmsnorm({"scale": p["kv_norm"]}, latent)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)                  # one shared head
+
+    if mode == "decode":
+        lat_cache, rope_cache = cache
+        M = lat_cache.shape[1]
+        # dynamic_update_slice clamps the start so the update fits
+        slot = min(max(int(cur_pos), 0), M - S)
+        lat_cache[:, slot:slot + S] = latent.to(lat_cache.dtype)
+        rope_cache[:, slot:slot + S] = k_rope[:, :, 0, :].to(rope_cache.dtype)
+        q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
+        s = (torch.einsum("bshr,bmr->bhsm", q_abs.to(acc_t),
+                          lat_cache.to(acc_t)) +
+             torch.einsum("bshk,bmk->bhsm", q_rope.to(acc_t),
+                          rope_cache.to(acc_t)))
+        s = s / torch.sqrt(torch.tensor(float(dn + dr), dtype=acc_t))
+        ok = torch.arange(M, device=x.device) <= int(cur_pos)
+        s = torch.where(ok, s, NEG_INF)
+        att = torch.softmax(s, dim=-1)
+        ctx = torch.einsum("bhsm,bmr->bshr",
+                           att.to(lat_cache.dtype).to(acc_t),
+                           lat_cache.to(acc_t))
+        out = torch.einsum("bshr,rhv->bshv", ctx.to(x.dtype), p["w_uv"])
+        new_cache = (lat_cache, rope_cache)
+    else:
+        k_nope = torch.einsum("bsr,rhk->bshk", latent, p["w_uk"])
+        v = torch.einsum("bsr,rhv->bshv", latent, p["w_uv"])
+        k = torch.cat([k_nope, k_rope.expand(B, S, H, dr).to(k_nope.dtype)],
+                      dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        out = flash_attention(qq, k, v, causal=True, q_chunk=cfg.q_chunk,
+                              kv_chunk=cfg.kv_chunk)
+        new_cache = (latent, k_rope[:, :, 0, :])
+    y = torch.einsum("bshv,hvd->bsd", out, p["wo"])
     return y, new_cache

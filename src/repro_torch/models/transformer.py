@@ -1,22 +1,27 @@
-"""Model assembly: the dense decoder LM on the port's attention and MLP.
+"""Model assembly: the decoder LM on the port's mixers and MLPs.
 
-The port of the reference's ``repro.models.transformer`` for dense
-configs whose layers are ``attn`` / ``attn_local`` mixers with a dense MLP
-(olmo-1b, gemma3-1b, qwen3-32b, qwen1.5-110b). Layers are grouped into
-*segments*, (pattern, repeats) pairs, exactly as the reference groups them;
-a segment's parameters and caches are stacked with the repeat axis first,
-and this port walks the repeats in a Python loop (the reference's
-``scan_layers=False`` walk). Parameter layouts are the reference's, so its
-weights carry across by name (:func:`repro_torch.convert.lm_params_from_arrays`).
+The port of the reference's ``repro.models.transformer`` for decoder-only
+configs: ``attn`` / ``attn_local`` (GQA), ``mla`` (DeepSeek's latent
+attention), ``rg`` (RG-LRU) and ``rwkv`` (RWKV-6) mixers, each with a
+dense or a mixture-of-experts MLP (olmo-1b, gemma3-1b, qwen3-32b,
+qwen1.5-110b, qwen3-moe-30b-a3b, recurrentgemma-2b, rwkv6-7b,
+deepseek-v3-671b). Layers are grouped into *segments*, (pattern, repeats)
+pairs, exactly as the reference groups them; a segment's parameters and
+caches are stacked with the repeat axis first, and this port walks the
+repeats in a Python loop (the reference's ``scan_layers=False`` walk).
+Parameter layouts are the reference's, so its weights carry across by name
+(:func:`repro_torch.convert.lm_params_from_arrays`); deepseek-v3's ``mtp``
+block is declared for that reason, though only training reads it.
 
-Configs with MoE, MLA, RG-LRU or RWKV layers, an encoder or a front end
-raise ``NotImplementedError`` at ``LM(cfg)``, naming the ROADMAP item that
-ports them. Training (``train_loss``) waits for the training slice.
+Configs with an encoder or a front end raise ``NotImplementedError`` at
+``LM(cfg)``, naming the ROADMAP item that ports them. Training
+(``train_loss``, the MoE load-balance loss, ``_mtp_loss``) waits for the
+training slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -24,9 +29,11 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..core.engine import resolve_device
 from . import attention as attn
-from .common import (embed, embed_meta, logits_fn, make_norm, mlp, mlp_meta,
-                     unembed_meta)
-from .params import ParamMeta, count_params, init_tree, map_tree
+from . import moe as moe_mod
+from . import recurrent as rec
+from .common import (acc_dtype, embed, embed_meta, logits_fn, make_norm, mlp,
+                     mlp_meta, unembed_meta)
+from .params import ParamMeta, count_params, init_tree, map_tree, meta
 
 
 # ---------------- layer descriptors & segments ----------------
@@ -81,45 +88,48 @@ def make_segments(descs: Sequence[LayerDesc]) -> List[Segment]:
 
 # What LM(cfg) cannot run yet, and the ROADMAP §1 item that ports it.
 _NOT_PORTED = {
-    "moe": "mixture-of-experts layers (models/moe.py): ROADMAP §1 item 1",
-    "rg": "RG-LRU layers (models/recurrent.py): ROADMAP §1 item 2",
-    "rwkv": "RWKV6 layers (models/recurrent.py): ROADMAP §1 item 2",
-    "mla": "MLA attention (models/attention.py::mla_*): ROADMAP §1 item 3",
     "encoder": "encoders and cross-attention: ROADMAP §1 item 4",
     "frontend": "vision and audio front ends: ROADMAP §1 item 4",
 }
 
 
-def _why_not(desc: LayerDesc) -> List[str]:
-    why = [_NOT_PORTED[k] for k in (desc.mixer, desc.mlp) if k in _NOT_PORTED]
-    return why + ([_NOT_PORTED["encoder"]] if desc.cross else [])
-
-
-def _require_ported(desc: LayerDesc) -> None:
-    why = _why_not(desc)
-    if why:
-        raise NotImplementedError("; ".join(why))
-
-
-def _not_ported(cfg: ModelConfig, descs: Sequence[LayerDesc]) -> List[str]:
-    why = [w for d in descs for w in _why_not(d)]
+def _not_ported(cfg: ModelConfig) -> List[str]:
+    why = []
     if cfg.n_enc_layers:
         why.append(_NOT_PORTED["encoder"])
     if cfg.frontend:
         why.append(_NOT_PORTED["frontend"])
-    return list(dict.fromkeys(why))
+    return why
+
+
+def _require_ported(desc: LayerDesc) -> None:
+    if desc.cross:
+        raise NotImplementedError(_NOT_PORTED["encoder"])
 
 
 # ---------------- per-layer params ----------------
+def _mixer_meta(cfg: ModelConfig, kind: str, dtype):
+    if kind in ("attn", "attn_local"):
+        return attn.attn_meta(cfg, dtype)
+    if kind == "mla":
+        return attn.mla_meta(cfg, dtype)
+    if kind == "rg":
+        return rec.rglru_meta(cfg, dtype)
+    if kind == "rwkv":
+        return rec.rwkv6_meta(cfg, dtype)
+    raise ValueError(kind)
+
+
 def layer_meta(cfg: ModelConfig, desc: LayerDesc):
     _require_ported(desc)
     norm_meta_fn, _ = make_norm(cfg)
     dtype = cfg.pdtype
     return {
         "norm1": norm_meta_fn(cfg.d_model, dtype),
-        "mixer": attn.attn_meta(cfg, dtype),
+        "mixer": _mixer_meta(cfg, desc.mixer, dtype),
         "norm2": norm_meta_fn(cfg.d_model, dtype),
-        "mlp": mlp_meta(cfg.d_model, cfg.d_ff, dtype, bias=False),
+        "mlp": (moe_mod.moe_meta(cfg, dtype) if desc.mlp == "moe"
+                else mlp_meta(cfg.d_model, cfg.d_ff, dtype, bias=False)),
     }
 
 
@@ -143,42 +153,80 @@ def _theta_window(cfg: ModelConfig, desc: LayerDesc):
 
 def layer_apply(lp, x, desc: LayerDesc, *, cfg: ModelConfig, mode: str,
                 cache, positions, cur_pos, kv_len=None):
-    """One pre-norm block: mixer, then MLP, each added to the residual.
-    Returns (x, new_cache)."""
+    """One pre-norm block: mixer, then MLP (dense or MoE), each added to
+    the residual. Returns (x, new_cache); the MoE's load-balance loss is
+    training's and is dropped here."""
     _require_ported(desc)
     _, norm = make_norm(cfg)
     h = norm(lp["norm1"], x)
-    theta, window = _theta_window(cfg, desc)
-    h, new_cache = attn.attn_apply(
-        lp["mixer"], h, cfg=cfg, rope_theta=theta, window=window,
-        positions=positions, mode=mode, cache=cache, cur_pos=cur_pos,
-        kv_len=kv_len, causal=cfg.causal)
+    if desc.mixer in ("attn", "attn_local"):
+        theta, window = _theta_window(cfg, desc)
+        h, new_cache = attn.attn_apply(
+            lp["mixer"], h, cfg=cfg, rope_theta=theta, window=window,
+            positions=positions, mode=mode, cache=cache, cur_pos=cur_pos,
+            kv_len=kv_len, causal=cfg.causal)
+    elif desc.mixer == "mla":
+        h, new_cache = attn.mla_apply(lp["mixer"], h, cfg=cfg,
+                                      positions=positions, mode=mode,
+                                      cache=cache, cur_pos=cur_pos)
+    elif desc.mixer == "rg":
+        h, new_cache = rec.rglru_apply(lp["mixer"], h, cfg=cfg, mode=mode,
+                                       cache=cache)
+    elif desc.mixer == "rwkv":
+        h, new_cache = rec.rwkv6_apply(lp["mixer"], h, cfg=cfg, mode=mode,
+                                       cache=cache, chunk=cfg.rwkv_chunk)
+    else:
+        raise ValueError(desc.mixer)
     x = x + h
     h = norm(lp["norm2"], x)
-    x = x + mlp(lp["mlp"], h, cfg.act)
-    return x, new_cache
+    if desc.mlp == "moe":
+        h, _ = moe_mod.moe_apply(lp["mlp"], h, cfg=cfg,
+                                 capacity_factor=cfg.capacity_factor)
+    else:
+        h = mlp(lp["mlp"], h, cfg.act)
+    return x + h, new_cache
 
 
 # ---------------- cache construction ----------------
 @dataclasses.dataclass(frozen=True)
 class ShapeDtype:
     """A cache leaf's shape and dtype (the reference's
-    ``jax.ShapeDtypeStruct``)."""
+    ``jax.ShapeDtypeStruct``), and where its sequence axis lies, counted
+    from the end (-3 for a (.., B, S, Hkv, Dh) kv leaf, -2 for MLA's
+    (.., B, S, r) leaves), or ``None`` for a recurrent state, which has
+    no sequence axis. :func:`repro_torch.serving.seed_caches` places a
+    prompt along that axis."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
+    seq_axis: Optional[int] = None
 
 
 def cache_meta_for_desc(cfg: ModelConfig, desc: LayerDesc, batch: int,
                         max_len: int, enc_len: int = 0):
-    """The (k, v) shape tree of one layer's decode cache. A local layer's
-    cache holds min(max_len, window) entries: a ring once the window is
-    shorter than the sequence."""
+    """The shape tree of one layer's decode cache: (k, v) for attention,
+    where a local layer holds min(max_len, window) entries (a ring once
+    the window is shorter than the sequence); (latent, k_rope) for MLA;
+    (conv window, h) for RG-LRU; (token shift, state) for RWKV. The
+    recurrent states are float32 (float64 in a float64 model)."""
     _require_ported(desc)
-    _, window = _theta_window(cfg, desc)
-    M = min(max_len, window) if window else max_len
-    kv = ShapeDtype((int(batch), int(M), cfg.n_kv_heads, cfg.head_dim),
-                    cfg.adtype)
-    return (kv, kv)
+    ad, D, B = cfg.adtype, cfg.d_model, int(batch)
+    acc = acc_dtype(ad)
+    if desc.mixer in ("attn", "attn_local"):
+        _, window = _theta_window(cfg, desc)
+        M = min(max_len, window) if window else max_len
+        kv = ShapeDtype((B, int(M), cfg.n_kv_heads, cfg.head_dim), ad, -3)
+        return (kv, kv)
+    if desc.mixer == "mla":
+        return (ShapeDtype((B, int(max_len), cfg.kv_lora_rank), ad, -2),
+                ShapeDtype((B, int(max_len), cfg.qk_rope_dim), ad, -2))
+    if desc.mixer == "rg":
+        return (ShapeDtype((B, cfg.conv_width - 1, cfg.lru_width), ad),
+                ShapeDtype((B, cfg.lru_width), acc))
+    if desc.mixer == "rwkv":
+        Dh = D // cfg.n_heads
+        return (ShapeDtype((B, D), ad),
+                ShapeDtype((B, cfg.n_heads, Dh, Dh), acc))
+    raise ValueError(desc.mixer)
 
 
 def cache_meta(cfg: ModelConfig, segments: Sequence[Segment], batch: int,
@@ -188,8 +236,8 @@ def cache_meta(cfg: ModelConfig, segments: Sequence[Segment], batch: int,
         unit = {f"L{j}": cache_meta_for_desc(cfg, d, batch, max_len, enc_len)
                 for j, d in enumerate(seg.pattern)}
         if seg.repeats > 1:
-            unit = map_tree(lambda s: ShapeDtype((seg.repeats,) + s.shape,
-                                                 s.dtype), unit)
+            unit = map_tree(lambda s: dataclasses.replace(
+                s, shape=(seg.repeats,) + s.shape), unit)
         out.append(unit)
     return out
 
@@ -232,8 +280,6 @@ def segment_apply(seg_p, x, seg: Segment, *, cfg: ModelConfig, mode: str,
 
 
 # ---------------- the model ----------------
-_TOP = ("embed", "final_norm", "head", "segments")
-
 
 class _Params(nn.Module):
     """A parameter tree as modules: a dict's keys (or a list's positions)
@@ -283,7 +329,8 @@ def _check_tree(metas, tree, path: str = "") -> None:
 
 
 class LM(nn.Module):
-    """Decoder-only language model on ``attn`` / ``attn_local`` layers.
+    """Decoder-only language model (attention, MLA, RG-LRU or RWKV-6
+    mixers; dense or MoE MLPs).
 
     ``LM(cfg)`` allocates nothing: the parameter count and the cache shapes
     come from metadata. :meth:`init` draws the parameters from a
@@ -302,25 +349,39 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         descs = layer_descs(cfg, cross=cfg.n_enc_layers > 0)
-        why = _not_ported(cfg, descs)
+        why = _not_ported(cfg)
         if why:
             raise NotImplementedError(f"LM({cfg.name!r}) is not ported yet: "
                                       + "; ".join(why))
         self.cfg = cfg
         self.descs = descs
         self.layout = make_segments(descs)
+        self._top = tuple(self.abstract_params())
 
     # ----- params -----
     def abstract_params(self):
         cfg = self.cfg
         norm_meta_fn, _ = make_norm(cfg)
-        return {
+        p = {
             "embed": embed_meta(cfg.vocab, cfg.d_model, cfg.pdtype),
             "final_norm": norm_meta_fn(cfg.d_model, cfg.pdtype),
             "head": unembed_meta(cfg.vocab, cfg.d_model, cfg.pdtype,
                                  cfg.tie_embeddings),
             "segments": [segment_meta(cfg, s) for s in self.layout],
         }
+        if cfg.mtp:
+            # DeepSeek-V3's multi-token-prediction block: parameters only,
+            # so the reference's tree carries across; training reads them
+            p["mtp"] = {
+                "proj": meta((2 * cfg.d_model, cfg.d_model), (None, "embed"),
+                             cfg.pdtype),
+                "norm_h": norm_meta_fn(cfg.d_model, cfg.pdtype),
+                "norm_e": norm_meta_fn(cfg.d_model, cfg.pdtype),
+                "layer": layer_meta(cfg, LayerDesc(
+                    "mla" if cfg.use_mla else "attn",
+                    "moe" if cfg.n_experts else "dense")),
+            }
+        return p
 
     def init(self, generator: torch.Generator, device=None):
         """Draw the parameters (the reference's init kinds and scales, see
@@ -335,7 +396,7 @@ class LM(nn.Module):
         """Register ``tree`` (nested dicts and lists of tensors, shaped as
         :meth:`abstract_params`) as this model's parameters."""
         _check_tree(self.abstract_params(), tree)
-        for k in _TOP:
+        for k in self._top:
             setattr(self, k, _Params(tree[k]))
 
     @property
@@ -344,14 +405,22 @@ class LM(nn.Module):
         if "embed" not in self._modules:
             raise RuntimeError("LM has no parameters yet: call init() or "
                                "set_params()")
-        return {k: self._modules[k].tree() for k in _TOP}
+        return {k: self._modules[k].tree() for k in self._top}
 
     def param_count(self) -> int:
         return count_params(self.abstract_params())
 
     def active_param_count(self) -> int:
-        """Activated params per token: all of them for a dense model."""
-        return self.param_count()
+        """Activated params per token: a MoE layer counts top_k of its
+        routed experts (the reference's count; the ``mtp`` block's experts
+        are counted whole, as there)."""
+        cfg = self.cfg
+        total = self.param_count()
+        if not cfg.n_experts:
+            return total
+        moe_layers = sum(1 for d in self.descs if d.mlp == "moe")
+        per_expert = 3 * cfg.d_model * cfg.moe_d_ff
+        return total - moe_layers * (cfg.n_experts - cfg.top_k) * per_expert
 
     # ----- embedding -----
     def _embed_tokens(self, params, tokens):

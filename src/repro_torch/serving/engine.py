@@ -35,14 +35,22 @@ def _seed_leaf(prefill_leaf, target, prompt_len: int):
     """Place a prefill cache leaf into its decode-capacity layout: zeros of
     ``target``'s shape and dtype with the prompt's entries written in.
 
-    A leaf is (..., B, S, Hkv, Dh), its sequence axis third from the end
-    (the repeat axis of a stacked segment comes first). A prompt longer than
-    a ring cache keeps its last M entries at their ring slots (pos % M)."""
+    ``target.seq_axis`` says where the leaf's sequence axis lies, counted
+    from the end: third for a (.., B, S, Hkv, Dh) kv leaf, second for
+    MLA's (.., B, S, r) leaves (the repeat axis of a stacked segment comes
+    first). A recurrent state has none (``None``): it has the decode shape
+    already and is taken as it is. A prompt longer than a ring cache keeps
+    its last M entries at their ring slots (pos % M)."""
     x = prefill_leaf.to(target.dtype)
     if tuple(x.shape) == tuple(target.shape):
         return x
+    seq_axis = getattr(target, "seq_axis", None)
+    if seq_axis is None:
+        raise ValueError(f"cache leaf of shape {tuple(x.shape)} has no "
+                         f"sequence axis; the decode layout needs "
+                         f"{tuple(target.shape)}")
     z = torch.zeros(target.shape, dtype=target.dtype, device=x.device)
-    ax = x.ndim - 3
+    ax = x.ndim + seq_axis
     M, P = target.shape[ax], x.shape[ax]
     if P <= M:
         z.narrow(ax, 0, P).copy_(x)
@@ -54,8 +62,9 @@ def _seed_leaf(prefill_leaf, target, prompt_len: int):
 
 def seed_caches(lm, prefill_caches, batch: int, max_len: int,
                 prompt_len: int, enc_len: int = 0):
-    """Convert prefill caches (prompt-length kv) into the decode cache
-    layout of ``lm.decode_cache_meta``, on the prefill caches' device."""
+    """Convert prefill caches (prompt-length kv and latents, recurrent
+    states) into the decode cache layout of ``lm.decode_cache_meta``, on
+    the prefill caches' device."""
     metas = lm.decode_cache_meta(batch, max_len, enc_len)
     return [_map_tree(lambda m, leaf: _seed_leaf(leaf, m, prompt_len),
                       seg_meta, seg_cache)

@@ -652,7 +652,9 @@ def test_irangegraph_on_cuda_agrees_with_its_cpu_run(dev):
     np.testing.assert_allclose(gd, cd, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "gemma3-1b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "gemma3-1b", "qwen3-moe-30b-a3b",
+                                  "recurrentgemma-2b", "rwkv6-7b",
+                                  "deepseek-v3-671b"])
 def test_serve_engine_on_cuda_equals_cpu(dev, arch):
     """One CPU init of a smoke config, generated on the CPU and, with the
     parameters copied over, on the card: equal tokens."""
@@ -661,7 +663,9 @@ def test_serve_engine_on_cuda_equals_cpu(dev, arch):
     from repro_torch.serving import ServeEngine
     lm = LM(configs.get_smoke_config(arch))
     lm.init(torch.Generator().manual_seed(3), device="cpu")
-    toks = np.random.default_rng(3).integers(0, lm.cfg.vocab, (2, 20))
+    # RWKV's chunk scan takes a multiple of its 16-token chunk
+    P = 32 if arch == "rwkv6-7b" else 20
+    toks = np.random.default_rng(3).integers(0, lm.cfg.vocab, (2, P))
     want = ServeEngine(lm, device="cpu").generate({"tokens": toks}, n_new=6,
                                                   max_len=40)
     got = ServeEngine(lm, device=dev).generate({"tokens": toks}, n_new=6,
@@ -670,6 +674,34 @@ def test_serve_engine_on_cuda_equals_cpu(dev, arch):
     scale = max(1.0, float(np.abs(want.logits_last).max()))
     np.testing.assert_allclose(got.logits_last, want.logits_last, rtol=1e-4,
                                atol=1e-5 * scale)
+
+
+def test_moe_router_on_cuda_is_deterministic_and_equals_cpu(dev):
+    """qwen3-moe's MoE block on the card, twice on one input at a capacity
+    that drops assignments: the same experts, kept set and output bit for
+    bit; the experts and kept set equal the CPU's, the output within
+    1e-4."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_tree
+    cfg = configs.get_smoke_config("qwen3-moe-30b-a3b")
+    p = init_tree(moe.moe_meta(cfg, torch.float32),
+                  torch.Generator().manual_seed(4), "cpu")
+    p["router"] = p["router"] * 50
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(4, 32, cfg.d_model)).astype(np.float32))
+    pd = {k: v.to(dev) for k, v in p.items()}
+    with moe.routing_stats() as st:
+        y1, _ = moe.moe_apply(pd, x.to(dev), cfg=cfg, capacity_factor=1.0)
+        y2, _ = moe.moe_apply(pd, x.to(dev), cfg=cfg, capacity_factor=1.0)
+        yc, _ = moe.moe_apply(p, x, cfg=cfg, capacity_factor=1.0)
+    assert torch.equal(y1, y2)
+    for key in ("experts", "kept"):
+        assert torch.equal(st[0][key], st[1][key])
+        assert torch.equal(st[0][key].cpu(), st[2][key])
+    assert int(st[0]["dropped"]) > 0
+    np.testing.assert_allclose(y1.cpu().numpy(), yc.numpy(), rtol=1e-4,
+                               atol=1e-5 * max(1.0, float(yc.abs().max())))
 
 
 def test_serve_driver_on_cuda(dev):

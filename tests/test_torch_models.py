@@ -1,6 +1,6 @@
-"""The port's configs and dense LM (``repro_torch.configs``,
-``repro_torch.models``) against the reference's ``repro.configs`` /
-``repro.models`` on the CPU.
+"""The port's configs and LM (``repro_torch.configs``,
+``repro_torch.models``: dense, MoE, MLA, RG-LRU and RWKV-6 layers) against
+the reference's ``repro.configs`` / ``repro.models`` on the CPU.
 
 The reference's weights are carried into the port with
 ``repro_torch.convert.lm_params_from_arrays`` (its init draws from jax's
@@ -29,6 +29,9 @@ from repro_torch.serving import seed_caches
 
 RTOL, ATOL = 1e-4, 1e-5
 DENSE = ("olmo-1b", "gemma3-1b", "qwen3-32b", "qwen1.5-110b")
+# MoE, RG-LRU + local attention, RWKV-6, MLA + MoE (+ mtp parameters)
+MIXED = ("qwen3-moe-30b-a3b", "recurrentgemma-2b", "rwkv6-7b",
+         "deepseek-v3-671b")
 
 
 @functools.lru_cache(maxsize=None)
@@ -92,7 +95,7 @@ def test_configs_and_segments_equal_reference(arch):
             r["configs"].supports_shape(r["configs"].get_config(arch), shape)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MIXED)
 def test_param_counts_equal_reference_from_metadata(arch):
     r = _ref()
     want = r["transformer"].LM(r["configs"].get_config(arch))
@@ -104,7 +107,10 @@ def test_param_counts_equal_reference_from_metadata(arch):
     assert list(lm.parameters()) == []          # nothing was allocated
 
 
-@pytest.mark.parametrize("arch,P", [("olmo-1b", 37), ("gemma3-1b", 12)])
+@pytest.mark.parametrize("arch,P", [
+    ("olmo-1b", 37), ("gemma3-1b", 12), ("qwen3-moe-30b-a3b", 21),
+    ("recurrentgemma-2b", 12), ("recurrentgemma-2b", 24), ("rwkv6-7b", 32),
+    ("rwkv6-7b", 11), ("deepseek-v3-671b", 19)])
 def test_prefill_and_seeded_caches_equal_reference(arch, P):
     r = _ref()
     jnp = r["jnp"]
@@ -140,6 +146,8 @@ FLASH_CASES = {
     "padded": dict(Sq=37, Skv=37, causal=True),
     "kv_len": dict(Sq=32, Skv=45, causal=False, kv_len=29),
     "gqa_softcap": dict(Sq=40, Skv=40, causal=True, softcap=5.0),
+    # MLA's prefill widths: Dk = qk_nope + qk_rope = 192 against Dv = 128
+    "mla_dk192_dv128": dict(Sq=40, Skv=40, causal=True, Dk=192, Dv=128),
 }
 
 
@@ -149,11 +157,12 @@ def test_flash_attention_equals_reference(case):
     jnp = r["jnp"]
     kw = dict(FLASH_CASES[case])
     Sq, Skv = kw.pop("Sq"), kw.pop("Skv")
-    B, H, Hkv, D = 2, 4, (1 if case == "gqa_softcap" else 2), 16
+    Dk, Dv = kw.pop("Dk", 16), kw.pop("Dv", 16)
+    B, H, Hkv = 2, 4, (1 if case == "gqa_softcap" else 2)
     rng = np.random.default_rng(11)
-    q = rng.normal(size=(B, Sq, H, D)).astype(np.float32)
-    k = rng.normal(size=(B, Skv, Hkv, D)).astype(np.float32)
-    v = rng.normal(size=(B, Skv, Hkv, D)).astype(np.float32)
+    q = rng.normal(size=(B, Sq, H, Dk)).astype(np.float32)
+    k = rng.normal(size=(B, Skv, Hkv, Dk)).astype(np.float32)
+    v = rng.normal(size=(B, Skv, Hkv, Dv)).astype(np.float32)
     want = r["attention"].flash_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_chunk=16,
         kv_chunk=16, block_skip=True, **kw)
@@ -161,6 +170,7 @@ def test_flash_attention_equals_reference(case):
         got = tattn.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                                     torch.from_numpy(v), q_chunk=16,
                                     kv_chunk=16, block_skip=skip, **kw)
+        assert tuple(got.shape) == (B, Sq, H, Dv)
         _close(got, want, f"{case}, block_skip={skip}")
 
 
@@ -174,7 +184,8 @@ def test_cache_slot_and_mask_equal_reference(M, window):
         np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
 
 
-@pytest.mark.parametrize("arch", sorted(set(tcfg.ARCH_NAMES) - set(DENSE)))
+@pytest.mark.parametrize("arch", sorted(set(tcfg.ARCH_NAMES) - set(DENSE)
+                                         - set(MIXED)))
 def test_unported_configs_raise(arch):
     for cfg in (tcfg.get_config(arch), tcfg.get_smoke_config(arch)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -259,3 +270,76 @@ def test_lm_params_from_arrays_carries_bfloat16_bit_exact():
         assert g.dtype == torch.bfloat16
         np.testing.assert_array_equal(g.float().numpy(),
                                       np.asarray(w, np.float32))
+
+
+def test_seed_leaf_places_stacked_mla_latents_along_their_sequence_axis():
+    """A stacked segment's MLA leaf is (R, B, P, r): its sequence axis is
+    second from the end. Counting it third from the end (the kv rule)
+    would pick the batch axis; the seeded leaf must equal the reference's
+    (which writes the prompt at offset 0) and keep every prompt entry at
+    its position."""
+    r = _ref()
+    from repro_torch.models.transformer import LayerDesc, Segment, cache_meta
+    from repro_torch.serving.engine import _seed_leaf
+    cfg = tcfg.get_smoke_config("deepseek-v3-671b")
+    R, B, P, M = 2, 3, 5, 16
+    metas = cache_meta(cfg, [Segment((LayerDesc("mla", "moe"),), R)], B, M)
+    lat_meta, rope_meta = metas[0]["L0"]
+    assert lat_meta.shape == (R, B, M, cfg.kv_lora_rank)
+    assert lat_meta.seq_axis == rope_meta.seq_axis == -2
+    rng = np.random.default_rng(5)
+    for m in (lat_meta, rope_meta):
+        x = rng.normal(size=(R, B, P, m.shape[-1])).astype(np.float32)
+        got = _seed_leaf(torch.from_numpy(x), m, P).numpy()
+        sds = r["jax"].ShapeDtypeStruct(m.shape, r["jnp"].float32)
+        want = np.asarray(r["engine"]._seed_leaf(r["jnp"].asarray(x), sds, P))
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got[:, :, :P], x)
+        assert not got[:, :, P:].any()
+
+
+def test_seeded_recurrent_states_are_taken_as_they_are():
+    from repro_torch.models.transformer import LayerDesc, cache_meta_for_desc
+    from repro_torch.serving.engine import _seed_leaf
+    for arch, kind in (("recurrentgemma-2b", "rg"), ("rwkv6-7b", "rwkv")):
+        cfg = tcfg.get_smoke_config(arch)
+        for m in cache_meta_for_desc(cfg, LayerDesc(kind, "dense"), 2, 64):
+            assert m.seq_axis is None
+            x = torch.randn(m.shape).to(m.dtype)
+            assert _seed_leaf(x, m, 7) is x
+            with pytest.raises(ValueError, match="no sequence axis"):
+                _seed_leaf(x[:1], m, 7)
+
+
+def test_init_tree_draws_large_leaves_in_slabs(monkeypatch):
+    """A leaf above ``SLAB_ELEMS`` is filled slab by slab: no float32 draw
+    is larger than a slab (the whole-leaf float32 transient is what kept
+    qwen3-moe-30b-a3b from initialising on one 80 GB card), one seed gives
+    one leaf, and the init's scale holds."""
+    slab = 1000
+    monkeypatch.setattr(tparams, "SLAB_ELEMS", slab)
+    metas = {"big": tparams.meta((7, 30, 40), (None, None, None),
+                                 torch.bfloat16),
+             "small": tparams.meta((20, 40), (None, None))}
+    draws = []
+    randn = torch.randn
+
+    def spy(*a, **kw):
+        out = randn(*a, **kw)
+        draws.append(out.numel() * out.element_size())
+        return out
+
+    monkeypatch.setattr(torch, "randn", spy)
+    a = tparams.init_tree(metas, torch.Generator().manual_seed(9), "cpu")
+    big_draws = draws[:]
+    b = tparams.init_tree(metas, torch.Generator().manual_seed(9), "cpu")
+    leaf_f32_bytes = 7 * 30 * 40 * 4
+    # the peak float32 transient is one slab, not the leaf
+    assert max(big_draws[:-1]) == slab * 4 < leaf_f32_bytes
+    assert len(big_draws) == -(-7 * 30 * 40 // slab) + 1
+    assert a["big"].dtype == torch.bfloat16 and a["big"].shape == (7, 30, 40)
+    assert torch.equal(a["big"], b["big"]) and torch.equal(a["small"],
+                                                           b["small"])
+    assert abs(float(a["big"].float().std()) - 30 ** -0.5) < 0.01  # fan_in
+    c = tparams.init_tree(metas, torch.Generator().manual_seed(10), "cpu")
+    assert not torch.equal(a["big"], c["big"])

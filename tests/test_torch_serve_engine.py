@@ -2,8 +2,9 @@
 (``repro_torch.serving.ServeEngine``, ``repro_torch.launch.serve``) against
 the reference's on the CPU: greedy tokens equal the reference's on the same
 (carried) weights, generation equals argmax over repeated full prefills
-(teacher forcing, with ring caches), determinism, and the driver's four
-modes. The reference is imported inside :func:`_ref` with
+(teacher forcing, with ring caches), determinism, the driver's four
+modes, and each ported layer family (MoE, RG-LRU, RWKV-6, MLA) through
+``ServeEngine`` and the driver. The reference is imported inside :func:`_ref` with
 ``DeprecationWarning`` ignored there only.
 """
 import functools
@@ -89,6 +90,37 @@ def test_generate_matches_teacher_forcing_with_ring_caches(P):
             {"tokens": r["jnp"].asarray(toks, r["jnp"].int32)}, n_new=4,
             max_len=32)
         assert out.tokens[0].tolist() == np.asarray(ref.tokens)[0].tolist()
+
+
+MIXED = ("qwen3-moe-30b-a3b", "recurrentgemma-2b", "rwkv6-7b",
+         "deepseek-v3-671b")
+
+
+@pytest.mark.parametrize("arch", MIXED)
+def test_generate_equals_reference_for_each_family(arch):
+    """Greedy tokens on carried weights equal the reference's: MoE routing
+    in prefill and decode, recurrent states carried from the prompt, MLA's
+    latent caches seeded and decoded in the absorbed form."""
+    r = _ref()
+    rlm, params, lm = _carried(arch, 2)
+    toks = np.random.default_rng(2).integers(0, lm.cfg.vocab, (2, 16))
+    want = r["ServeEngine"](rlm, params).generate(
+        {"tokens": r["jnp"].asarray(toks, r["jnp"].int32)}, n_new=6,
+        max_len=32)
+    got = ServeEngine(lm, device="cpu").generate({"tokens": toks}, n_new=6,
+                                                 max_len=32)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    scale = max(1.0, float(np.abs(np.asarray(want.logits_last)).max()))
+    np.testing.assert_allclose(got.logits_last, np.asarray(want.logits_last),
+                               rtol=1e-4, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("arch", MIXED)
+def test_serve_main_serves_each_family(arch):
+    out = serve.main(["--device", "cpu", "--arch", arch, "--requests", "8",
+                      "--n", "400"])
+    assert out["arch"] == arch and out["generated"] == [4, 8]
+    assert out["served"] == out["requests"] == out["non_empty"] == 8
 
 
 def test_serve_engine_runs_on_cuda_by_default(monkeypatch):
