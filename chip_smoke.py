@@ -143,7 +143,8 @@ Phases, each printing one JSON object per line:
    top-8, 61.1 GB), recurrentgemma-2b and rwkv6-7b (``lm_rec_full``) at
    their published widths and full depth in bfloat16, seeded random
    weights, the same load and report; for the MoE the prefill's dropped
-   assignments at capacity factor 1.25 and the decode step's byte bound
+   assignments at capacity factor 1.25, by sequence beside the distinct
+   experts a sequence and the batch chose, and the decode step's byte bound
    counting only the experts its router chose, beside the design's (all
    128 a layer). Held on each: float64 greedy tokens (a (2, 32) prompt,
    16 new) equal teacher forcing in one causal forward, on the first
@@ -152,9 +153,12 @@ Phases, each printing one JSON object per line:
    layer kind in float32 on the card within 1e-3 of the CPU's from the
    CPU's input. Then ``repro_torch.launch.serve.main`` in-process in each
    mode (plain, ``--async``, ``--streaming --n 400``, ``--shards 4 --n
-   1200``, ``--arch qwen3-moe-30b-a3b``): 24 of 24 requests served, none
-   empty; the MoE mode launches kernels 1, 3 and 5. The LM path runs no
-   hand-written kernel (the reference's has no Pallas kernel).
+   1200``, and ``--arch qwen3-moe-30b-a3b`` with ``--route graph`` and
+   with ``--route flat``): 24 of 24 requests served, none empty; the
+   streaming mode launches kernel 5 on its delta, the MoE's graph mode
+   kernels 1 and 3 and its flat mode kernel 5, all through
+   ``QueryEngine``. The LM path runs no hand-written kernel (the
+   reference's has no Pallas kernel).
 
 Launch counts are set to 0 just before each main-path run (flat, graph,
 each tier's flat and graph run, the ``trace`` phase's kernel calls, the
@@ -179,6 +183,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import re
@@ -1987,6 +1992,15 @@ def _close(got, want, rtol: float):
     return float(err.max()), bool(np.all(err <= rtol * np.abs(want) + atol))
 
 
+def _margin(got, want, rtol: float) -> float:
+    """The worst |got - want| / (rtol |want| + atol) under :func:`_close`'s
+    tolerance: how much of its room the worst element uses (<= 1 passes)."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    atol = rtol / 10 * max(1.0, float(np.abs(want).max()))
+    return float((np.abs(got - want) / (rtol * np.abs(want) + atol)).max())
+
+
 # Smoke configs held card = CPU; the full-width models of lm_moe_full /
 # lm_rec_full with the depth their float64 teacher forcing keeps (None:
 # every layer; float64 copies of all layers would not fit the card).
@@ -2009,15 +2023,35 @@ def free_device() -> int:
     return torch.cuda.memory_allocated()
 
 
+@contextlib.contextmanager
+def moe_routing_records():
+    """Yield a list that gets ``moe.routing``'s record of every MoE call
+    made inside the block (the model calls ``moe.moe_apply`` through its
+    module, which is wrapped for the block's duration). The records' tensors
+    stay on the device."""
+    from repro_torch.models import moe
+    records, apply = [], moe.moe_apply
+
+    def recorded(p, x, *, cfg, capacity_factor=1.25):
+        records.append(moe.routing(p, x, cfg=cfg,
+                                   capacity_factor=capacity_factor))
+        return apply(p, x, cfg=cfg, capacity_factor=capacity_factor)
+
+    moe.moe_apply = recorded
+    try:
+        yield records
+    finally:
+        moe.moe_apply = apply
+
+
 def lm_timed_run(dev, lm, rng, B: int, P: int, n_new: int, max_len: int):
     """One timed greedy run on the card: the prefill (CUDA events), the
     seeded caches, ``n_new`` decode steps each timed with CUDA events;
     then ``ServeEngine.generate`` on the same prompt (untimed, under
-    ``moe.routing_stats``) must give the same tokens; then one profiled
-    prefill and decode step. Returns (report, routing records)."""
+    :func:`moe_routing_records`) must give the same tokens; then one
+    profiled prefill and decode step. Returns (report, routing records)."""
     import numpy as np
     import torch
-    from repro_torch.models import moe
     from repro_torch.serving import ServeEngine, seed_caches
     cfg = lm.cfg
     eng = ServeEngine(lm, device=dev)
@@ -2048,7 +2082,7 @@ def lm_timed_run(dev, lm, rng, B: int, P: int, n_new: int, max_len: int):
     step_ms = [a.elapsed_time(b) for a, b in steps]
     tokens = torch.cat(out, 1).cpu().numpy()
     del pc, logits
-    with moe.routing_stats() as routing:
+    with moe_routing_records() as routing:
         gen = eng.generate({"tokens": toks}, n_new=n_new, max_len=max_len)
     with torch.inference_mode():
         profiles = {
@@ -2079,11 +2113,14 @@ def lm_timed_run(dev, lm, rng, B: int, P: int, n_new: int, max_len: int):
 
 def moe_routing_report(lm, routing, B: int, P: int, pbytes: int) -> dict:
     """From one generation's routing records: the prefill's dropped
-    assignments at the config's capacity factor, and each decode step's
-    byte bound counting only the experts its router chose (the distinct
-    experts of each MoE layer), beside the design's, which reads all E
-    experts a layer (the capacity buffer's products run over every
-    expert)."""
+    assignments at the config's capacity factor, per sequence (token order
+    is sequence-major, so a later sequence meets fuller experts) beside the
+    distinct experts each sequence chose and the batch chose, a layer's
+    busiest expert over its capacity; and each decode step's byte bound
+    counting only the experts its router chose (the distinct experts of
+    each MoE layer), beside the design's, which reads all E experts a layer
+    (the capacity buffer's products run over every expert)."""
+    import torch
     cfg = lm.cfg
     n_moe = sum(1 for d in lm.descs if d.mlp == "moe")
     per_expert = 3 * cfg.d_model * cfg.moe_d_ff * cfg.pdtype.itemsize
@@ -2097,10 +2134,26 @@ def moe_routing_report(lm, routing, B: int, P: int, pbytes: int) -> dict:
                   + sum(used[i:i + n_moe]) * per_expert
                   for i in range(0, len(used), n_moe)]
     routed_ms = [b / PEAKS.hbm_bytes_per_s * 1e3 for b in step_bytes]
+    # the prefill's routing by sequence, summed or averaged over its layers
+    drop_seq = sum((~r["kept"]).view(B, -1).sum(1).cpu() for r in pre)
+    per_seq = [len(torch.unique(r["experts"][b * P:(b + 1) * P]))
+               for r in pre for b in range(B)]
+    per_batch = [len(torch.unique(r["experts"])) for r in pre]
+    busiest = [int(torch.bincount(r["experts"].reshape(-1),
+                                  minlength=cfg.n_experts).max())
+               / r["capacity"] for r in pre]
     return {"capacity_factor": cfg.capacity_factor,
             "prefill_capacity": pre[0]["capacity"],
             "prefill_assignments": sum(r["assignments"] for r in pre),
             "prefill_dropped": sum(int(r["dropped"]) for r in pre),
+            "prefill_dropped_by_sequence": drop_seq.tolist(),
+            "prefill_assignments_per_sequence": n_moe * P * cfg.top_k,
+            "prefill_experts_per_sequence_mean": statistics.mean(per_seq),
+            "prefill_experts_per_sequence_min": min(per_seq),
+            "prefill_experts_per_batch_mean": statistics.mean(per_batch),
+            "prefill_busiest_expert_over_capacity_mean":
+                statistics.mean(busiest),
+            "prefill_busiest_expert_over_capacity_max": max(busiest),
             "decode_capacity": dec[0]["capacity"],
             "decode_dropped": sum(int(r["dropped"]) for r in dec),
             "decode_experts_per_layer_mean": statistics.mean(used),
@@ -2162,7 +2215,7 @@ def layers_f32_vs_cpu(dev, lm_cut, params_cpu, toks):
     from repro_torch.models.transformer import layer_apply
     cfg = lm_cut.cfg.scaled(param_dtype="float32", activ_dtype="float32")
     f32 = lambda t: t.to(torch.float32) if t.is_floating_point() else t
-    errs, ok_all = {}, True
+    errs, margins, ok_all = {}, {}, True
     with torch.inference_mode():
         x = f32(params_cpu["embed"]["table"])[torch.as_tensor(toks)]
         if cfg.embed_scale:
@@ -2180,10 +2233,12 @@ def layers_f32_vs_cpu(dev, lm_cut, params_cpu, toks):
                 y_g, _ = layer_apply(map_tree(lambda t: t.to(dev), lc),
                                      x.to(dev), desc, positions=pos.to(dev),
                                      **kw)
-                errs[kind], ok = _close(y_g.cpu().numpy(), y_c.numpy(), 1e-3)
+                got, want = y_g.cpu().numpy(), y_c.numpy()
+                errs[kind], ok = _close(got, want, 1e-3)
+                margins[kind] = _margin(got, want, 1e-3)
                 ok_all &= ok
                 x = y_c
-    return errs, ok_all
+    return errs, margins, ok_all
 
 
 def lm_full_phase(dev, phase: str, arch: str, depth, seed: int, rng) -> None:
@@ -2248,7 +2303,8 @@ def lm_full_phase(dev, phase: str, arch: str, depth, seed: int, rng) -> None:
     teacher64 = bool(np.array_equal(forced, gen.tokens))
     del lm64, seq
     free_device()
-    layer_errs, layers_ok = layers_f32_vs_cpu(dev, lm_cut, params_cpu, toks)
+    layer_errs, margins, layers_ok = layers_f32_vs_cpu(dev, lm_cut,
+                                                       params_cpu, toks)
     line.update({
         "f64_layers": cut_cfg.n_layers,
         "f64_reduced": [] if depth is None else
@@ -2258,6 +2314,7 @@ def lm_full_phase(dev, phase: str, arch: str, depth, seed: int, rng) -> None:
         "f64_prompt": [2, P64], "f64_steps": n64,
         "teacher_forcing_equal_f64": teacher64,
         "f32_layer_max_abs_err": layer_errs,
+        "f32_layer_tolerance_share": margins,
         "f32_layers_within_1e-3_of_cpu": layers_ok})
     emit(line)
     check(teacher64, f"{arch} float64 ({cut_cfg.n_layers} layers): greedy "
@@ -2329,7 +2386,7 @@ def olmo_held_checks(dev, cfg, params, rng, seed: int) -> None:
     with torch.inference_mode():
         x = lm_cpu._embed_tokens(cp, torch.as_tensor(toks))
         pos = torch.arange(toks.shape[1])
-        layer_errs, layer_ok = [], True
+        layer_errs, layer_margins, layer_ok = [], [], True
         for sp_g, sp_c, seg in zip(gp["segments"], cp["segments"],
                                    lm32.layout):
             for r in range(seg.repeats):
@@ -2342,8 +2399,10 @@ def olmo_held_checks(dev, cfg, params, rng, seed: int) -> None:
                     y_c, _ = layer_apply(lc, x, desc, positions=pos, **kw)
                     y_g, _ = layer_apply(lg_, x.to(dev), desc,
                                          positions=pos.to(dev), **kw)
-                    err, ok = _close(y_g.cpu().numpy(), y_c.numpy(), 1e-3)
+                    got, want = y_g.cpu().numpy(), y_c.numpy()
+                    err, ok = _close(got, want, 1e-3)
                     layer_errs.append(err)
+                    layer_margins.append(_margin(got, want, 1e-3))
                     layer_ok &= ok
                     x = y_c
         _, norm = make_norm(lm32.cfg)
@@ -2357,7 +2416,9 @@ def olmo_held_checks(dev, cfg, params, rng, seed: int) -> None:
           "teacher_forcing_equal_f32": teacher32,
           "layers_within_1e-3_of_cpu": layer_ok,
           "layer_max_abs_err": max(layer_errs),
-          "layer_errs": layer_errs, "head_max_abs_err": head_err,
+          "layer_errs": layer_errs,
+          "layer_tolerance_share_max": max(layer_margins),
+          "head_max_abs_err": head_err,
           "head_within_1e-3_of_cpu": head_ok,
           "e2e_logits_max_abs_err_vs_cpu": e2e_err,
           "logits_scale": float(cpu_logits.abs().max()),
@@ -2384,7 +2445,8 @@ def lm_phase(dev, seed: int) -> None:
     and float32 copies of the same weights (teacher forcing in float64,
     the CPU's layers in float32), then qwen3-moe-30b-a3b,
     recurrentgemma-2b and rwkv6-7b the same way (:func:`lm_full_phase`),
-    and ``launch.serve.main`` in its four modes and with the MoE."""
+    and ``launch.serve.main`` in its four modes and, with the MoE, on the
+    graph and flat routes."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -2454,14 +2516,15 @@ def lm_phase(dev, seed: int) -> None:
     # 5. the serving driver, in-process, in each mode, and with the MoE.
     # At the driver's 1,500 rows the work-model router sends both mask
     # groups to the pruned route (plain torch): the plain mode launches no
-    # kernel, the streaming mode kernel 5 on its delta. The MoE modes must
-    # launch what the same modes launch with olmo-1b: the arch changes
-    # nothing on the retrieval side.
-    by_mode = {}
+    # kernel, the streaming mode kernel 5 on its delta. The MoE modes pin
+    # the route, so QueryEngine launches kernels 1 and 3 (graph) and
+    # kernel 5 (flat) under qwen3-moe-30b-a3b's LM endpoint.
+    moe_kernels = {"graph": ("gathered_topk", "gathered_l2"),
+                   "flat": ("pairwise_l2_masked",)}
     for mode in ([], ["--async"], ["--streaming", "--n", "400"],
                  ["--shards", "4", "--n", "1200"],
-                 ["--arch", "qwen3-moe-30b-a3b"],
-                 ["--arch", "qwen3-moe-30b-a3b", "--streaming", "--n", "400"]):
+                 ["--arch", "qwen3-moe-30b-a3b", "--route", "graph"],
+                 ["--arch", "qwen3-moe-30b-a3b", "--route", "flat"]):
         ops.reset_launches()
         t0 = time.perf_counter()
         res = serve.main(["--requests", "24"] + mode)
@@ -2472,15 +2535,17 @@ def lm_phase(dev, seed: int) -> None:
         check(res["served"] == 24 and res["non_empty"] == 24,
               f"launch.serve {mode}: served {res['served']}, non-empty "
               f"{res['non_empty']} of 24")
-        rest = tuple(mode[2:]) if mode[:1] == ["--arch"] else tuple(mode)
-        if mode[:1] == ["--arch"]:
-            check(launches == by_mode[rest],
-                  f"launch.serve {mode}: launches {launches}, olmo-1b's "
-                  f"{by_mode[rest]}")
-        else:
-            by_mode[rest] = launches
-    check(by_mode[("--streaming", "--n", "400")].get("pairwise_l2_masked"),
-          "launch.serve --streaming: kernel 5 not launched on the delta")
+        if "--streaming" in mode:
+            check(launches.get("pairwise_l2_masked"),
+                  "launch.serve --streaming: kernel 5 not launched on the "
+                  "delta")
+        if "--route" in mode:
+            route = mode[mode.index("--route") + 1]
+            check(res["routes"][route] == 2
+                  and all(launches.get(k) for k in moe_kernels[route]),
+                  f"launch.serve {mode}: routes {res['routes']}, launches "
+                  f"{launches}; the {route} route must launch "
+                  f"{moe_kernels[route]}")
 
 
 def main() -> int:

@@ -4,6 +4,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --streaming   # live corpus
   PYTHONPATH=src python -m repro_torch.launch.serve --async       # SLO front end
   PYTHONPATH=src python -m repro_torch.launch.serve --shards 4    # sharded corpus
+  PYTHONPATH=src python -m repro_torch.launch.serve --route graph # pin a route
 
 Builds an MSTG index over a synthetic corpus, stands up the LM endpoint
 (:class:`repro_torch.serving.ServeEngine` on a smoke-scale model) and the
@@ -15,7 +16,9 @@ upserts / deletes with the query traffic. ``--shards N`` serves from a
 one device (:func:`repro_torch.launch.make_mesh`). ``--async`` routes the
 traffic through the continuous-batching
 :class:`repro_torch.serving.AsyncRetrievalServer` and prints its metrics
-snapshot. Everything runs on ``--device`` (the card by default; ``cpu``
+snapshot. ``--route`` pins the engine's route (``auto``, the work-model
+router, by default; at the default corpus size it picks ``pruned``).
+Everything runs on ``--device`` (the card by default; ``cpu``
 runs the plain versions).
 
 :func:`main` takes an argument list and returns a summary dict, so a
@@ -31,8 +34,8 @@ import numpy as np
 import torch
 
 from ..configs import get_smoke_config
-from ..core import (IndexSpec, MSTGIndex, Overlaps, QueryContained,
-                    QueryEngine)
+from ..core import (EngineConfig, IndexSpec, MSTGIndex, Overlaps,
+                    QueryContained, QueryEngine)
 from ..core.engine import resolve_device
 from ..data import make_queries, make_range_dataset
 from ..models import LM
@@ -63,6 +66,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="serve the process metrics registry over HTTP: "
                          "Prometheus text at /metrics, the typed JSON "
                          "snapshot at /metrics.json (0 = ephemeral port)")
+    ap.add_argument("--route", default="auto",
+                    choices=("auto", "graph", "pruned", "flat"),
+                    help="the route every search takes (auto: the engine's "
+                         "work-model router)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "versions)")
@@ -96,6 +103,7 @@ def _serve(args, dev) -> dict:
     ds = make_range_dataset(n=args.n, d=args.dim, n_queries=args.requests,
                             quantize=128, seed=0)
     spec = IndexSpec(variants=("T", "Tp"), m=12, ef_con=64)
+    config = EngineConfig(route=args.route)
     t0 = time.time()
     if args.shards:
         from ..distributed import DeploymentSpec, ShardedDeployment
@@ -103,19 +111,21 @@ def _serve(args, dev) -> dict:
         mesh = make_mesh((args.shards,), ("data",), device=dev)
         qengine = ShardedDeployment.build(
             ds.vectors, ds.lo, ds.hi, mesh=mesh,
-            spec=DeploymentSpec(n_shards=args.shards, index=spec))
+            spec=DeploymentSpec(n_shards=args.shards, index=spec,
+                                engine=config))
         print(f"sharded MSTG built: n={args.n} shards={args.shards} "
               f"logical shards on {dev} in {time.time()-t0:.1f}s")
     elif args.streaming:
         from ..streaming import SegmentedIndex
-        qengine = SegmentedIndex(spec, flush_threshold=args.n, device=dev)
+        qengine = SegmentedIndex(spec, flush_threshold=args.n,
+                                 engine_config=config, device=dev)
         qengine.add(np.arange(args.n), ds.vectors, ds.lo, ds.hi)
         qengine.flush()
         print(f"segmented MSTG built: n={args.n} "
               f"segments={len(qengine.segments)} in {time.time()-t0:.1f}s")
     else:
         idx = MSTGIndex.build(spec, ds.vectors, ds.lo, ds.hi)
-        qengine = QueryEngine(idx, device=dev)
+        qengine = QueryEngine(idx, config=config, device=dev)
         print(f"MSTG built: n={args.n} K={idx.domain.K} "
               f"bytes={idx.index_bytes()/1e6:.1f}MB in {time.time()-t0:.1f}s")
 
@@ -128,7 +138,7 @@ def _serve(args, dev) -> dict:
     tokens = rng.integers(0, cfg.vocab, (4, 16))
     gen = engine.generate({"tokens": tokens}, n_new=8, max_len=64)
     print(f"LM generate ok: {gen.tokens.shape} tokens")
-    summary = {"arch": args.arch, "device": str(dev),
+    summary = {"arch": args.arch, "device": str(dev), "route": args.route,
                "generated": list(gen.tokens.shape),
                "requests": args.requests}
 
@@ -211,6 +221,7 @@ def _serve(args, dev) -> dict:
         print(f"  shards={args.shards} "
               f"degraded_queries={server.tick_stats['degraded_queries']}")
     else:
+        summary["routes"] = dict(qengine.route_counts)
         print(f"  routes={qengine.route_counts}; "
               f"sel_cache={qengine.sel_cache_hits}h/"
               f"{qengine.sel_cache_misses}m")

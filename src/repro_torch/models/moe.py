@@ -33,38 +33,19 @@ call's T = B * S tokens. A decode step (T = B) and a prefill (T = B * P) of
 the same batch therefore drop differently under one capacity factor, and
 teacher forcing holds only at a factor that drops nothing (>= E / k).
 
-:func:`routing_stats` records, while it is open, each call's dropped
-assignments and the experts its router chose (device tensors, read after).
+:func:`routing` gives the routing ``moe_apply`` takes on an input: the
+experts the router chose, the assignments kept within capacity and the
+experts that receive one.
 """
 from __future__ import annotations
 
-import contextlib
 import math
-from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 
 from .common import act_fn, mlp
 from .params import meta
-
-_STATS: Optional[List[Dict[str, object]]] = None
-
-
-@contextlib.contextmanager
-def routing_stats():
-    """Collect one dict per MoE call made inside the block: ``tokens``,
-    ``assignments`` (T * k) and ``capacity`` (ints); ``experts`` (T, k),
-    the router's choice; ``kept`` (T, k) bool, the assignments within
-    capacity; ``dropped``, a scalar; and ``experts_used`` (E,) bool, the
-    experts that received a kept assignment. The tensors stay on the
-    device (reading them syncs); nothing is recorded outside the block."""
-    global _STATS
-    prev, _STATS = _STATS, []
-    try:
-        yield _STATS
-    finally:
-        _STATS = prev
 
 
 def moe_meta(cfg, dtype):
@@ -110,6 +91,16 @@ def _route(x, router_w, bias, cfg):
     return logits, gates, eidx
 
 
+def _slots(eidx, E: int, capacity: int):
+    """Each assignment's expert (T*k,), its slot in that expert's buffer
+    (the number of earlier assignments, token-major then rank, to the same
+    expert) and whether the slot is within ``capacity``."""
+    flat_e = eidx.reshape(-1)
+    onehot = F.one_hot(flat_e, E)                               # (T*k, E)
+    pos_e = ((torch.cumsum(onehot, 0) - onehot) * onehot).sum(1)
+    return flat_e, pos_e, pos_e < capacity
+
+
 def _local_moe(x, router_w, bias, wg, wu, wd, *, cfg, capacity: int,
                act: str):
     """x: (T, D) -> (out (T, D), aux). The reference's ``_local_moe`` with
@@ -119,12 +110,7 @@ def _local_moe(x, router_w, bias, wg, wu, wd, *, cfg, capacity: int,
     k = cfg.top_k
     logits, gates, eidx = _route(x, router_w, bias, cfg)
 
-    # slot of each assignment in its expert's buffer: the number of earlier
-    # assignments (token-major, then rank) to the same expert
-    flat_e = eidx.reshape(-1)                                   # (T*k,)
-    onehot = F.one_hot(flat_e, E)                               # (T*k, E)
-    pos_e = ((torch.cumsum(onehot, 0) - onehot) * onehot).sum(1)
-    keep = pos_e < capacity
+    flat_e, pos_e, keep = _slots(eidx, E, capacity)
     tok = torch.arange(T, device=x.device).repeat_interleave(k)
 
     # dropped assignments go to the dump row E * C, never onto a kept slot
@@ -144,13 +130,6 @@ def _local_moe(x, router_w, bias, wg, wu, wd, *, cfg, capacity: int,
     ce = torch.mean(F.one_hot(eidx[:, 0], cfg.n_experts).to(torch.float32),
                     dim=0)
     aux = cfg.n_experts * torch.sum(me * ce)
-    if _STATS is not None:
-        used = torch.zeros(E + 1, dtype=torch.bool, device=x.device)
-        used[torch.where(keep, flat_e, E)] = True
-        _STATS.append({"tokens": T, "assignments": T * k,
-                       "capacity": capacity, "experts": eidx,
-                       "kept": keep.view(T, k), "dropped": (~keep).sum(),
-                       "experts_used": used[:E]})
     return out, aux
 
 
@@ -158,6 +137,25 @@ def capacity_for(T: int, cfg, capacity_factor: float) -> int:
     """Slots per expert for a call of T tokens: max(ceil(T k / E * cf), 4)."""
     return max(int(math.ceil(T * cfg.top_k / cfg.n_experts
                              * capacity_factor)), 4)
+
+
+def routing(p, x, *, cfg, capacity_factor: float = 1.25) -> dict:
+    """The routing :func:`moe_apply` takes on x (B, S, D), by the same
+    steps: ``tokens`` (T = B * S), ``assignments`` (T * k) and
+    ``capacity`` (ints); ``experts`` (T, k), the router's choice; ``kept``
+    (T, k) bool, the assignments within capacity; ``dropped``, a scalar;
+    and ``experts_used`` (E,) bool, the experts that receive a kept
+    assignment. Tensors stay on x's device."""
+    B, S, D = x.shape
+    T, E, k = B * S, p["w_gate"].shape[0], cfg.top_k
+    capacity = capacity_for(T, cfg, capacity_factor)
+    _, _, eidx = _route(x.reshape(T, D), p["router"], p["bias"], cfg)
+    flat_e, _, keep = _slots(eidx, E, capacity)
+    used = torch.zeros(E + 1, dtype=torch.bool, device=x.device)
+    used[torch.where(keep, flat_e, E)] = True
+    return {"tokens": T, "assignments": T * k, "capacity": capacity,
+            "experts": eidx, "kept": keep.view(T, k),
+            "dropped": (~keep).sum(), "experts_used": used[:E]}
 
 
 def moe_apply(p, x, *, cfg, capacity_factor: float = 1.25):

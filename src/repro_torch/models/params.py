@@ -69,7 +69,7 @@ def leaves(tree: Tree) -> list:
     return [tree]
 
 
-# A leaf of more elements than this is drawn in slabs (see init_tree):
+# The most elements of one float32 draw (see init_tree):
 # 2**26 float32 draws, 256 MiB, against qwen3-moe-30b-a3b's 38.7 GB
 # float32 draw of one stacked expert leaf (48, 128, 2048, 768) whole.
 SLAB_ELEMS = 1 << 26
@@ -78,17 +78,15 @@ SLAB_ELEMS = 1 << 26
 def init_tree(metas: Tree, generator: torch.Generator, device) -> Tree:
     """Materialize parameters on ``device``. Leaves draw from ``generator``
     one after another, in :func:`leaves` order, so one seed gives one tree;
-    the draws run on the generator's device. A leaf of at most
-    :data:`SLAB_ELEMS` elements is drawn whole in float32 and then cast
-    and moved. A larger leaf is allocated once in its own dtype on
-    ``device`` and filled in slabs: consecutive runs of ``SLAB_ELEMS``
-    elements in row-major order (so along the leading axis), each drawn
-    in float32, scaled and cast into place, so no float32 copy of the
-    whole leaf ever exists. The kinds and scales are the reference's:
-    ``normal`` at ``scale`` or 1/sqrt(fan_in) (fan_in = shape[-2], or
-    shape[-1] for a vector), ``embed`` at ``scale`` or 1, ``zeros``,
-    ``ones``."""
-    def draw(n, scale):
+    the draws run on the generator's device. A random leaf is allocated
+    once in its own dtype on ``device`` and filled in slabs: consecutive
+    runs of at most :data:`SLAB_ELEMS` elements in row-major order (so
+    along the leading axis), each drawn in float32, scaled and cast into
+    place, so no float32 copy of a leaf larger than a slab ever exists. The
+    kinds and scales are the reference's: ``normal`` at ``scale`` or
+    1/sqrt(fan_in) (fan_in = shape[-2], or shape[-1] for a vector),
+    ``embed`` at ``scale`` or 1, ``zeros``, ``ones``."""
+    def draw(n: int, scale: float) -> torch.Tensor:
         x = torch.randn(n, generator=generator, dtype=torch.float32,
                         device=generator.device)
         return x.mul_(scale)
@@ -103,13 +101,11 @@ def init_tree(metas: Tree, generator: torch.Generator, device) -> Tree:
         if m.init == "embed":
             scale = m.scale if m.scale is not None else 1.0
         numel = math.prod(m.shape)
-        if numel <= SLAB_ELEMS:
-            return draw(m.shape, scale).to(device=device, dtype=m.dtype)
         out = torch.empty(m.shape, dtype=m.dtype, device=device)
         flat = out.view(-1)
         for lo in range(0, numel, SLAB_ELEMS):
             n = min(SLAB_ELEMS, numel - lo)
-            flat[lo:lo + n].copy_(draw((n,), scale))
+            flat[lo:lo + n].copy_(draw(n, scale))
         return out
 
     def walk(t):

@@ -691,10 +691,11 @@ def test_moe_router_on_cuda_is_deterministic_and_equals_cpu(dev):
     x = torch.from_numpy(np.random.default_rng(4).normal(
         size=(4, 32, cfg.d_model)).astype(np.float32))
     pd = {k: v.to(dev) for k, v in p.items()}
-    with moe.routing_stats() as st:
-        y1, _ = moe.moe_apply(pd, x.to(dev), cfg=cfg, capacity_factor=1.0)
-        y2, _ = moe.moe_apply(pd, x.to(dev), cfg=cfg, capacity_factor=1.0)
-        yc, _ = moe.moe_apply(p, x, cfg=cfg, capacity_factor=1.0)
+    y1, _ = moe.moe_apply(pd, x.to(dev), cfg=cfg, capacity_factor=1.0)
+    y2, _ = moe.moe_apply(pd, x.to(dev), cfg=cfg, capacity_factor=1.0)
+    yc, _ = moe.moe_apply(p, x, cfg=cfg, capacity_factor=1.0)
+    st = [moe.routing(q, xx, cfg=cfg, capacity_factor=1.0)
+          for q, xx in ((pd, x.to(dev)), (pd, x.to(dev)), (p, x))]
     assert torch.equal(y1, y2)
     for key in ("experts", "kept"):
         assert torch.equal(st[0][key], st[1][key])

@@ -76,10 +76,10 @@ def _run_both(rcfg, cfg, np_p, p, x, cf):
         r["jax"].tree.map(r["jnp"].asarray, np_p), r["jnp"].asarray(x),
         cfg=rcfg, mesh=None, batch_axes=None, capacity_factor=cf,
         mode="prefill")
-    with moe.routing_stats() as stats:
-        got_y, got_aux = moe.moe_apply(p, torch.from_numpy(x), cfg=cfg,
-                                       capacity_factor=cf)
-    return (want_y, want_aux), (got_y, got_aux), stats[0]
+    got_y, got_aux = moe.moe_apply(p, torch.from_numpy(x), cfg=cfg,
+                                   capacity_factor=cf)
+    st = moe.routing(p, torch.from_numpy(x), cfg=cfg, capacity_factor=cf)
+    return (want_y, want_aux), (got_y, got_aux), st
 
 
 def _ref_kept(rcfg, np_p, x, capacity):
@@ -206,27 +206,41 @@ def test_combine_is_a_fixed_order_sum():
     _, p = _weights(rcfg, seed=8)
     x = torch.from_numpy(np.random.default_rng(9).normal(
         size=(4, 16, cfg.d_model)).astype(np.float32))
-    with moe.routing_stats() as st:
-        a, _ = moe.moe_apply(p, x, cfg=cfg, capacity_factor=0.25)
-        b, _ = moe.moe_apply(p, x, cfg=cfg, capacity_factor=0.25)
+    a, _ = moe.moe_apply(p, x, cfg=cfg, capacity_factor=0.25)
+    b, _ = moe.moe_apply(p, x, cfg=cfg, capacity_factor=0.25)
+    st = moe.routing(p, x, cfg=cfg, capacity_factor=0.25)
     assert torch.equal(a, b)
-    kept = st[0]["kept"]
+    kept = st["kept"]
     gone = ~kept.any(1)
     assert gone.any()
     assert torch.equal(a.reshape(-1, cfg.d_model)[gone],
                        torch.zeros(int(gone.sum()), cfg.d_model))
-    assert int(st[0]["dropped"]) == int((~kept).sum())
-    assert bool(st[0]["experts_used"].any())
+    assert int(st["dropped"]) == int((~kept).sum())
+    assert bool(st["experts_used"].any())
 
 
-def test_routing_stats_only_inside_the_block():
-    rcfg, cfg = _cfgs("qwen3-moe-30b-a3b")
-    _, p = _weights(rcfg, seed=8)
-    x = torch.zeros(1, 4, cfg.d_model)
-    assert moe._STATS is None
-    with moe.routing_stats() as st:
-        moe.moe_apply(p, x, cfg=cfg)
-        with moe.routing_stats() as inner:
-            moe.moe_apply(p, x, cfg=cfg)
-        moe.moe_apply(p, x, cfg=cfg)
-    assert len(st) == 2 and len(inner) == 1 and moe._STATS is None
+def test_routing_names_the_experts_moe_apply_reads():
+    """``routing`` reports what ``moe_apply`` does: an expert outside
+    ``experts_used`` can take any weights without changing y, and one
+    inside it cannot; ``experts_used`` is the set of experts with a kept
+    assignment."""
+    rcfg, cfg = _cfgs("qwen3-moe-30b-a3b", n_experts=16)
+    _, p = _weights(rcfg, seed=10)
+    x = torch.from_numpy(np.random.default_rng(11).normal(
+        size=(1, 3, cfg.d_model)).astype(np.float32))
+    st = moe.routing(p, x, cfg=cfg, capacity_factor=1.0)
+    used = st["experts_used"]
+    want = torch.zeros(cfg.n_experts, dtype=torch.bool)
+    want[st["experts"][st["kept"]]] = True
+    assert torch.equal(used, want)
+    assert 0 < int(used.sum()) < cfg.n_experts
+    y, _ = moe.moe_apply(p, x, cfg=cfg, capacity_factor=1.0)
+    for name in ("w_gate", "w_up", "w_down"):
+        q = dict(p)
+        q[name] = p[name].clone()
+        q[name][~used] = 1e3
+        assert torch.equal(moe.moe_apply(q, x, cfg=cfg,
+                                         capacity_factor=1.0)[0], y)
+        q[name][used] = 1e3
+        assert not torch.equal(moe.moe_apply(q, x, cfg=cfg,
+                                             capacity_factor=1.0)[0], y)

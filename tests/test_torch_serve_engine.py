@@ -123,6 +123,19 @@ def test_serve_main_serves_each_family(arch):
     assert out["served"] == out["requests"] == out["non_empty"] == 8
 
 
+@pytest.mark.parametrize("route", ["auto", "graph", "pruned", "flat"])
+def test_serve_main_pins_the_route(route):
+    """``--route`` sends both mask groups down one route; ``auto`` leaves
+    the choice to the work-model router, which picks ``pruned`` here."""
+    out = serve.main(["--device", "cpu", "--arch", "qwen3-moe-30b-a3b",
+                      "--requests", "8", "--n", "400", "--route", route])
+    assert out["route"] == route
+    assert out["served"] == out["non_empty"] == 8
+    taken = "pruned" if route == "auto" else route
+    assert out["routes"] == {r: 2 if r == taken else 0
+                             for r in ("graph", "pruned", "flat")}
+
+
 def test_serve_engine_runs_on_cuda_by_default(monkeypatch):
     lm = LM(tcfg.get_smoke_config("olmo-1b"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
