@@ -123,14 +123,17 @@ Phases, each printing one JSON object per line:
    (``baselines_kernel`` lines); ``Prefiltering`` on the same data must
    have recall 1.0.
 15. ``lm``: the LM and ``ServeEngine``. Smoke olmo-1b, gemma3-1b,
-   qwen3-moe-30b-a3b, recurrentgemma-2b, rwkv6-7b and deepseek-v3-671b
-   (float32, one CPU init each): tokens on the card equal the CPU's, last
-   logits within 1e-4. olmo-1b at full width in bfloat16 (16 x 2048,
-   vocab 50,304), B = 8 prompts of 128 tokens, 32 new: init s, prefill
-   ms, decode ms a token against the parameters' bytes over the HBM
-   rate, tokens/s, peak allocated bytes, one prefill's and one decode
-   step's device busy share (torch.profiler); the port's ``flash_attention``
-   timed beside ``scaled_dot_product_attention`` at the prefill's shapes
+   qwen3-moe-30b-a3b, recurrentgemma-2b, rwkv6-7b, deepseek-v3-671b,
+   seamless-m4t-large-v2 (16 frames) and llava-next-mistral-7b (its
+   patches; both with ``wq`` times ``SMOKE_FRONT_WQ_SCALE``) (float32, one
+   CPU init each): tokens on the card equal the CPU's, last logits within
+   1e-4. olmo-1b at full width in bfloat16
+   (16 x 2048, vocab 50,304), B = 8 prompts of 128 tokens, 32 new: init
+   s, prefill ms, decode ms a token against the bytes a step reads (the
+   parameters and the caches) over the HBM rate, tokens/s, peak
+   allocated bytes, one prefill's and one decode step's device busy share
+   (torch.profiler); the port's ``flash_attention`` timed beside
+   ``scaled_dot_product_attention`` at the prefill's shapes
    (a yardstick, not on the path). The same weights in float64: greedy
    tokens equal argmax over repeated full prefills (8 steps); in float32,
    on a (2, 32) prompt, every layer's output on the card from the CPU's
@@ -140,23 +143,37 @@ Phases, each printing one JSON object per line:
    beside the CPU logits' move under a 1e-7 relative change of the
    weights. Then, each after freeing the device memory of what ran
    before, qwen3-moe-30b-a3b (``lm_moe_full``: 48 x 2048, 128 experts
-   top-8, 61.1 GB), recurrentgemma-2b and rwkv6-7b (``lm_rec_full``) at
+   top-8, 61.1 GB), recurrentgemma-2b and rwkv6-7b (``lm_rec_full``),
+   seamless-m4t-large-v2 (``lm_encdec_full``: 24 encoder and 24 decoder
+   layers x 1024, 4.07 GB, on 512 frames of width 1,024; the encoder
+   timed alone too) and llava-next-mistral-7b (``lm_vlm_full``: 32 x
+   4096, 14.49 GB, after 576 patches of width 1,024, ``max_len`` 768) at
    their published widths and full depth in bfloat16, seeded random
-   weights, the same load and report; for the MoE the prefill's dropped
+   weights, the same load and report, the decode bound counting what a
+   step reads (the parameters but the encoder, the front end's
+   projection and an untied embedding table, and every cache leaf, self
+   and cross, at its capacity); for the MoE the prefill's dropped
    assignments at capacity factor 1.25, by sequence beside the distinct
    experts a sequence and the batch chose, and the decode step's byte bound
    counting only the experts its router chose, beside the design's (all
    128 a layer). Held on each: float64 greedy tokens (a (2, 32) prompt,
-   16 new) equal teacher forcing in one causal forward, on the first
-   layers of the same weights (qwen3-moe 2, rwkv6 4, recurrentgemma all;
-   the MoE at a capacity factor that drops nothing), and each distinct
-   layer kind in float32 on the card within 1e-3 of the CPU's from the
-   CPU's input. Then ``repro_torch.launch.serve.main`` in-process in each
-   mode (plain, ``--async``, ``--streaming --n 400``, ``--shards 4 --n
-   1200``, and ``--arch qwen3-moe-30b-a3b`` with ``--route graph`` and
-   with ``--route flat``): 24 of 24 requests served, none empty; the
-   streaming mode launches kernel 5 on its delta, the MoE's graph mode
-   kernels 1 and 3 and its flat mode kernel 5, all through
+   16 new; 64 frames, or the 576 patches) equal teacher forcing in one
+   causal forward, on the first layers of the same weights (qwen3-moe 2,
+   rwkv6 4, llava 4, seamless 4 encoder and 4 decoder layers,
+   recurrentgemma all; the MoE at a capacity factor that drops nothing),
+   beside the decode path's float64 logits against the forward's and the
+   forward's move under a 1e-12 relative change of the weights (seamless
+   at full depth too, reported: there that move is O(1)), and each
+   distinct layer kind in float32 on the card within 1e-3 of the CPU's
+   from the CPU's input (an encoder layer ``enc:attn+dense``, a cross layer ``attn+dense+cross``
+   fed the CPU's encoder output, the front end's ``frontend_proj``). Then
+   ``repro_torch.launch.serve.main`` in-process in each mode (plain,
+   ``--async``, ``--streaming --n 400``, ``--shards 4 --n 1200``,
+   ``--arch qwen3-moe-30b-a3b`` with ``--route graph`` and with ``--route
+   flat``, ``--arch seamless-m4t-large-v2 --route graph`` and ``--arch
+   llava-next-mistral-7b --route flat``): 24 of 24 requests served, none
+   empty; the streaming mode launches kernel 5 on its delta, each graph
+   mode kernels 1 and 3 and each flat mode kernel 5, all through
    ``QueryEngine``. The LM path runs no hand-written kernel (the
    reference's has no Pallas kernel).
 
@@ -2002,13 +2019,83 @@ def _margin(got, want, rtol: float) -> float:
 
 
 # Smoke configs held card = CPU; the full-width models of lm_moe_full /
-# lm_rec_full with the depth their float64 teacher forcing keeps (None:
-# every layer; float64 copies of all layers would not fit the card).
+# lm_rec_full / lm_encdec_full / lm_vlm_full with the depth their float64
+# teacher forcing keeps, of the decoder and of an encoder (None: every
+# layer; float64 copies of all layers would not fit the card, except
+# seamless's, see F64_FULL_REPORT).
 LM_SMOKE_ARCHS = ("olmo-1b", "gemma3-1b", "qwen3-moe-30b-a3b",
-                  "recurrentgemma-2b", "rwkv6-7b", "deepseek-v3-671b")
+                  "recurrentgemma-2b", "rwkv6-7b", "deepseek-v3-671b",
+                  "seamless-m4t-large-v2", "llava-next-mistral-7b")
 LM_FULL = (("lm_moe_full", "qwen3-moe-30b-a3b", 2),
            ("lm_rec_full", "recurrentgemma-2b", None),
-           ("lm_rec_full", "rwkv6-7b", 4))
+           ("lm_rec_full", "rwkv6-7b", 4),
+           ("lm_encdec_full", "seamless-m4t-large-v2", 4),
+           ("lm_vlm_full", "llava-next-mistral-7b", 4))
+# Models whose float64 teacher forcing is also run, and reported, at full
+# depth: seamless's 24 + 24 layers fit the card in float64, but under the
+# reference's init they amplify float64 rounding to O(1) logits (its line's
+# logits_moved_by_1e-12_weights), so its held check takes 4 + 4 layers.
+F64_FULL_REPORT = ("seamless-m4t-large-v2",)
+# an encoder-decoder's frames at full width (a smoke config takes 16)
+FULL_ENC_LEN = 512
+# Under the init as drawn, the front-end smoke configs' attention scores
+# have a std of ~16, and float32 rounding in another summation order alone
+# moves their logits past 1e-4 (tests/test_torch_frontends.py): their
+# smoke checks take every wq leaf times this, as the tests do.
+SMOKE_FRONT_WQ_SCALE = 0.25
+
+
+def scale_wq(tree, f: float):
+    """``tree`` with every ``wq`` leaf times ``f``."""
+    if isinstance(tree, dict):
+        return {k: v * f if k == "wq" else scale_wq(v, f)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [scale_wq(v, f) for v in tree]
+    return tree
+
+
+def front_inputs(cfg, rng, B: int, enc_len: int) -> dict:
+    """The config's front-end inputs, float32 like the serving driver's:
+    ``frames`` (B, enc_len, frontend_dim) for an encoder-decoder,
+    ``patches`` (B, n_frontend_tokens, frontend_dim) for a vision front
+    end, nothing otherwise."""
+    import numpy as np
+    if cfg.n_enc_layers:
+        return {"frames": rng.normal(
+            0, 1, (B, enc_len, cfg.frontend_dim)).astype(np.float32)}
+    if cfg.frontend == "vision_stub":
+        return {"patches": rng.normal(
+            0, 1, (B, cfg.n_frontend_tokens, cfg.frontend_dim)
+        ).astype(np.float32)}
+    return {}
+
+
+def n_patches(front: dict) -> int:
+    """The positions the patches take before the tokens."""
+    return front["patches"].shape[1] if "patches" in front else 0
+
+
+def decode_read_bytes(lm, B: int, max_len: int, enc_len: int) -> dict:
+    """The bytes one decode step must read: every parameter but the
+    encoder's and the front end's projection (which only the prefill
+    reads) and, where the head has weights of its own, the embedding
+    table, of which a step reads its B tokens' rows; and every
+    decode-cache leaf (self and cross) at its full capacity, which
+    ``decode_attention`` reads whole."""
+    import math
+    from repro_torch.models.params import leaves, tree_bytes
+    cfg = lm.cfg
+    skip = {"encoder", "frontend_proj"}
+    if not cfg.tie_embeddings:
+        skip.add("embed")
+    params = tree_bytes({k: v for k, v in lm.abstract_params().items()
+                         if k not in skip})
+    if not cfg.tie_embeddings:
+        params += B * cfg.d_model * cfg.pdtype.itemsize
+    caches = sum(math.prod(m.shape) * m.dtype.itemsize
+                 for m in leaves(lm.decode_cache_meta(B, max_len, enc_len)))
+    return {"params": params, "caches": caches, "total": params + caches}
 
 
 def free_device() -> int:
@@ -2044,28 +2131,39 @@ def moe_routing_records():
         moe.moe_apply = apply
 
 
-def lm_timed_run(dev, lm, rng, B: int, P: int, n_new: int, max_len: int):
-    """One timed greedy run on the card: the prefill (CUDA events), the
-    seeded caches, ``n_new`` decode steps each timed with CUDA events;
-    then ``ServeEngine.generate`` on the same prompt (untimed, under
+def lm_timed_run(dev, lm, rng, B: int, P: int, n_new: int, max_len: int,
+                 front=None):
+    """One timed greedy run on the card: the prefill (CUDA events; an
+    encoder-decoder's encoder alone too), the seeded caches, ``n_new``
+    decode steps each timed with CUDA events; then
+    ``ServeEngine.generate`` on the same prompt (untimed, under
     :func:`moe_routing_records`) must give the same tokens; then one
-    profiled prefill and decode step. Returns (report, routing records)."""
+    profiled prefill and decode step. ``front`` holds the batch's frames
+    or patches (:func:`front_inputs`); patches count toward the prompt, so
+    decoding starts at P + their number. Returns (report, routing
+    records)."""
     import numpy as np
     import torch
     from repro_torch.serving import ServeEngine, seed_caches
     cfg = lm.cfg
+    front = front or {}
+    n_front = n_patches(front)
+    enc_len = front["frames"].shape[1] if "frames" in front else 0
     eng = ServeEngine(lm, device=dev)
     toks = rng.integers(0, cfg.vocab, (B, P))
-    eng.generate({"tokens": toks[:, :16]}, n_new=2, max_len=32)  # warm up
-    toks_t = torch.as_tensor(toks, device=dev)
+    eng.generate({"tokens": toks[:, :16], **front}, n_new=2,
+                 max_len=32 + n_front)                          # warm up
+    batch = {"tokens": torch.as_tensor(toks, device=dev),
+             **{k: torch.as_tensor(v, device=dev) for k, v in front.items()}}
+    prompt = P + n_front
     with torch.inference_mode():
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         torch.cuda.synchronize()
         t_all = time.perf_counter()
         ev[0].record()
-        logits, pc = lm.prefill(None, {"tokens": toks_t})
+        logits, pc = lm.prefill(None, batch)
         ev[1].record()
-        caches = seed_caches(lm, pc, B, max_len, P)
+        caches = seed_caches(lm, pc, B, max_len, prompt, enc_len)
         cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
         steps, out = [], []
         for i in range(n_new):
@@ -2073,23 +2171,28 @@ def lm_timed_run(dev, lm, rng, B: int, P: int, n_new: int, max_len: int):
             b = torch.cuda.Event(enable_timing=True)
             out.append(cur)
             a.record()
-            logits, caches = lm.decode_step(None, caches, cur, P + i)
+            logits, caches = lm.decode_step(None, caches, cur, prompt + i)
             cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
             b.record()
             steps.append((a, b))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t_all
+        if enc_len:
+            ev[2].record()
+            lm._encode(lm.params, batch["frames"])
+            ev[3].record()
+            torch.cuda.synchronize()
     step_ms = [a.elapsed_time(b) for a, b in steps]
     tokens = torch.cat(out, 1).cpu().numpy()
     del pc, logits
     with moe_routing_records() as routing:
-        gen = eng.generate({"tokens": toks}, n_new=n_new, max_len=max_len)
+        gen = eng.generate({"tokens": toks, **front}, n_new=n_new,
+                           max_len=max_len)
     with torch.inference_mode():
         profiles = {
-            "prefill": profile_call(
-                lambda: lm.prefill(None, {"tokens": toks_t})),
+            "prefill": profile_call(lambda: lm.prefill(None, batch)),
             "decode_step": profile_call(
-                lambda: lm.decode_step(None, caches, cur, P + n_new))}
+                lambda: lm.decode_step(None, caches, cur, prompt + n_new))}
     for prof in profiles.values():
         prof.pop("port_kernel_ms")
     finite = bool(np.isfinite(gen.logits_last).all())
@@ -2108,10 +2211,15 @@ def lm_timed_run(dev, lm, rng, B: int, P: int, n_new: int, max_len: int):
               "tokens_per_s": B * n_new / (sum(step_ms) / 1e3),
               "wall_s": wall_s, "tokens_equal_generate": True,
               "logits_finite": finite, "profile": profiles}
+    if front:
+        report.update({"frames": enc_len, "patches": n_front,
+                       "frontend_dim": cfg.frontend_dim})
+    if enc_len:
+        report["encode_ms"] = ev[2].elapsed_time(ev[3])
     return report, routing
 
 
-def moe_routing_report(lm, routing, B: int, P: int, pbytes: int) -> dict:
+def moe_routing_report(lm, routing, B: int, P: int, read_bytes: int) -> dict:
     """From one generation's routing records: the prefill's dropped
     assignments at the config's capacity factor, per sequence (token order
     is sequence-major, so a later sequence meets fuller experts) beside the
@@ -2119,7 +2227,8 @@ def moe_routing_report(lm, routing, B: int, P: int, pbytes: int) -> dict:
     busiest expert over its capacity; and each decode step's byte bound
     counting only the experts its router chose (the distinct experts of
     each MoE layer), beside the design's, which reads all E experts a layer
-    (the capacity buffer's products run over every expert)."""
+    (the capacity buffer's products run over every expert): ``read_bytes``
+    is the design's step, all experts and the caches."""
     import torch
     cfg = lm.cfg
     n_moe = sum(1 for d in lm.descs if d.mlp == "moe")
@@ -2130,7 +2239,7 @@ def moe_routing_report(lm, routing, B: int, P: int, pbytes: int) -> dict:
           f"{cfg.name}: {len(pre)} prefill and {len(dec)} decode MoE calls "
           f"for {n_moe} MoE layers")
     used = [int(r["experts_used"].sum()) for r in dec]
-    step_bytes = [pbytes - n_moe * cfg.n_experts * per_expert
+    step_bytes = [read_bytes - n_moe * cfg.n_experts * per_expert
                   + sum(used[i:i + n_moe]) * per_expert
                   for i in range(0, len(used), n_moe)]
     routed_ms = [b / PEAKS.hbm_bytes_per_s * 1e3 for b in step_bytes]
@@ -2165,160 +2274,300 @@ def moe_routing_report(lm, routing, B: int, P: int, pbytes: int) -> dict:
 
 def cut_params(params, lm_from, lm_to):
     """The first layers of ``lm_from``'s parameters, shaped for ``lm_to``
-    (the same config at a smaller depth): each stacked segment keeps its
-    first repeats."""
+    (the same config at a smaller depth, of the decoder and of an
+    encoder): each stacked segment keeps its first repeats."""
     from repro_torch.models.params import map_tree
-    segs = []
-    for sp, seg_f, seg_t in zip(params["segments"], lm_from.layout,
-                                lm_to.layout):
-        check(seg_f.pattern == seg_t.pattern
-              and seg_t.repeats <= seg_f.repeats,
-              f"cut_params: {lm_to.cfg.name} at {lm_to.cfg.n_layers} layers "
-              f"is no cut of its {lm_from.cfg.n_layers}-layer layout")
-        if seg_f.repeats == seg_t.repeats:
-            segs.append(sp)
-        elif seg_t.repeats == 1:
-            segs.append(map_tree(lambda t: t[0], sp))
-        else:
-            segs.append(map_tree(lambda t, r=seg_t.repeats: t[:r], sp))
-    return {**params, "segments": segs}
+
+    def cut(seg_params, layout_f, layout_t):
+        segs = []
+        for sp, seg_f, seg_t in zip(seg_params, layout_f, layout_t):
+            check(seg_f.pattern == seg_t.pattern
+                  and seg_t.repeats <= seg_f.repeats,
+                  f"cut_params: {lm_to.cfg.name} at {lm_to.cfg.n_layers} "
+                  f"layers is no cut of its {lm_from.cfg.n_layers}-layer "
+                  f"layout")
+            if seg_f.repeats == seg_t.repeats:
+                segs.append(sp)
+            elif seg_t.repeats == 1:
+                segs.append(map_tree(lambda t: t[0], sp))
+            else:
+                segs.append(map_tree(lambda t, r=seg_t.repeats: t[:r], sp))
+        return segs
+
+    out = {**params, "segments": cut(params["segments"], lm_from.layout,
+                                     lm_to.layout)}
+    if lm_to.enc_layout is not None:
+        out["encoder"] = {**params["encoder"], "segments": cut(
+            params["encoder"]["segments"], lm_from.enc_layout,
+            lm_to.enc_layout)}
+    return out
 
 
-def all_logits(lm, tokens):
+def all_logits(lm, tokens, front=None):
     """Logits at every position of ``tokens`` (B, S) in one causal
-    forward, which is teacher forcing: the prefill's layers, then the head
-    on every position instead of the last."""
+    forward, which is teacher forcing: the prefill's layers (on the same
+    frames through the encoder, or after the same patches), then the head
+    on every position instead of the last. With patches, the first
+    positions are theirs."""
     import torch
     from repro_torch.models.common import logits_fn, make_norm
     from repro_torch.models.transformer import segment_apply
     cfg, params = lm.cfg, lm.params
+    front = front or {}
     with torch.inference_mode():
         x = lm._embed_tokens(params, tokens)
-        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        cross = (lm._encode(params, front["frames"])
+                 if lm.enc_cfg is not None else None)
+        if "patches" in front:
+            x = lm._frontend(params, front, x)
+        pos = torch.arange(x.shape[1], device=tokens.device)
         for sp, seg in zip(params["segments"], lm.layout):
             x, _ = segment_apply(sp, x, seg, cfg=cfg, mode="prefill",
-                                 caches=None, positions=pos, cur_pos=None)
+                                 caches=None, positions=pos, cur_pos=None,
+                                 cross_memory=cross)
         _, norm = make_norm(cfg)
         return logits_fn(params.get("head", {}), params["embed"],
                          norm(params["final_norm"], x), cfg.tie_embeddings)
 
 
-def layers_f32_vs_cpu(dev, lm_cut, params_cpu, toks):
-    """Each distinct layer kind of ``lm_cut`` (mixer + MLP), in float32, on
-    the card and on the CPU from the same input, the CPU's: the first
-    layer of that kind, fed the CPU's output of the kind before it (the
-    embedded tokens for the first). Returns ({kind: max abs error},
-    whether each is within 1e-3 of the CPU's, atol 1e-4 of the output's
-    magnitude)."""
+def layers_f32_vs_cpu(dev, lm_cut, params_cpu, toks, front=None):
+    """Each distinct layer kind of ``lm_cut`` (mixer + MLP, ``+cross``
+    with cross-attention; ``enc:`` for an encoder layer) and the front
+    end's projection (``frontend_proj``), in float32, on the card and on
+    the CPU from the same input, the CPU's: the first layer of that kind,
+    fed the CPU's output of the kind before it (the projected frames for
+    the first encoder layer; the embedded tokens, after the projected
+    patches, for the first decoder layer); a cross layer reads the CPU's
+    encoder output on both. Returns ({kind: max abs error}, {kind: share
+    of the tolerance}, whether each is within 1e-3 of the CPU's, atol
+    1e-4 of the output's magnitude)."""
     import torch
+    from repro_torch.models import LM
     from repro_torch.models.params import map_tree
     from repro_torch.models.transformer import layer_apply
     cfg = lm_cut.cfg.scaled(param_dtype="float32", activ_dtype="float32")
     f32 = lambda t: t.to(torch.float32) if t.is_floating_point() else t
+    front = {k: torch.as_tensor(v) for k, v in (front or {}).items()}
     errs, margins, ok_all = {}, {}, True
-    with torch.inference_mode():
-        x = f32(params_cpu["embed"]["table"])[torch.as_tensor(toks)]
-        if cfg.embed_scale:
-            x = x * torch.sqrt(torch.tensor(float(cfg.d_model)))
-        pos = torch.arange(toks.shape[1])
-        kw = dict(cfg=cfg, mode="prefill", cache=None, cur_pos=None)
-        for sp, seg in zip(params_cpu["segments"], lm_cut.layout):
+
+    def held(kind, fn, *args):
+        nonlocal ok_all
+        y_c = fn(*args)
+        y_g = fn(*map_tree(lambda t: t.to(dev) if torch.is_tensor(t) else t,
+                           list(args)))
+        got, want = y_g.cpu().numpy(), y_c.numpy()
+        errs[kind], ok = _close(got, want, 1e-3)
+        margins[kind] = _margin(got, want, 1e-3)
+        ok_all &= ok
+        return y_c
+
+    def walk(segments, layout, x, pos, cfg_, prefix, cross):
+        kw = dict(cfg=cfg_, mode="prefill", cache=None, cur_pos=None)
+        for sp, seg in zip(segments, layout):
             for j, desc in enumerate(seg.pattern):
-                kind = f"{desc.mixer}+{desc.mlp}"
+                kind = (prefix + f"{desc.mixer}+{desc.mlp}"
+                        + ("+cross" if desc.cross else ""))
                 if kind in errs:
                     continue
                 pick = (lambda t: t[0]) if seg.repeats > 1 else (lambda t: t)
                 lc = map_tree(lambda t: f32(pick(t)), sp[f"L{j}"])
-                y_c, _ = layer_apply(lc, x, desc, positions=pos, **kw)
-                y_g, _ = layer_apply(map_tree(lambda t: t.to(dev), lc),
-                                     x.to(dev), desc, positions=pos.to(dev),
-                                     **kw)
-                got, want = y_g.cpu().numpy(), y_c.numpy()
-                errs[kind], ok = _close(got, want, 1e-3)
-                margins[kind] = _margin(got, want, 1e-3)
-                ok_all &= ok
-                x = y_c
+                x = held(kind, lambda p, xx, ps, cm: layer_apply(
+                    p, xx, desc, positions=ps, cross_memory=cm, **kw)[0],
+                    lc, x, pos, cross)
+        return x
+
+    with torch.inference_mode():
+        proj = (f32(params_cpu["frontend_proj"]["w"])
+                if "frontend_proj" in params_cpu else None)
+        project = lambda w, a: a.to(torch.float32) @ w
+        cross = None
+        if lm_cut.enc_cfg is not None:
+            # the CPU's encoder output: the float32 encoder on the CPU
+            lm_c = LM(cfg)
+            enc_p = map_tree(f32, params_cpu["encoder"])
+            xe = held("frontend_proj", project, proj, front["frames"])
+            walk(enc_p["segments"], lm_c.enc_layout, xe,
+                 torch.arange(xe.shape[1]), lm_c.enc_cfg, "enc:", None)
+            cross = lm_c._encode({"embed": params_cpu["embed"],
+                                  "frontend_proj": {"w": proj},
+                                  "encoder": enc_p}, front["frames"])
+        x = f32(params_cpu["embed"]["table"])[torch.as_tensor(toks)]
+        if cfg.embed_scale:
+            x = x * torch.sqrt(torch.tensor(float(cfg.d_model)))
+        if "patches" in front:
+            x = torch.cat([held("frontend_proj", project, proj,
+                                front["patches"]), x], dim=1)
+        walk(params_cpu["segments"], lm_cut.layout, x,
+             torch.arange(x.shape[1]), cfg, "", cross)
     return errs, margins, ok_all
+
+
+def f64_teacher_forcing(dev, cfg64, params_cpu, toks, front,
+                        n64: int = 16) -> dict:
+    """``params_cpu`` in float64 (``cfg64``) on the card: greedy tokens
+    from ``ServeEngine.generate`` (``n64`` new after ``toks``, on
+    ``front``'s frames or after its patches) against teacher forcing over
+    the prompt and the generated tokens in one causal forward
+    (:func:`all_logits`). Reports where they differ (the generated
+    token's forced logit below the forced maximum), how far the decode
+    path's logits on the generated tokens lie from the forward's (both in
+    float64), and how far the forward's logits move when every weight
+    moves by 1e-12 relative: a control of how much the model amplifies
+    rounding."""
+    import numpy as np
+    import torch
+    from repro_torch.models import LM
+    from repro_torch.models.params import map_tree
+    from repro_torch.serving import ServeEngine, seed_caches
+    to64 = lambda t: (t.to(dev, torch.float64) if t.is_floating_point()
+                      else t.to(dev))
+    lm64 = LM(cfg64)
+    lm64.set_params(map_tree(to64, params_cpu))
+    P64, n_front = toks.shape[1], n_patches(front)
+    enc_len = front["frames"].shape[1] if "frames" in front else 0
+    max_len = 64 + n_front
+    gen = ServeEngine(lm64, device=dev).generate(
+        {"tokens": toks, **front}, n_new=n64, max_len=max_len)
+    seq = torch.as_tensor(np.concatenate([toks, gen.tokens], 1), device=dev)
+    front_dev = {k: torch.as_tensor(v, device=dev) for k, v in front.items()}
+    at = n_front + P64 - 1
+    fl = all_logits(lm64, seq, front_dev)[:, at:at + n64]
+    with torch.inference_mode():
+        lg, pc = lm64.prefill(None, {"tokens": seq[:, :P64], **front_dev})
+        caches = seed_caches(lm64, pc, 2, max_len, at + 1, enc_len)
+        dl = [lg[:, -1]]
+        for i in range(n64 - 1):
+            lg, caches = lm64.decode_step(
+                None, caches, seq[:, P64 + i:P64 + i + 1], at + 1 + i)
+            dl.append(lg[:, -1])
+        path_diff = float((torch.stack(dl, 1) - fl).abs().max())
+    del pc, caches, dl, lg
+    gen_ = torch.Generator(device=dev).manual_seed(0)
+    lm64.set_params(map_tree(
+        lambda t: t * (1 + 1e-12 * torch.randn(
+            t.shape, generator=gen_, device=dev, dtype=t.dtype))
+        if t.is_floating_point() else t, lm64.params))
+    moved = float((all_logits(lm64, seq, front_dev)[:, at:at + n64]
+                   - fl).abs().max())
+    fl = fl.cpu().numpy()
+    forced = fl.argmax(-1)
+    mismatches = [{"seq": int(b), "step": int(i),
+                   "forced_gap": float(fl[b, i, forced[b, i]]
+                                       - fl[b, i, gen.tokens[b, i]])}
+                  for b, i in zip(*np.nonzero(forced != gen.tokens))]
+    del lm64, seq, front_dev
+    free_device()
+    return {"layers": cfg64.n_layers, "enc_layers": cfg64.n_enc_layers,
+            "steps": n64,
+            "teacher_forcing_equal": not mismatches,
+            "mismatches": mismatches,
+            "decode_vs_forward_logits_max_abs": path_diff,
+            "logits_scale": float(np.abs(fl).max()),
+            "logits_moved_by_1e-12_weights": moved}
 
 
 def lm_full_phase(dev, phase: str, arch: str, depth, seed: int, rng) -> None:
     """``arch`` at its published widths and full depth in bfloat16 on the
     card, seeded random weights (:func:`lm_timed_run`; a MoE's routing
-    with :func:`moe_routing_report`); then the held checks on the first
-    ``depth`` layers of the same weights (all of them for ``None``):
-    float64 greedy tokens equal teacher forcing, a MoE at a capacity
-    factor that drops nothing (>= E / k: a prefill and a decode step drop
-    differently at 1.25), and each distinct layer kind in float32 on the
-    card within 1e-3 of the CPU's from the CPU's input."""
+    with :func:`moe_routing_report`), with ``FULL_ENC_LEN`` frames for an
+    encoder-decoder or the config's patches for a vision front end; then
+    the held checks on the first ``depth`` layers of the same weights (all
+    of them for ``None``): float64 greedy tokens equal teacher forcing, a
+    MoE at a capacity factor that drops nothing (>= E / k: a prefill and a
+    decode step drop differently at 1.25), and each distinct layer kind
+    (the encoder's, the cross layers' and the front end's projection too)
+    in float32 on the card within 1e-3 of the CPU's from the CPU's
+    input. The decode bound counts what a decode step reads
+    (:func:`decode_read_bytes`)."""
     import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch.models import LM
     from repro_torch.models.params import map_tree, tree_bytes
-    from repro_torch.serving import ServeEngine
     cfg = configs.get_config(arch)
-    B, P, n_new, max_len = 8, 128, 32, 256
+    # the front-end inputs draw from their own generator, so the token
+    # draws of every model are those of a run without front ends
+    front_rng = np.random.default_rng(seed + 23)
+    enc_len = FULL_ENC_LEN if cfg.n_enc_layers else 0
+    B, P, n_new = 8, 128, 32
+    front = front_inputs(cfg, front_rng, B, enc_len)
+    n_front = n_patches(front)
+    max_len = -(-(n_front + P + n_new) // 256) * 256       # 256 or 768
     before = free_device()
     lm = LM(cfg)
     pbytes = tree_bytes(lm.abstract_params())
+    read = decode_read_bytes(lm, B, max_len, enc_len)
     t0 = time.perf_counter()
     lm.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    report, routing = lm_timed_run(dev, lm, rng, B, P, n_new, max_len)
+    report, routing = lm_timed_run(dev, lm, rng, B, P, n_new, max_len,
+                                   front)
     line = {"phase": phase, "arch": arch, "dtype": cfg.param_dtype,
-            "layers": cfg.n_layers, "params": lm.param_count(),
+            "layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+            "params": lm.param_count(),
             "active_params": lm.active_param_count(),
             "param_bytes": pbytes, "allocated_before": before,
             "init_s": init_s, **report,
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "decode_bound_ms": pbytes / PEAKS.hbm_bytes_per_s * 1e3,
+            "decode_bytes": read,
+            "decode_bound_ms": read["total"] / PEAKS.hbm_bytes_per_s * 1e3,
             "decode_bound_by": "bytes"}
     if cfg.n_experts:
-        line["moe"] = moe_routing_report(lm, routing, B, P, pbytes)
-    del routing
-    cut_cfg = cfg if depth is None else cfg.scaled(n_layers=depth)
+        line["moe"] = moe_routing_report(lm, routing, B, P, read["total"])
+    del routing, front
+    cut_cfg = cfg if depth is None else cfg.scaled(
+        n_layers=depth, n_enc_layers=min(cfg.n_enc_layers, depth))
     lm_cut = LM(cut_cfg)
-    params_cpu = map_tree(lambda t: t.cpu(),
-                          cut_params(lm.params, lm, lm_cut))
+    full_cpu = map_tree(lambda t: t.cpu(), lm.params) \
+        if arch in F64_FULL_REPORT else None
+    params_cpu = (cut_params(full_cpu, LM(cfg), lm_cut) if full_cpu
+                  else map_tree(lambda t: t.cpu(),
+                                cut_params(lm.params, lm, lm_cut)))
     del lm
     free_device()
-    # float64: greedy decoding against teacher forcing over the prompt and
-    # the generated tokens (one causal forward)
+    # float64: greedy decoding against teacher forcing, a MoE at a
+    # capacity factor that drops nothing
     cf = cfg.capacity_factor
     if cfg.n_experts:
         cf = max(cf, cfg.n_experts / cfg.top_k)
-    lm64 = LM(cut_cfg.scaled(param_dtype="float64", activ_dtype="float64",
-                             capacity_factor=cf))
-    lm64.set_params(map_tree(lambda t: t.to(dev, torch.float64)
-                             if t.is_floating_point() else t.to(dev),
-                             params_cpu))
-    P64, n64 = 32, 16
-    toks = rng.integers(0, cfg.vocab, (2, P64))
-    gen = ServeEngine(lm64, device=dev).generate({"tokens": toks},
-                                                 n_new=n64, max_len=64)
-    seq = torch.as_tensor(np.concatenate([toks, gen.tokens], 1), device=dev)
-    forced = torch.argmax(all_logits(lm64, seq)[:, P64 - 1:P64 - 1 + n64],
-                          dim=-1).cpu().numpy()
-    teacher64 = bool(np.array_equal(forced, gen.tokens))
-    del lm64, seq
-    free_device()
+    as64 = lambda c: c.scaled(param_dtype="float64", activ_dtype="float64",
+                              capacity_factor=cf)
+    toks = rng.integers(0, cfg.vocab, (2, 32))
+    front64 = front_inputs(cfg, front_rng, 2, 64)
+    f64 = f64_teacher_forcing(dev, as64(cut_cfg), params_cpu, toks, front64)
+    if full_cpu is not None:
+        line["f64_full_depth_reported"] = f64_teacher_forcing(
+            dev, as64(cfg), full_cpu, toks, front64)
+        del full_cpu
     layer_errs, margins, layers_ok = layers_f32_vs_cpu(dev, lm_cut,
-                                                       params_cpu, toks)
+                                                       params_cpu, toks,
+                                                       front64)
     line.update({
         "f64_layers": cut_cfg.n_layers,
-        "f64_reduced": [] if depth is None else
-        [f"n_layers {cfg.n_layers} -> {depth} (float64 of every layer "
-         f"does not fit the card)"],
+        "f64_enc_layers": cut_cfg.n_enc_layers,
+        "f64_reduced": [] if depth is None else [
+            f"n_layers {cfg.n_layers} -> {depth}"
+            + (f", n_enc_layers {cfg.n_enc_layers} -> "
+               f"{cut_cfg.n_enc_layers}" if cfg.n_enc_layers else "")
+            + (" (float64 of every layer does not fit the card)"
+               if arch not in F64_FULL_REPORT else
+               " (at full depth float64 rounding decides the tokens: "
+               "f64_full_depth_reported)")],
         "f64_capacity_factor": cf if cfg.n_experts else None,
-        "f64_prompt": [2, P64], "f64_steps": n64,
-        "teacher_forcing_equal_f64": teacher64,
+        "f64_prompt": [2, 32],
+        "f64_frames": front64["frames"].shape[1] if "frames" in front64
+        else 0,
+        "f64_patches": n_patches(front64),
+        "teacher_forcing_equal_f64": f64["teacher_forcing_equal"],
+        "f64": f64,
         "f32_layer_max_abs_err": layer_errs,
         "f32_layer_tolerance_share": margins,
         "f32_layers_within_1e-3_of_cpu": layers_ok})
     emit(line)
-    check(teacher64, f"{arch} float64 ({cut_cfg.n_layers} layers): greedy "
-                     f"tokens differ from teacher forcing")
+    check(f64["teacher_forcing_equal"],
+          f"{arch} float64 ({cut_cfg.n_layers} layers): greedy tokens "
+          f"differ from teacher forcing: {f64['mismatches']}")
     check(layers_ok, f"{arch} float32: a layer is off the CPU's: "
                      f"{layer_errs}")
     del params_cpu
@@ -2440,13 +2689,15 @@ def olmo_held_checks(dev, cfg, params, rng, seed: int) -> None:
 
 def lm_phase(dev, seed: int) -> None:
     """The LM and ``ServeEngine`` on the card: smoke-size parity with the
-    CPU (every ported family), olmo-1b at full width in bfloat16 (init,
-    prefill, decode per token against its byte bound, memory), float64
-    and float32 copies of the same weights (teacher forcing in float64,
-    the CPU's layers in float32), then qwen3-moe-30b-a3b,
-    recurrentgemma-2b and rwkv6-7b the same way (:func:`lm_full_phase`),
-    and ``launch.serve.main`` in its four modes and, with the MoE, on the
-    graph and flat routes."""
+    CPU (every ported family, front ends included), olmo-1b at full width
+    in bfloat16 (init, prefill, decode per token against its byte bound,
+    memory), float64 and float32 copies of the same weights (teacher
+    forcing in float64, the CPU's layers in float32), then
+    qwen3-moe-30b-a3b, recurrentgemma-2b, rwkv6-7b, seamless-m4t-large-v2
+    and llava-next-mistral-7b the same way (:func:`lm_full_phase`), and
+    ``launch.serve.main`` in its four modes and, with the MoE, the
+    encoder-decoder and the vision front end, on the graph and flat
+    routes."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -2458,19 +2709,29 @@ def lm_phase(dev, seed: int) -> None:
     from repro_torch.serving import ServeEngine
 
     rng = np.random.default_rng(seed)
+    # the front-end configs draw their tokens and inputs from their own
+    # generator, so every other draw is that of a run without them
+    front_rng = np.random.default_rng(seed + 29)
     # 1. smoke size: one CPU init, generated on the CPU and on the card
     for arch in LM_SMOKE_ARCHS:
         cfg = configs.get_smoke_config(arch)
         lm = LM(cfg)
         lm.init(torch.Generator().manual_seed(seed), device="cpu")
-        toks = rng.integers(0, cfg.vocab, (2, 16))
-        want = ServeEngine(lm, device="cpu").generate({"tokens": toks},
-                                                      n_new=8, max_len=32)
-        got = ServeEngine(lm, device=dev).generate({"tokens": toks},
-                                                   n_new=8, max_len=32)
+        if cfg.frontend:
+            lm.set_params(scale_wq(lm.params, SMOKE_FRONT_WQ_SCALE))
+        toks = (front_rng if cfg.frontend else rng).integers(
+            0, cfg.vocab, (2, 16))
+        batch = {"tokens": toks, **front_inputs(cfg, front_rng, 2, 16)}
+        max_len = 32 + n_patches(batch)
+        want = ServeEngine(lm, device="cpu").generate(batch, n_new=8,
+                                                      max_len=max_len)
+        got = ServeEngine(lm, device=dev).generate(batch, n_new=8,
+                                                   max_len=max_len)
         err, ok = _close(got.logits_last, want.logits_last, 1e-4)
         same = bool(np.array_equal(got.tokens, want.tokens))
         emit({"phase": "lm_smoke", "arch": arch, "tokens_equal_cpu": same,
+              "frames": batch["frames"].shape[1] if "frames" in batch
+              else 0, "patches": n_patches(batch),
               "logits_max_abs_err": err, "logits_ok": ok})
         check(same, f"{arch} smoke: card tokens differ from the CPU's")
         check(ok, f"{arch} smoke: last logits off by {err}")
@@ -2485,6 +2746,7 @@ def lm_phase(dev, seed: int) -> None:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     pbytes = tree_bytes(lm.abstract_params())
+    read = decode_read_bytes(lm, B, max_len, 0)
     report, _ = lm_timed_run(dev, lm, rng, B, P, n_new, max_len)
     peak = torch.cuda.max_memory_allocated()
     # the attention yardstick: the port's flash_attention against torch's
@@ -2499,7 +2761,8 @@ def lm_phase(dev, seed: int) -> None:
     emit({"phase": "lm_full", "arch": cfg.name, "dtype": cfg.param_dtype,
           "params": lm.param_count(), "param_bytes": pbytes,
           "init_s": init_s, **report, "max_memory_allocated": peak,
-          "decode_bound_ms": pbytes / PEAKS.hbm_bytes_per_s * 1e3,
+          "decode_bytes": read,
+          "decode_bound_ms": read["total"] / PEAKS.hbm_bytes_per_s * 1e3,
           "decode_bound_by": "bytes", "flash_attention_ms": fa_ms,
           "sdpa_ms": sdpa_ms})
 
@@ -2509,22 +2772,26 @@ def lm_phase(dev, seed: int) -> None:
     olmo_held_checks(dev, cfg, params, rng, seed)
     del params
 
-    # 4. full width: the MoE, the hybrid recurrent model and RWKV-6
+    # 4. full width: the MoE, the hybrid recurrent model, RWKV-6, the
+    # encoder-decoder and the vision front end
     for phase, arch, depth in LM_FULL:
         lm_full_phase(dev, phase, arch, depth, seed, rng)
 
-    # 5. the serving driver, in-process, in each mode, and with the MoE.
-    # At the driver's 1,500 rows the work-model router sends both mask
-    # groups to the pruned route (plain torch): the plain mode launches no
-    # kernel, the streaming mode kernel 5 on its delta. The MoE modes pin
-    # the route, so QueryEngine launches kernels 1 and 3 (graph) and
-    # kernel 5 (flat) under qwen3-moe-30b-a3b's LM endpoint.
-    moe_kernels = {"graph": ("gathered_topk", "gathered_l2"),
-                   "flat": ("pairwise_l2_masked",)}
+    # 5. the serving driver, in-process, in each mode, and with the MoE,
+    # the encoder-decoder and the vision front end. At the driver's 1,500
+    # rows the work-model router sends both mask groups to the pruned
+    # route (plain torch): the plain mode launches no kernel, the streaming
+    # mode kernel 5 on its delta. The other modes pin the route, so
+    # QueryEngine launches kernels 1 and 3 (graph) and kernel 5 (flat)
+    # behind each model's LM endpoint.
+    route_kernels = {"graph": ("gathered_topk", "gathered_l2"),
+                     "flat": ("pairwise_l2_masked",)}
     for mode in ([], ["--async"], ["--streaming", "--n", "400"],
                  ["--shards", "4", "--n", "1200"],
                  ["--arch", "qwen3-moe-30b-a3b", "--route", "graph"],
-                 ["--arch", "qwen3-moe-30b-a3b", "--route", "flat"]):
+                 ["--arch", "qwen3-moe-30b-a3b", "--route", "flat"],
+                 ["--arch", "seamless-m4t-large-v2", "--route", "graph"],
+                 ["--arch", "llava-next-mistral-7b", "--route", "flat"]):
         ops.reset_launches()
         t0 = time.perf_counter()
         res = serve.main(["--requests", "24"] + mode)
@@ -2542,10 +2809,10 @@ def lm_phase(dev, seed: int) -> None:
         if "--route" in mode:
             route = mode[mode.index("--route") + 1]
             check(res["routes"][route] == 2
-                  and all(launches.get(k) for k in moe_kernels[route]),
+                  and all(launches.get(k) for k in route_kernels[route]),
                   f"launch.serve {mode}: routes {res['routes']}, launches "
                   f"{launches}; the {route} route must launch "
-                  f"{moe_kernels[route]}")
+                  f"{route_kernels[route]}")
 
 
 def main() -> int:

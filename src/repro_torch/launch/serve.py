@@ -135,8 +135,15 @@ def _serve(args, dev) -> dict:
     lm.init(torch.Generator().manual_seed(0), device=dev)
     engine = ServeEngine(lm, device=dev)
     rng = np.random.default_rng(1)
-    tokens = rng.integers(0, cfg.vocab, (4, 16))
-    gen = engine.generate({"tokens": tokens}, n_new=8, max_len=64)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (4, 16))}
+    if cfg.frontend == "vision_stub":
+        batch["patches"] = rng.normal(
+            0, 1, (4, cfg.n_frontend_tokens, cfg.frontend_dim)
+        ).astype(np.float32)
+    if cfg.frontend == "audio_stub":
+        batch["frames"] = rng.normal(
+            0, 1, (4, 16, cfg.frontend_dim)).astype(np.float32)
+    gen = engine.generate(batch, n_new=8, max_len=64)
     print(f"LM generate ok: {gen.tokens.shape} tokens")
     summary = {"arch": args.arch, "device": str(dev), "route": args.route,
                "generated": list(gen.tokens.shape),

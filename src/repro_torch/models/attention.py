@@ -12,7 +12,9 @@ inputs (float64 inputs keep float64 throughout, see
 :func:`repro_torch.models.common.acc_dtype`).
 
 Cross-attention (``is_cross`` / ``cross_memory``, the encoder-decoder
-configs) is not ported yet: it raises ``NotImplementedError`` (ROADMAP §1).
+configs) takes its keys and values from the encoder's output at prefill
+and from their cached projections at decode, with no rope and no mask.
+Training (``mode="train"``) waits for the port's training slice.
 """
 from __future__ import annotations
 
@@ -189,6 +191,35 @@ def _qk_normalize(p, q, k):
     return q, k
 
 
+def _cross_apply(p, x, *, cfg, mode: str, cache, cross_memory, kv_len):
+    """Cross-attention: keys and values are projected from
+    ``cross_memory`` (the encoder's output, (B, enc_len, D)) at prefill and
+    returned as the cache; decode reads them from ``cache`` and leaves it
+    as it is. No rope, no causal mask; ``q_norm`` applies to the queries
+    only, and decode attends over every cached entry."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    if mode == "decode":
+        k, v = cache                                  # projected at prefill
+    else:
+        k = torch.einsum("bsd,dhk->bshk", cross_memory, p["wk"])
+        v = torch.einsum("bsd,dhk->bshk", cross_memory, p["wv"])
+        if "bk" in p:
+            k, v = k + p["bk"], v + p["bv"]
+    if "q_norm" in p:
+        q = rmsnorm({"scale": p["q_norm"]}, q)
+    if mode == "decode":
+        every = torch.ones(k.shape[1], dtype=torch.bool, device=x.device)
+        out = decode_attention(q, k, v, every, softcap=cfg.attn_logit_softcap)
+    else:
+        out = flash_attention(q, k, v, causal=False, window=None,
+                              softcap=cfg.attn_logit_softcap,
+                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                              kv_len=kv_len)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (k, v)
+
+
 def attn_apply(p, x, *, cfg, rope_theta: float, window: Optional[int],
                positions, mode: str, cache=None, cur_pos=None,
                kv_len=None, cross_memory=None, causal: bool = True,
@@ -196,15 +227,16 @@ def attn_apply(p, x, *, cfg, rope_theta: float, window: Optional[int],
     """Self-attention in ``mode`` ``"prefill"`` (returns the prompt's (k, v)
     as the new cache) or ``"decode"`` (writes this token's k and v into the
     cache **in place**, at the slot :func:`cache_slot_and_mask` gives, and
-    returns the same cache tensors). Returns (out, new_cache)."""
-    if is_cross or cross_memory is not None:
-        raise NotImplementedError(
-            "cross-attention (encoder-decoder configs) is not ported yet: "
-            "ROADMAP §1, the encoder and front ends")
+    returns the same cache tensors). With ``is_cross`` or a
+    ``cross_memory``, cross-attention (:func:`_cross_apply`). Returns
+    (out, new_cache)."""
     if mode not in ("prefill", "decode"):
         raise NotImplementedError(f"attn_apply mode {mode!r}: training waits "
                                   f"for the port's training slice (ROADMAP "
                                   f"§1)")
+    if is_cross or cross_memory is not None:
+        return _cross_apply(p, x, cfg=cfg, mode=mode, cache=cache,
+                            cross_memory=cross_memory, kv_len=kv_len)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])

@@ -1,20 +1,26 @@
-"""Model assembly: the decoder LM on the port's mixers and MLPs.
+"""Model assembly: decoder LMs, encoder-decoders and front ends on the
+port's mixers and MLPs.
 
-The port of the reference's ``repro.models.transformer`` for decoder-only
-configs: ``attn`` / ``attn_local`` (GQA), ``mla`` (DeepSeek's latent
-attention), ``rg`` (RG-LRU) and ``rwkv`` (RWKV-6) mixers, each with a
-dense or a mixture-of-experts MLP (olmo-1b, gemma3-1b, qwen3-32b,
-qwen1.5-110b, qwen3-moe-30b-a3b, recurrentgemma-2b, rwkv6-7b,
-deepseek-v3-671b). Layers are grouped into *segments*, (pattern, repeats)
-pairs, exactly as the reference groups them; a segment's parameters and
-caches are stacked with the repeat axis first, and this port walks the
-repeats in a Python loop (the reference's ``scan_layers=False`` walk).
+The port of the reference's ``repro.models.transformer``: ``attn`` /
+``attn_local`` (GQA), ``mla`` (DeepSeek's latent attention), ``rg``
+(RG-LRU) and ``rwkv`` (RWKV-6) mixers, each with a dense or a
+mixture-of-experts MLP (olmo-1b, gemma3-1b, qwen3-32b, qwen1.5-110b,
+qwen3-moe-30b-a3b, recurrentgemma-2b, rwkv6-7b, deepseek-v3-671b); a
+non-causal encoder whose output the decoder's cross-attention layers read
+(seamless-m4t-large-v2, fed precomputed audio frames); and a vision front
+end that prepends projected patch embeddings to the tokens
+(llava-next-mistral-7b). Layers are grouped into *segments*, (pattern,
+repeats) pairs, exactly as the reference groups them; a segment's
+parameters and caches are stacked with the repeat axis first, and this
+port walks the repeats in a Python loop (the reference's
+``scan_layers=False`` walk).
 Parameter layouts are the reference's, so its weights carry across by name
 (:func:`repro_torch.convert.lm_params_from_arrays`); deepseek-v3's ``mtp``
 block is declared for that reason, though only training reads it.
 
-Configs with an encoder or a front end raise ``NotImplementedError`` at
-``LM(cfg)``, naming the ROADMAP item that ports them. Training
+The encoder runs as a prefill whose caches are dropped (the reference
+runs it in ``mode="train"``, which differs from a prefill only in visiting
+every kv block, as a non-causal layer does anyway). Training
 (``train_loss``, the MoE load-balance loss, ``_mtp_loss``) waits for the
 training slice.
 """
@@ -86,27 +92,6 @@ def make_segments(descs: Sequence[LayerDesc]) -> List[Segment]:
     return segs
 
 
-# What LM(cfg) cannot run yet, and the ROADMAP §1 item that ports it.
-_NOT_PORTED = {
-    "encoder": "encoders and cross-attention: ROADMAP §1 item 4",
-    "frontend": "vision and audio front ends: ROADMAP §1 item 4",
-}
-
-
-def _not_ported(cfg: ModelConfig) -> List[str]:
-    why = []
-    if cfg.n_enc_layers:
-        why.append(_NOT_PORTED["encoder"])
-    if cfg.frontend:
-        why.append(_NOT_PORTED["frontend"])
-    return why
-
-
-def _require_ported(desc: LayerDesc) -> None:
-    if desc.cross:
-        raise NotImplementedError(_NOT_PORTED["encoder"])
-
-
 # ---------------- per-layer params ----------------
 def _mixer_meta(cfg: ModelConfig, kind: str, dtype):
     if kind in ("attn", "attn_local"):
@@ -121,16 +106,19 @@ def _mixer_meta(cfg: ModelConfig, kind: str, dtype):
 
 
 def layer_meta(cfg: ModelConfig, desc: LayerDesc):
-    _require_ported(desc)
     norm_meta_fn, _ = make_norm(cfg)
     dtype = cfg.pdtype
-    return {
+    p = {
         "norm1": norm_meta_fn(cfg.d_model, dtype),
         "mixer": _mixer_meta(cfg, desc.mixer, dtype),
         "norm2": norm_meta_fn(cfg.d_model, dtype),
         "mlp": (moe_mod.moe_meta(cfg, dtype) if desc.mlp == "moe"
                 else mlp_meta(cfg.d_model, cfg.d_ff, dtype, bias=False)),
     }
+    if desc.cross:
+        p["norm_cross"] = norm_meta_fn(cfg.d_model, dtype)
+        p["cross"] = attn.attn_meta(cfg, dtype)
+    return p
 
 
 def _stack_meta(tree, n: int):
@@ -152,12 +140,17 @@ def _theta_window(cfg: ModelConfig, desc: LayerDesc):
 
 
 def layer_apply(lp, x, desc: LayerDesc, *, cfg: ModelConfig, mode: str,
-                cache, positions, cur_pos, kv_len=None):
-    """One pre-norm block: mixer, then MLP (dense or MoE), each added to
-    the residual. Returns (x, new_cache); the MoE's load-balance loss is
-    training's and is dropped here."""
-    _require_ported(desc)
+                cache, positions, cur_pos, cross_memory=None, kv_len=None):
+    """One pre-norm block: mixer, then (in a ``cross`` layer)
+    cross-attention over ``cross_memory``, then MLP (dense or MoE), each
+    added to the residual. A cross layer's cache is ``{"self": mixer
+    cache, "cross": (k, v)}``. Returns (x, new_cache); the MoE's
+    load-balance loss is training's and is dropped here."""
     _, norm = make_norm(cfg)
+    if desc.cross and isinstance(cache, dict):
+        cache, cross_cache = cache["self"], cache["cross"]
+    else:
+        cross_cache = None
     h = norm(lp["norm1"], x)
     if desc.mixer in ("attn", "attn_local"):
         theta, window = _theta_window(cfg, desc)
@@ -178,6 +171,14 @@ def layer_apply(lp, x, desc: LayerDesc, *, cfg: ModelConfig, mode: str,
     else:
         raise ValueError(desc.mixer)
     x = x + h
+    if desc.cross:
+        h = norm(lp["norm_cross"], x)
+        h, new_cross = attn.attn_apply(
+            lp["cross"], h, cfg=cfg, rope_theta=cfg.rope_theta, window=None,
+            positions=positions, mode=mode, cache=cross_cache,
+            cur_pos=cur_pos, cross_memory=cross_memory, is_cross=True)
+        x = x + h
+        new_cache = {"self": new_cache, "cross": new_cross}
     h = norm(lp["norm2"], x)
     if desc.mlp == "moe":
         h, _ = moe_mod.moe_apply(lp["mlp"], h, cfg=cfg,
@@ -193,9 +194,10 @@ class ShapeDtype:
     """A cache leaf's shape and dtype (the reference's
     ``jax.ShapeDtypeStruct``), and where its sequence axis lies, counted
     from the end (-3 for a (.., B, S, Hkv, Dh) kv leaf, -2 for MLA's
-    (.., B, S, r) leaves), or ``None`` for a recurrent state, which has
-    no sequence axis. :func:`repro_torch.serving.seed_caches` places a
-    prompt along that axis."""
+    (.., B, S, r) leaves), or ``None`` for a leaf that the prompt does not
+    extend: a recurrent state, or a cross-attention leaf, which holds the
+    encoder's enc_len entries. :func:`repro_torch.serving.seed_caches`
+    places a prompt along that axis."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
     seq_axis: Optional[int] = None
@@ -207,26 +209,32 @@ def cache_meta_for_desc(cfg: ModelConfig, desc: LayerDesc, batch: int,
     where a local layer holds min(max_len, window) entries (a ring once
     the window is shorter than the sequence); (latent, k_rope) for MLA;
     (conv window, h) for RG-LRU; (token shift, state) for RWKV. The
-    recurrent states are float32 (float64 in a float64 model)."""
-    _require_ported(desc)
+    recurrent states are float32 (float64 in a float64 model). A cross
+    layer's cache is ``{"self": that, "cross": (k, v)}`` with (B, enc_len,
+    Hkv, Dh) cross leaves."""
     ad, D, B = cfg.adtype, cfg.d_model, int(batch)
     acc = acc_dtype(ad)
     if desc.mixer in ("attn", "attn_local"):
         _, window = _theta_window(cfg, desc)
         M = min(max_len, window) if window else max_len
         kv = ShapeDtype((B, int(M), cfg.n_kv_heads, cfg.head_dim), ad, -3)
-        return (kv, kv)
-    if desc.mixer == "mla":
-        return (ShapeDtype((B, int(max_len), cfg.kv_lora_rank), ad, -2),
+        base = (kv, kv)
+    elif desc.mixer == "mla":
+        base = (ShapeDtype((B, int(max_len), cfg.kv_lora_rank), ad, -2),
                 ShapeDtype((B, int(max_len), cfg.qk_rope_dim), ad, -2))
-    if desc.mixer == "rg":
-        return (ShapeDtype((B, cfg.conv_width - 1, cfg.lru_width), ad),
+    elif desc.mixer == "rg":
+        base = (ShapeDtype((B, cfg.conv_width - 1, cfg.lru_width), ad),
                 ShapeDtype((B, cfg.lru_width), acc))
-    if desc.mixer == "rwkv":
+    elif desc.mixer == "rwkv":
         Dh = D // cfg.n_heads
-        return (ShapeDtype((B, D), ad),
+        base = (ShapeDtype((B, D), ad),
                 ShapeDtype((B, cfg.n_heads, Dh, Dh), acc))
-    raise ValueError(desc.mixer)
+    else:
+        raise ValueError(desc.mixer)
+    if desc.cross:
+        ckv = ShapeDtype((B, int(enc_len), cfg.n_kv_heads, cfg.head_dim), ad)
+        return {"self": base, "cross": (ckv, ckv)}
+    return base
 
 
 def cache_meta(cfg: ModelConfig, segments: Sequence[Segment], batch: int,
@@ -249,7 +257,8 @@ def zeros_like_meta(tree, device):
 
 # ---------------- segment walk ----------------
 def segment_apply(seg_p, x, seg: Segment, *, cfg: ModelConfig, mode: str,
-                  caches, positions, cur_pos, kv_len=None):
+                  caches, positions, cur_pos, cross_memory=None,
+                  kv_len=None):
     """Run one segment: its pattern once, or for each of its repeats the
     repeat's slice of the stacked parameters and caches.
 
@@ -263,7 +272,8 @@ def segment_apply(seg_p, x, seg: Segment, *, cfg: ModelConfig, mode: str,
             c = cache_unit[f"L{j}"] if cache_unit is not None else None
             xx, new_c[f"L{j}"] = layer_apply(
                 lp[f"L{j}"], xx, d, cfg=cfg, mode=mode, cache=c,
-                positions=positions, cur_pos=cur_pos, kv_len=kv_len)
+                positions=positions, cur_pos=cur_pos,
+                cross_memory=cross_memory, kv_len=kv_len)
         return xx, new_c
 
     if seg.repeats == 1:
@@ -329,8 +339,9 @@ def _check_tree(metas, tree, path: str = "") -> None:
 
 
 class LM(nn.Module):
-    """Decoder-only language model (attention, MLA, RG-LRU or RWKV-6
-    mixers; dense or MoE MLPs).
+    """Decoder-only or encoder-decoder language model (attention, MLA,
+    RG-LRU or RWKV-6 mixers; dense or MoE MLPs; an optional vision or
+    audio front end).
 
     ``LM(cfg)`` allocates nothing: the parameter count and the cache shapes
     come from metadata. :meth:`init` draws the parameters from a
@@ -339,7 +350,14 @@ class LM(nn.Module):
     :func:`repro_torch.convert.lm_params_from_arrays`); either registers
     them under the reference's tree paths (``embed.table``,
     ``segments.0.L0.mixer.wq``, ...). The segment layout (the reference's
-    ``LM.segments``) is :attr:`layout`.
+    ``LM.segments``) is :attr:`layout`, the encoder's (the reference's
+    ``LM.enc_segments``) :attr:`enc_layout`.
+
+    A batch is a dict of ``tokens`` (B, P), and ``frames`` (B, enc_len,
+    frontend_dim) for an encoder-decoder config (``n_enc_layers``) or
+    ``patches`` (B, n_frontend_tokens, frontend_dim) for a
+    ``vision_stub`` front end; arrays or tensors, moved to the parameters'
+    device.
 
     :meth:`prefill` and :meth:`decode_step` take a parameter tree first, as
     the reference's do; ``None`` means the registered parameters. They run
@@ -348,14 +366,18 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        descs = layer_descs(cfg, cross=cfg.n_enc_layers > 0)
-        why = _not_ported(cfg)
-        if why:
-            raise NotImplementedError(f"LM({cfg.name!r}) is not ported yet: "
-                                      + "; ".join(why))
         self.cfg = cfg
-        self.descs = descs
-        self.layout = make_segments(descs)
+        self.descs = layer_descs(cfg, cross=cfg.n_enc_layers > 0)
+        self.layout = make_segments(self.descs)
+        self.enc_cfg = None
+        self.enc_layout = None
+        if cfg.n_enc_layers:
+            self.enc_cfg = dataclasses.replace(cfg, causal=False,
+                                               n_layers=cfg.n_enc_layers,
+                                               n_experts=0, use_mla=False,
+                                               block_pattern=(),
+                                               local_per_global=0)
+            self.enc_layout = make_segments(layer_descs(self.enc_cfg))
         self._top = tuple(self.abstract_params())
 
     # ----- params -----
@@ -369,6 +391,16 @@ class LM(nn.Module):
                                  cfg.tie_embeddings),
             "segments": [segment_meta(cfg, s) for s in self.layout],
         }
+        if self.enc_cfg is not None:
+            p["encoder"] = {
+                "segments": [segment_meta(self.enc_cfg, s)
+                             for s in self.enc_layout],
+                "final_norm": norm_meta_fn(cfg.d_model, cfg.pdtype),
+            }
+        if cfg.frontend in ("vision_stub", "audio_stub") and cfg.frontend_dim:
+            p["frontend_proj"] = {
+                "w": meta((cfg.frontend_dim, cfg.d_model), (None, "embed"),
+                          cfg.pdtype)}
         if cfg.mtp:
             # DeepSeek-V3's multi-token-prediction block: parameters only,
             # so the reference's tree carries across; training reads them
@@ -431,27 +463,58 @@ class LM(nn.Module):
             x = x * torch.sqrt(d).to(x.dtype)
         return x
 
-    def _tokens(self, params, tokens):
-        return torch.as_tensor(tokens, device=params["embed"]["table"].device)
+    def _on_device(self, params, a):
+        return torch.as_tensor(a, device=params["embed"]["table"].device)
+
+    def _frontend(self, params, batch, tokens_x):
+        """Prepend the projected patch embeddings (the vision stub) to the
+        token embeddings."""
+        emb = self._on_device(params, batch["patches"]).to(self.cfg.adtype)
+        if "frontend_proj" in params:
+            emb = emb @ params["frontend_proj"]["w"].to(emb.dtype)
+        return torch.cat([emb, tokens_x], dim=1)
+
+    def _encode(self, params, frames):
+        """The encoder over ``frames`` (B, enc_len, frontend_dim): cast to
+        the activation dtype, projected by ``frontend_proj``, the
+        non-causal layers at positions 0..enc_len-1 (run as a prefill whose
+        caches are dropped), then the encoder's final norm."""
+        cfg = self.enc_cfg
+        x = self._on_device(params, frames).to(cfg.adtype)
+        if "frontend_proj" in params:
+            x = x @ params["frontend_proj"]["w"].to(x.dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        for sp, seg in zip(params["encoder"]["segments"], self.enc_layout):
+            x, _ = segment_apply(sp, x, seg, cfg=cfg, mode="prefill",
+                                 caches=None, positions=positions,
+                                 cur_pos=None)
+        _, norm = make_norm(cfg)
+        return norm(params["encoder"]["final_norm"], x)
 
     # ----- prefill -----
     @torch.inference_mode()
     def prefill(self, params, batch: Dict[str, Any]):
         """Full-prompt forward; returns (last_logits (B, 1, V), caches).
 
-        Prefill caches are emitted at prompt length; the decode cache layout
-        (:meth:`decode_cache_meta`) is seeded from them by
-        :func:`repro_torch.serving.seed_caches`."""
+        Prefill caches are emitted at prompt length (the patches count
+        toward it; cross leaves hold the encoder's enc_len entries); the
+        decode cache layout (:meth:`decode_cache_meta`) is seeded from them
+        by :func:`repro_torch.serving.seed_caches`."""
         cfg = self.cfg
         params = self.params if params is None else params
-        tokens = self._tokens(params, batch["tokens"])
+        tokens = self._on_device(params, batch["tokens"])
         x = self._embed_tokens(params, tokens)
+        cross_memory = None
+        if self.enc_cfg is not None:
+            cross_memory = self._encode(params, batch["frames"])
+        if cfg.frontend == "vision_stub":
+            x = self._frontend(params, batch, x)
         positions = torch.arange(x.shape[1], device=x.device)
         caches = []
         for sp, seg in zip(params["segments"], self.layout):
             x, nc = segment_apply(sp, x, seg, cfg=cfg, mode="prefill",
                                   caches=None, positions=positions,
-                                  cur_pos=None)
+                                  cur_pos=None, cross_memory=cross_memory)
             caches.append(nc)
         _, norm = make_norm(cfg)
         x = norm(params["final_norm"], x)
@@ -461,13 +524,16 @@ class LM(nn.Module):
 
     # ----- decode -----
     @torch.inference_mode()
-    def decode_step(self, params, caches, tokens, cur_pos: int):
+    def decode_step(self, params, caches, tokens, cur_pos: int,
+                    cross_memory=None):
         """One token for every sequence. tokens: (B, 1); cur_pos: the
-        position of that token. ``caches`` are updated in place and
-        returned."""
+        position of that token (past the patches, in a front-end model).
+        ``caches`` are updated in place and returned; cross-attention reads
+        its cached projections, so ``cross_memory`` is taken for the
+        reference's signature and not read."""
         cfg = self.cfg
         params = self.params if params is None else params
-        tokens = self._tokens(params, tokens)
+        tokens = self._on_device(params, tokens)
         x = self._embed_tokens(params, tokens)
         cur_pos = int(cur_pos)
         positions = torch.tensor([cur_pos], device=x.device)
@@ -475,7 +541,7 @@ class LM(nn.Module):
         for sp, seg, cu in zip(params["segments"], self.layout, caches):
             x, nc = segment_apply(sp, x, seg, cfg=cfg, mode="decode",
                                   caches=cu, positions=positions,
-                                  cur_pos=cur_pos)
+                                  cur_pos=cur_pos, cross_memory=cross_memory)
             new_caches.append(nc)
         _, norm = make_norm(cfg)
         x = norm(params["final_norm"], x)

@@ -38,9 +38,11 @@ def _seed_leaf(prefill_leaf, target, prompt_len: int):
     ``target.seq_axis`` says where the leaf's sequence axis lies, counted
     from the end: third for a (.., B, S, Hkv, Dh) kv leaf, second for
     MLA's (.., B, S, r) leaves (the repeat axis of a stacked segment comes
-    first). A recurrent state has none (``None``): it has the decode shape
-    already and is taken as it is. A prompt longer than a ring cache keeps
-    its last M entries at their ring slots (pos % M)."""
+    first). A recurrent state and a cross-attention leaf have none
+    (``None``): they have the decode shape already and are taken as they
+    are, and one of another shape (a cross leaf of another enc_len)
+    raises. A prompt longer than a ring cache keeps its last M entries at
+    their ring slots (pos % M)."""
     x = prefill_leaf.to(target.dtype)
     if tuple(x.shape) == tuple(target.shape):
         return x
@@ -98,7 +100,10 @@ class ServeEngine:
     raises without a card). :meth:`generate` prefills, seeds the decode
     caches and decodes token by token, updating the caches in place; it
     returns host numpy arrays like the reference's. ``torch.argmax`` picks
-    the first maximum, as ``jnp.argmax`` does.
+    the first maximum, as ``jnp.argmax`` does. A batch carries ``frames``
+    (an encoder-decoder config) or ``patches`` (a vision front end) beside
+    its ``tokens``; the patches count toward the prompt, so decoding starts
+    at P + n_patches.
     """
 
     def __init__(self, lm, params=None, *, device=None):
@@ -111,15 +116,21 @@ class ServeEngine:
     def generate(self, batch: Dict[str, Any], n_new: int,
                  max_len: int) -> GenerationResult:
         lm = self.lm
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        B, P = tokens.shape
-        logits, prefill_caches = lm.prefill(self.params, {"tokens": tokens})
-        caches = seed_caches(lm, prefill_caches, B, max_len, P)
+        inputs = {k: torch.as_tensor(batch[k], device=self.device)
+                  for k in ("tokens", "frames", "patches") if k in batch}
+        B, P = inputs["tokens"].shape
+        logits, prefill_caches = lm.prefill(self.params, inputs)
+        enc_len = inputs["frames"].shape[1] if "frames" in inputs else 0
+        prompt_len = P + (inputs["patches"].shape[1] if "patches" in inputs
+                          else 0)
+        caches = seed_caches(lm, prefill_caches, B, max_len, prompt_len,
+                             enc_len)
         out = []
         cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
         for i in range(n_new):
             out.append(cur)
-            logits, caches = lm.decode_step(self.params, caches, cur, P + i)
+            logits, caches = lm.decode_step(self.params, caches, cur,
+                                            prompt_len + i)
             cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
         return GenerationResult(
             tokens=torch.cat(out, 1).to(torch.int32).cpu().numpy(),

@@ -1,5 +1,7 @@
 """The port's configs and LM (``repro_torch.configs``,
-``repro_torch.models``: dense, MoE, MLA, RG-LRU and RWKV-6 layers) against
+``repro_torch.models``: dense, MoE, MLA, RG-LRU and RWKV-6 layers, and
+every config's construction; the encoder and front ends are in
+``test_torch_frontends.py``) against
 the reference's ``repro.configs`` / ``repro.models`` on the CPU.
 
 The reference's weights are carried into the port with
@@ -95,7 +97,7 @@ def test_configs_and_segments_equal_reference(arch):
             r["configs"].supports_shape(r["configs"].get_config(arch), shape)
 
 
-@pytest.mark.parametrize("arch", DENSE + MIXED)
+@pytest.mark.parametrize("arch", tcfg.ARCH_NAMES)
 def test_param_counts_equal_reference_from_metadata(arch):
     r = _ref()
     want = r["transformer"].LM(r["configs"].get_config(arch))
@@ -184,24 +186,36 @@ def test_cache_slot_and_mask_equal_reference(M, window):
         np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
 
 
-@pytest.mark.parametrize("arch", sorted(set(tcfg.ARCH_NAMES) - set(DENSE)
-                                         - set(MIXED)))
-def test_unported_configs_raise(arch):
+@pytest.mark.parametrize("arch", tcfg.ARCH_NAMES)
+def test_every_config_constructs(arch):
+    """``LM(cfg)`` runs every config, full and smoke, from metadata alone:
+    the decoder's layout, an encoder's (non-causal, dense, plain
+    attention) and the front end's projection where the config has them."""
     for cfg in (tcfg.get_config(arch), tcfg.get_smoke_config(arch)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LM(cfg)
+        lm = LM(cfg)
+        top = lm.abstract_params()
+        assert sum(s.repeats * len(s.pattern) for s in lm.layout) == \
+            cfg.n_layers
+        assert all(d.cross == bool(cfg.n_enc_layers) for d in lm.descs)
+        assert ("encoder" in top) == bool(cfg.n_enc_layers)
+        assert ("frontend_proj" in top) == bool(cfg.frontend)
+        if cfg.n_enc_layers:
+            assert not lm.enc_cfg.causal and not lm.enc_cfg.n_experts
+            assert sum(s.repeats * len(s.pattern) for s in lm.enc_layout) \
+                == cfg.n_enc_layers
+        else:
+            assert lm.enc_cfg is None and lm.enc_layout is None
+        assert list(lm.parameters()) == []
 
 
-def test_attention_raises_on_cross_and_training_modes():
+def test_attention_raises_on_training_mode():
     cfg = tcfg.get_smoke_config("olmo-1b")
     x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.attn_apply({}, x, cfg=cfg, rope_theta=1e4, window=None,
-                         positions=torch.arange(4), mode="prefill",
-                         cross_memory=x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.attn_apply({}, x, cfg=cfg, rope_theta=1e4, window=None,
-                         positions=torch.arange(4), mode="train")
+    for cross in (None, x):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tattn.attn_apply({}, x, cfg=cfg, rope_theta=1e4, window=None,
+                             positions=torch.arange(4), mode="train",
+                             cross_memory=cross)
 
 
 def test_init_registers_reference_paths_and_is_seeded():
