@@ -23,6 +23,8 @@
     python3 chip_smoke.py --phases env,baselines,lm
                                      # the paper's baselines and the LM
                                      # serving path (no other index build)
+    python3 chip_smoke.py --phases env,train
+                                     # training alone
 
 Phases, each printing one JSON object per line:
 
@@ -176,6 +178,42 @@ Phases, each printing one JSON object per line:
    mode kernels 1 and 3 and each flat mode kernel 5, all through
    ``QueryEngine``. The LM path runs no hand-written kernel (the
    reference's has no Pallas kernel).
+16. ``train``: training (no hand-written kernel either: the reference's
+   training reaches no Pallas kernel). (a) ``train_smoke``: one
+   ``make_train_step`` of each of the ten smoke configs on the card and
+   on the CPU from one CPU init (the leaves in ``TRAIN_CONDITIONING``
+   scaled, as the CPU parity tests scale them) and one ``TokenLoader``
+   batch: loss and grad_norm within 1e-4 relative, every updated
+   parameter, ``m`` and ``v`` leaf within 1e-4. (b) ``train_microbatch``:
+   ``microbatches=2`` against 1, the parameters at rtol 2e-4, atol 2e-5,
+   ``grad_norm``, ``m`` and ``v`` within 1e-5, and against the CPU's
+   ``microbatches=2`` within 1e-4. (c)
+   ``train_resume``: ``TrainLoop`` 4 steps straight against 2, a
+   ``Checkpointer`` save, a fresh restore and 2 more, bit-equal, under
+   ``torch.use_deterministic_algorithms`` (``CUBLAS_WORKSPACE_CONFIG`` is
+   set to ``:4096:8`` before the card is touched). ``train_full``:
+   olmo-1b at its published widths in bfloat16 with per-unit remat, 2
+   sequences of 4,096 tokens a step (TRAIN_4K's length; its global batch
+   cut to one card): step ms by CUDA events (median of 4 after a warm-up
+   step), tokens/s, ``mfu`` (model FLOPs 6 N T + 6 L S H Dh T over the
+   bfloat16 peak), the bound (bfloat16 products over the bfloat16 peak
+   plus the float32 attention products over the float32 peak, against
+   the state's bytes), one step's kernels and device idle share, the clip
+   and AdamW update alone, peak bytes and every step's loss. (f)
+   ``train_ckpt_full``: the 11.8 GB of parameters and optimizer state
+   through a ``Checkpointer`` round trip, bit-equal, seconds to write and
+   to read. (d) ``train_f64_grad``: float64 on the first 4 layers,
+   autograd's directional derivative within 1e-6 of the fourth-order
+   central difference at h = 1e-5 (the two-point one at h = 1e-3 to 1e-6,
+   and 8, 12 and 16 layers at h = 1e-4 to 1e-10, reported). (e)
+   ``train_f32_layers``: olmo-1b's ``attn+dense`` and qwen3-moe-30b-a3b's
+   ``attn+moe`` (aux included, a capacity factor that drops nothing)
+   forward and backward in float32 at full width, output and every
+   gradient within 1e-3 of the CPU's. (g) ``train_driver``:
+   ``launch.train.main`` with ``--preset 100m`` for 30 steps at the
+   default batch (reported) and with ``--batch 512 --seq 16`` (the same
+   512 documents every step; the last 5 losses' mean below the first
+   5's), and ``--preset smoke``.
 
 Launch counts are set to 0 just before each main-path run (flat, graph,
 each tier's flat and graph run, the ``trace`` phase's kernel calls, the
@@ -202,6 +240,7 @@ import argparse
 import collections
 import contextlib
 import json
+import math
 import os
 import re
 import statistics
@@ -213,7 +252,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
 ALL_PHASES = ("env", "kernels", "scan_sweep", "gathered_sweep", "flat",
               "quant_flat", "graph", "quant_graph", "routes", "quant_routes",
-              "trace", "streaming", "sharded", "serving", "baselines", "lm")
+              "trace", "streaming", "sharded", "serving", "baselines", "lm",
+              "train")
 # the card's published peaks (repro_torch.obs.profile.PEAKS), set in main
 PEAKS = None
 
@@ -2045,13 +2085,14 @@ FULL_ENC_LEN = 512
 SMOKE_FRONT_WQ_SCALE = 0.25
 
 
-def scale_wq(tree, f: float):
-    """``tree`` with every ``wq`` leaf times ``f``."""
+def scale_leaves(tree, scales: dict):
+    """``tree`` with each leaf named in ``scales`` times its factor."""
     if isinstance(tree, dict):
-        return {k: v * f if k == "wq" else scale_wq(v, f)
+        return {k: v * scales[k] if k in scales and not isinstance(
+                    v, (dict, list)) else scale_leaves(v, scales)
                 for k, v in tree.items()}
     if isinstance(tree, list):
-        return [scale_wq(v, f) for v in tree]
+        return [scale_leaves(v, scales) for v in tree]
     return tree
 
 
@@ -2322,9 +2363,9 @@ def all_logits(lm, tokens, front=None):
             x = lm._frontend(params, front, x)
         pos = torch.arange(x.shape[1], device=tokens.device)
         for sp, seg in zip(params["segments"], lm.layout):
-            x, _ = segment_apply(sp, x, seg, cfg=cfg, mode="prefill",
-                                 caches=None, positions=pos, cur_pos=None,
-                                 cross_memory=cross)
+            x, _, _ = segment_apply(sp, x, seg, cfg=cfg, mode="prefill",
+                                    caches=None, positions=pos,
+                                    cur_pos=None, cross_memory=cross)
         _, norm = make_norm(cfg)
         return logits_fn(params.get("head", {}), params["embed"],
                          norm(params["final_norm"], x), cfg.tie_embeddings)
@@ -2645,9 +2686,9 @@ def olmo_held_checks(dev, cfg, params, rng, seed: int) -> None:
                               cur_pos=None)
                     lc = map_tree(pick, sp_c)[f"L{j}"]
                     lg_ = map_tree(pick, sp_g)[f"L{j}"]
-                    y_c, _ = layer_apply(lc, x, desc, positions=pos, **kw)
-                    y_g, _ = layer_apply(lg_, x.to(dev), desc,
-                                         positions=pos.to(dev), **kw)
+                    y_c = layer_apply(lc, x, desc, positions=pos, **kw)[0]
+                    y_g = layer_apply(lg_, x.to(dev), desc,
+                                      positions=pos.to(dev), **kw)[0]
                     got, want = y_g.cpu().numpy(), y_c.numpy()
                     err, ok = _close(got, want, 1e-3)
                     layer_errs.append(err)
@@ -2718,7 +2759,8 @@ def lm_phase(dev, seed: int) -> None:
         lm = LM(cfg)
         lm.init(torch.Generator().manual_seed(seed), device="cpu")
         if cfg.frontend:
-            lm.set_params(scale_wq(lm.params, SMOKE_FRONT_WQ_SCALE))
+            lm.set_params(scale_leaves(lm.params,
+                                       {"wq": SMOKE_FRONT_WQ_SCALE}))
         toks = (front_rng if cfg.frontend else rng).integers(
             0, cfg.vocab, (2, 16))
         batch = {"tokens": toks, **front_inputs(cfg, front_rng, 2, 16)}
@@ -2815,6 +2857,605 @@ def lm_phase(dev, seed: int) -> None:
                   f"{route_kernels[route]}")
 
 
+# ---- training ----------------------------------------------------------------
+
+# Leaves scaled before a smoke config's card-against-CPU training check
+# and the CPU parity tests (tests/test_torch_train_loss.py): under the
+# init as drawn, a 1e-7 relative change of the weights moves the smoke
+# models' float32 gradients past the tolerance in any implementation.
+TRAIN_CONDITIONING = {"wq": 0.1, "w_uq": 0.1, "w_v": 0.25, "w_g": 0.25,
+                      "w_o": 0.25}
+# the full-width training run: olmo-1b, TRAIN_4K's sequence length, two
+# sequences a step (TRAIN_4K's global batch of 256 cut to one card)
+TRAIN_B, TRAIN_S = 2, 4096
+
+
+def _on(dev, tree):
+    from repro_torch.models.params import map_tree
+    return map_tree(lambda t: t.detach().to(dev, copy=True), tree)
+
+
+def _tree_margin(got, want, rtol: float):
+    """(worst max abs error, worst share of :func:`_close`'s tolerance,
+    all within it) over the leaves of two trees of tensors."""
+    import torch
+    from repro_torch.models.params import leaves
+    err, margin, ok = 0.0, 0.0, True
+    for a, b in zip(leaves(got), leaves(want)):
+        a = a.detach().cpu().to(torch.float64).numpy()
+        b = b.detach().cpu().to(torch.float64).numpy()
+        e, o = _close(a, b, rtol)
+        err, ok = max(err, e), ok and o
+        margin = max(margin, _margin(a, b, rtol))
+    return err, margin, ok
+
+
+def train_step_card_vs_cpu(dev, arch: str, seed: int) -> dict:
+    """One ``make_train_step`` of ``arch``'s smoke config on the card and
+    on the CPU from one CPU init (leaves in ``TRAIN_CONDITIONING`` scaled)
+    and one ``TokenLoader`` batch (B = 2, S = 32): the loss and
+    ``grad_norm`` within 1e-4 relative, and every updated parameter, ``m``
+    and ``v`` leaf within :func:`_close` at 1e-4 of the CPU's."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import TokenLoader
+    from repro_torch.models import LM
+    from repro_torch.training import AdamWConfig, adamw_init, make_train_step
+    cfg = configs.get_smoke_config(arch)
+    lm = LM(cfg)
+    init = scale_leaves(lm.init(torch.Generator().manual_seed(seed),
+                                device="cpu"), TRAIN_CONDITIONING)
+    batch = TokenLoader(vocab=cfg.vocab, batch=2, seq_len=32, seed=seed,
+                        frontend=cfg.frontend,
+                        n_frontend_tokens=cfg.n_frontend_tokens,
+                        frontend_dim=cfg.frontend_dim).batch_at(0)
+    step = make_train_step(lm, opt_cfg=AdamWConfig(lr=1e-3, warmup_steps=20))
+    out = {}
+    for where in ("cpu", dev):
+        p = _on(where, init)
+        o = adamw_init(p)
+        p, o, m = step(p, o, _on(where, batch))
+        out[str(where)] = ({"params": p, "m": o["m"], "v": o["v"]},
+                           {k: float(v) for k, v in m.items()})
+    (got, gm), (want, wm) = out[str(dev)], out["cpu"]
+    rel = {k: abs(gm[k] - wm[k]) / max(abs(wm[k]), 1e-30)
+           for k in ("loss", "grad_norm")}
+    err, margin, ok = _tree_margin(got, want, 1e-4)
+    return {"arch": arch, "loss": gm["loss"], "loss_cpu": wm["loss"],
+            "grad_norm": gm["grad_norm"], "grad_norm_cpu": wm["grad_norm"],
+            "rel_err": rel, "metrics_ok": max(rel.values()) <= 1e-4,
+            "leaf_max_abs_err": err, "leaf_tolerance_share": margin,
+            "leaves_ok": ok}
+
+
+def _state_rel(got, want) -> float:
+    """The worst |got - want| / (|want| + max |want|) over the leaves of
+    two optimizer-state trees: within ``rtol`` passes ``assert_allclose``
+    at rtol and atol = rtol x the leaf's largest magnitude (``m`` and
+    ``v`` leaves are ~1e-2 to ~1e-8 after one step, so an absolute floor
+    would hide them)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.params import leaves
+    worst = 0.0
+    for a, b in zip(leaves(got), leaves(want)):
+        a = a.detach().cpu().to(torch.float64).numpy()
+        b = b.detach().cpu().to(torch.float64).numpy()
+        den = np.abs(b) + np.abs(b).max()
+        worst = max(worst, float((np.abs(a - b) / np.where(den > 0, den,
+                                                             1.0)).max()))
+    return worst
+
+
+def train_microbatch_check(dev, seed: int) -> dict:
+    """olmo-1b smoke, one ``TokenLoader`` batch of 4 from one CPU init
+    (``TRAIN_CONDITIONING`` scaled): ``microbatches=2`` against 1 on
+    ``dev``, the updated parameters at the reference test's rtol 2e-4,
+    atol 2e-5, and what carries the accumulated gradient, ``grad_norm``
+    before the clip and ``m`` / ``v``, within rtol 1e-5 (``_state_rel``);
+    and ``microbatches=2`` on ``dev`` against the CPU's, ``grad_norm``
+    within 1e-5 relative and every parameter, ``m`` and ``v`` leaf within
+    :func:`_close` at 1e-4. A step that skipped the division by the count
+    moves ``grad_norm`` 2x; one that kept a single microbatch moves
+    ``m``."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import TokenLoader
+    from repro_torch.models import LM
+    from repro_torch.models.params import leaves
+    from repro_torch.training import AdamWConfig, adamw_init, make_train_step
+    cfg = configs.get_smoke_config("olmo-1b")
+    lm = LM(cfg)
+    init = scale_leaves(lm.init(torch.Generator().manual_seed(seed),
+                                device="cpu"), TRAIN_CONDITIONING)
+    batch = TokenLoader(vocab=cfg.vocab, batch=4, seq_len=32,
+                        seed=seed).batch_at(0)
+    res = {}
+    for where, n in ((dev, 1), (dev, 2), ("cpu", 2)):
+        p = _on(where, init)
+        step = make_train_step(lm, opt_cfg=AdamWConfig(lr=1e-3),
+                               microbatches=n)
+        p, o, m = step(p, adamw_init(p), _on(where, batch))
+        res[(str(where), n)] = (p, o, float(m["loss"]),
+                                float(m["grad_norm"]))
+    one, two, cpu = res[(str(dev), 1)], res[(str(dev), 2)], res[("cpu", 2)]
+    worst, params_ok = 0.0, True
+    for a, b in zip(leaves(one[0]), leaves(two[0])):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        worst = max(worst, float(np.abs(a - b).max()))
+        params_ok &= bool(np.allclose(b, a, rtol=2e-4, atol=2e-5))
+    gn_rel = abs(two[3] - one[3]) / one[3]
+    state_rel = {k: _state_rel(two[1][k], one[1][k]) for k in ("m", "v")}
+    cpu_gn_rel = abs(two[3] - cpu[3]) / cpu[3]
+    err, margin, cpu_ok = _tree_margin(
+        {"params": two[0], "m": two[1]["m"], "v": two[1]["v"]},
+        {"params": cpu[0], "m": cpu[1]["m"], "v": cpu[1]["v"]}, 1e-4)
+    ok = (params_ok and gn_rel <= 1e-5 and max(state_rel.values()) <= 1e-5
+          and cpu_gn_rel <= 1e-5 and cpu_ok)
+    return {"arch": "olmo-1b", "batch": 4, "microbatches": [1, 2],
+            "loss": [one[2], two[2]], "grad_norm": [one[3], two[3]],
+            "params_max_abs_diff": worst,
+            "within_rtol_2e-4_atol_2e-5": params_ok,
+            "grad_norm_rel": gn_rel, "state_rel": state_rel,
+            "vs_cpu": {"grad_norm": cpu[3], "grad_norm_rel": cpu_gn_rel,
+                       "leaf_max_abs_err": err,
+                       "leaf_tolerance_share": margin, "leaves_ok": cpu_ok},
+            "ok": ok}
+
+
+def train_resume_check(dev, ckpt_dir: str, seed: int) -> dict:
+    """``TrainLoop`` on the card, olmo-1b smoke: 4 steps straight against
+    2 steps, a ``Checkpointer`` save, a fresh restore onto the card and 2
+    more; parameters and optimizer state must be bit-equal. Runs under
+    ``torch.use_deterministic_algorithms(True)`` (the script sets
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` before the card is touched), so
+    no backward pass sums with atomics in a varying order."""
+    import shutil
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import TokenLoader
+    from repro_torch.models import LM
+    from repro_torch.models.params import leaves
+    from repro_torch.training import (AdamWConfig, TrainLoop, adamw_init,
+                                      make_train_step)
+    cfg = configs.get_smoke_config("olmo-1b")
+    lm = LM(cfg)
+    loader = TokenLoader(vocab=cfg.vocab, batch=2, seq_len=32, seed=seed,
+                         device=dev)
+    step = make_train_step(lm, opt_cfg=AdamWConfig(lr=1e-3, warmup_steps=2))
+    init = lm.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        p = _on(dev, init)
+        p_a, o_a, h_a = TrainLoop(lm, loader, step).run(p, adamw_init(p), 0,
+                                                        4, log_every=0)
+        ck = Checkpointer(ckpt_dir)
+        p = _on(dev, init)
+        TrainLoop(lm, loader, step, checkpointer=ck, ckpt_every=2).run(
+            p, adamw_init(p), 0, 2, log_every=0)
+        ck.wait()
+        fresh = _on(dev, init)
+        state, start, _ = Checkpointer(ckpt_dir).restore(
+            {"params": fresh, "opt": adamw_init(fresh)})
+        p_c, o_c, h_2 = TrainLoop(lm, loader, step).run(
+            state["params"], state["opt"], start, 2, log_every=0)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    same = all(torch.equal(a, b) for a, b in zip(
+        leaves({"p": p_a, "o": o_a}), leaves({"p": p_c, "o": o_c})))
+    return {"arch": "olmo-1b", "steps": 4, "resumed_at": start,
+            "losses_straight": h_a, "losses_resumed": h_2,
+            "deterministic_algorithms": True,
+            "cublas_workspace_config": os.environ.get(
+                "CUBLAS_WORKSPACE_CONFIG"),
+            "bit_equal": same}
+
+
+def visited_pairs(S: int, q_chunk: int, kv_chunk: int, causal: bool) -> int:
+    """(query, key) pairs in the kv blocks ``flash_attention`` visits for
+    one sequence and head (``attention.kv_blocks`` of each q chunk),
+    whole blocks."""
+    from repro_torch.models.attention import kv_blocks
+    qc, kc = min(q_chunk, S), min(kv_chunk, S)
+    nk = -(-S // kc)
+    return sum((hi - lo) * qc * kc for lo, hi in (
+        kv_blocks(q_lo, qc, kc, nk, causal, None)
+        for q_lo in range(0, S, qc)))
+
+
+def train_step_work(lm, B: int, S: int) -> dict:
+    """What one training step of ``lm`` on (B, S) tokens must do, counted
+    from the shapes: the bfloat16 products (6 N T for the forward and the
+    backward of every parameter's product, the tied head included, plus
+    2 N_layers T for the per-unit recompute), the float32 attention
+    products over the visited blocks (QK^T and PV, 2 x 2 Dh flops a pair;
+    forward, recompute and a backward of twice the forward), the bytes
+    that must move (the parameters and both moments read once and written
+    once), and the model FLOPs of the MFU: 6 N T + 6 L S H Dh T (the
+    attention products' forward and backward over the causal half)."""
+    from repro_torch.models.params import count_params
+    cfg = lm.cfg
+    N = lm.param_count()
+    layers = count_params(lm.abstract_params()["segments"])
+    T = B * S
+    H, Dh, L = cfg.n_heads, cfg.head_dim, cfg.n_layers
+    pairs = visited_pairs(S, cfg.q_chunk, cfg.kv_chunk, cfg.causal)
+    attn_fwd = B * H * L * pairs * 2 * 2 * Dh
+    remat = 2 * layers * T if cfg.remat else 0
+    p_bytes = N * cfg.pdtype.itemsize
+    return {"params": N, "tokens": T,
+            "bf16_product_flops": 6 * N * T + remat,
+            "f32_attention_flops": 4 * attn_fwd,
+            "visited_pairs_per_head": pairs,
+            "bytes": 2 * (p_bytes + 2 * 4 * N),
+            "model_flops": 6 * N * T + 6 * L * S * H * Dh * T}
+
+
+def train_full_phase(dev, seed: int) -> None:
+    """olmo-1b at its published widths in bfloat16 with per-unit remat,
+    trained on ``TokenLoader`` batches of TRAIN_B x TRAIN_S tokens with
+    ``AdamWConfig(lr=1e-3, warmup_steps=20)`` (``train_full``): step ms by
+    CUDA events (the median of 4 after a warm-up step), tokens/s, the
+    model-FLOP share of the bfloat16 peak, the step's bound, one step's
+    kernels and device idle share (torch.profiler), the clip and AdamW
+    update alone, peak bytes, each step's loss. Then the parameters and
+    optimizer state through a ``Checkpointer`` round trip
+    (``train_ckpt_full``), a float64 derivative check on the first 4
+    layers (deeper cuts reported, ``train_f64_grad``) and float32 layers
+    forward and backward against the CPU (``train_f32_layers``)."""
+    import shutil
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import TokenLoader
+    from repro_torch.models import LM
+    from repro_torch.models.params import leaves, map_tree
+    from repro_torch.training import (AdamWConfig, adamw_init, adamw_update,
+                                      clip_by_global_norm, loss_and_grads,
+                                      make_train_step)
+    cfg = configs.get_config("olmo-1b")
+    before = free_device()
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device=dev).manual_seed(seed),
+                     device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=20)
+    step = make_train_step(lm, opt_cfg=ocfg)
+    opt = adamw_init(params)
+    loader = TokenLoader(vocab=cfg.vocab, batch=TRAIN_B, seq_len=TRAIN_S,
+                         seed=seed, device=dev)
+    n_timed = 4
+    batches = [loader.batch_at(i) for i in range(n_timed + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, batches[0])
+    losses = [float(m["loss"])]
+    warm_s = time.perf_counter() - t0
+    ev, mets = [], []
+    for b in batches[1:]:
+        a_ev = torch.cuda.Event(enable_timing=True)
+        b_ev = torch.cuda.Event(enable_timing=True)
+        a_ev.record()
+        params, opt, m = step(params, opt, b)
+        b_ev.record()
+        ev.append((a_ev, b_ev))
+        mets.append(m)
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in ev]
+    losses += [float(m["loss"]) for m in mets]
+    grad_norms = [float(m["grad_norm"]) for m in mets]
+    peak = torch.cuda.max_memory_allocated()
+    # the clip and the update alone, on one step's gradients
+    _, _, grads = loss_and_grads(lm, params, batches[0])
+    upd_ms = time_ms(lambda: adamw_update(
+        ocfg, params, clip_by_global_norm(grads, ocfg.grad_clip)[0], opt),
+        reps=5, warmup=1)
+    del grads
+    prof = profile_call(lambda: step(params, opt, batches[1]))
+    prof.pop("port_kernel_ms")
+    work = train_step_work(lm, TRAIN_B, TRAIN_S)
+    med = statistics.median(step_ms)
+    t_ops = (work["bf16_product_flops"] / PEAKS.bf16_flop_per_s
+             + work["f32_attention_flops"] / PEAKS.fp32_flop_per_s) * 1e3
+    t_bytes = work["bytes"] / PEAKS.hbm_bytes_per_s * 1e3
+    finite = all(math.isfinite(x) for x in losses)
+    emit({"phase": "train_full", "arch": cfg.name, "dtype": cfg.param_dtype,
+          "remat": cfg.remat, "batch": TRAIN_B, "seq": TRAIN_S,
+          "reduced": [f"global batch 256 -> {TRAIN_B} sequences a step "
+                      f"(TRAIN_4K on one card)"],
+          "params": work["params"], "allocated_before": before,
+          "init_s": init_s, "warmup_step_s": warm_s,
+          "step_ms": step_ms, "step_ms_median": med,
+          "tokens_per_s": work["tokens"] / (med / 1e3),
+          "mfu": work["model_flops"] / (med / 1e3) / PEAKS.bf16_flop_per_s,
+          "bound_ms": max(t_ops, t_bytes),
+          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+          "work": work, "update_ms": upd_ms,
+          "max_memory_allocated": peak, "losses": losses,
+          "grad_norms": grad_norms, "profile": prof})
+    check(finite, f"olmo-1b training: non-finite loss {losses}")
+
+    # (f) parameters and optimizer state through a checkpoint
+    state = {"params": params, "opt": opt}
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(state))
+    ckpt_dir = os.path.join(ROOT, "build", "train_ckpt_full")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    free_disk = shutil.disk_usage(ckpt_dir).free
+    check(free_disk > 2 * nbytes, f"checkpoint round trip: {free_disk} "
+                                  f"bytes free for {nbytes}")
+    ck = Checkpointer(ckpt_dir, keep=1)
+    t0 = time.perf_counter()
+    ck.save(len(losses), state)
+    saved_s = time.perf_counter() - t0
+    ck.wait()
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, bstep, _ = Checkpointer(ckpt_dir).restore(state)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    same = all(torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                           else a, b.view(torch.int16)
+                           if b.dtype == torch.bfloat16 else b)
+               and a.dtype == b.dtype
+               for a, b in zip(leaves(back), leaves(state)))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del back
+    emit({"phase": "train_ckpt_full", "arch": cfg.name, "bytes": nbytes,
+          "leaves": len(leaves(state)), "step": bstep,
+          "save_returned_s": saved_s, "write_s": write_s, "read_s": read_s,
+          "bit_equal": same})
+    check(same, "olmo-1b checkpoint round trip: a leaf changed")
+    del state, opt
+    params_cpu = map_tree(lambda t: t.cpu(), params)
+    del params, lm
+    free_device()
+    train_f64_grad_check(dev, cfg, params_cpu, seed)
+    train_f32_layer_checks(dev, cfg, params_cpu, seed)
+
+
+# Depths below the full 16 and step sizes at which the float64 directional
+# derivative of olmo-1b is reported beside the held 4-layer check.
+F64_GRAD_REPORT_LAYERS = (8, 12)
+F64_GRAD_REPORT_STEPS = (1e-4, 1e-5, 1e-6, 1e-7, 1e-8, 1e-9, 1e-10)
+
+
+def train_f64_grad_check(dev, cfg, params_cpu, seed: int) -> None:
+    """Float64 ``train_loss`` of the first 4 layers of full-width
+    olmo-1b (``cut_params``; B = 2, S = 128): autograd's <g, d> for a
+    seeded unit direction d (a normal draw over every leaf, scaled to norm
+    1) against the fourth-order central difference (8 (L(h) - L(-h)) -
+    (L(2h) - L(-2h))) / 12h at h = 1e-5, L(t) = L(p + t d), held within
+    1e-6 relative. The two-point central difference (L(h) - L(-h)) / 2h
+    is reported at h = 1e-3 to 1e-6: under the reference's init the loss
+    is strongly curved, its truncation error is ~6e5 h^2 relative (5e-5
+    at h = 1e-5) while its rounding error is ~3e-13 / h, so no two-point
+    step clears 1e-6 with room, while the fourth-order one's truncation is
+    O(h^4). Depths 8, 12 and the full 16 are reported with the central,
+    forward and backward differences at h = 1e-4 to 1e-10
+    (``F64_GRAD_REPORT_STEPS``), beside the loss's rounding floor: its
+    move between two evaluations at one point and under a step of 1e-12
+    (about one float64 ulp of the weights)."""
+    import torch
+    from repro_torch.data import TokenLoader
+    from repro_torch.models import LM
+    from repro_torch.models.params import leaves, map_tree
+    from repro_torch.training import loss_and_grads
+    batch = TokenLoader(vocab=cfg.vocab, batch=2, seq_len=128, seed=seed,
+                        device=dev).batch_at(0)
+
+    def directional(n_layers, hs):
+        c64 = cfg.scaled(n_layers=n_layers, param_dtype="float64",
+                         activ_dtype="float64")
+        lm64 = LM(c64)
+        p = map_tree(lambda t: t.to(dev, torch.float64),
+                     cut_params(params_cpu, LM(cfg), lm64)
+                     if n_layers < cfg.n_layers else params_cpu)
+        gen = torch.Generator(device=dev).manual_seed(seed + 3)
+        d = map_tree(lambda t: torch.randn(t.shape, generator=gen,
+                                           device=dev, dtype=t.dtype), p)
+        norm = torch.sqrt(sum(torch.sum(x * x) for x in leaves(d)))
+        d = map_tree(lambda x: x / norm, d)
+        loss, _, g = loss_and_grads(lm64, p, batch)
+        gd = float(sum(torch.sum(a * b) for a, b in zip(leaves(g),
+                                                         leaves(d))))
+        del g
+        with torch.no_grad():
+            at = lambda t: float(lm64.train_loss(
+                map_tree(lambda a, b: a + t * b, p, d), batch)[0])
+            two, l0 = {}, at(0.0)
+            # the loss's move under a change of about one float64 ulp in
+            # the weights, and between two evaluations at one point
+            noise = {"repeat": abs(at(0.0) - l0),
+                     "t_1e-12": max(abs(at(t) - l0) for t in (1e-12, -1e-12))}
+            for h in hs:
+                up, down = at(h), at(-h)
+                fd = (up - down) / (2 * h)
+                two[str(h)] = {"central_difference": fd,
+                               "rel_err": abs(fd - gd) / abs(gd),
+                               "forward": (up - l0) / h,
+                               "backward": (l0 - down) / h}
+            h = 1e-5
+            fd4 = (8 * (at(h) - at(-h)) - (at(2 * h) - at(-2 * h))) / (12 * h)
+        del p, d
+        free_device()
+        return {"layers": n_layers, "loss": float(loss),
+                "autograd_directional": gd, "loss_noise": noise,
+                "two_point_by_step": two,
+                "fourth_order_h": h, "fourth_order": fd4,
+                "rel_err": abs(fd4 - gd) / abs(gd)}
+
+    held = directional(4, (1e-3, 1e-4, 1e-5, 1e-6))
+    deeper = [directional(n, F64_GRAD_REPORT_STEPS)
+              for n in F64_GRAD_REPORT_LAYERS + (cfg.n_layers,)]
+    rel = held["rel_err"]
+    emit({"phase": "train_f64_grad", "arch": cfg.name, "batch": [2, 128],
+          "held": held, "rel_err": rel, "within_1e-6": rel <= 1e-6,
+          "deeper_reported": deeper,
+          "reduced": [f"n_layers {cfg.n_layers} -> 4 (held; 8, 12 and "
+                      f"{cfg.n_layers} reported)"]})
+    check(rel <= 1e-6, f"olmo-1b float64: autograd's directional "
+                       f"derivative {held['autograd_directional']} off the "
+                       f"fourth-order central difference by {rel} "
+                       f"relative")
+
+
+def layer_fwd_bwd(lp, x, cot, desc, cfg):
+    """(output, aux, gradients of sum(output * cot) + aux with respect to
+    x and every leaf of ``lp``, in :func:`repro_torch.models.params.leaves`
+    order) of one layer in ``mode="train"``."""
+    import torch
+    from repro_torch.models.params import leaves, map_tree
+    from repro_torch.models.transformer import layer_apply
+    lp = map_tree(lambda t: t.detach().requires_grad_(True), lp)
+    x = x.detach().requires_grad_(True)
+    pos = torch.arange(x.shape[1], device=x.device)
+    with torch.enable_grad():
+        y, _, aux = layer_apply(lp, x, desc, cfg=cfg, mode="train",
+                                cache=None, positions=pos, cur_pos=None)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+        grads = torch.autograd.grad(torch.sum(y * cot) + aux,
+                                    [x] + leaves(lp), allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip([x] + leaves(lp), grads)]
+    return y.detach(), aux.detach(), grads
+
+
+def train_f32_layer_checks(dev, cfg, params_cpu, seed: int) -> None:
+    """At full width in float32, one layer forward and backward on the
+    card and on the CPU from the same input and cotangent: olmo-1b's
+    ``attn+dense`` (its first layer, on the embedded tokens) and
+    qwen3-moe-30b-a3b's ``attn+moe`` (a seeded layer on a normal input, at
+    a capacity factor that drops nothing, aux included). The output, the
+    aux and the gradients of the input and of every parameter within
+    :func:`_close` at 1e-3 of the CPU's."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.params import init_tree, map_tree
+    from repro_torch.models.transformer import LayerDesc, layer_meta
+    gen = torch.Generator().manual_seed(seed + 5)
+    lines = {}
+
+    def held(kind, cfg_, lp, x):
+        t0 = time.perf_counter()
+        cot = torch.randn(x.shape, generator=gen)
+        want = layer_fwd_bwd(lp, x, cot, LayerDesc(*kind.split("+")), cfg_)
+        got = layer_fwd_bwd(_on(dev, lp), x.to(dev), cot.to(dev),
+                            LayerDesc(*kind.split("+")), cfg_)
+        rows = {}
+        for name, a, b in (("out", got[0], want[0]),
+                           ("aux", got[1], want[1])):
+            err, ok = _close(a.cpu().numpy(), b.numpy(), 1e-3)
+            rows[name] = {"max_abs_err": err, "ok": ok,
+                          "share": _margin(a.cpu().numpy(), b.numpy(), 1e-3)}
+        err, margin, ok = _tree_margin(got[2], want[2], 1e-3)
+        rows["grads"] = {"max_abs_err": err, "ok": ok, "share": margin,
+                         "count": len(want[2])}
+        rows["seconds"] = time.perf_counter() - t0
+        lines[kind] = rows
+
+    f32 = cfg.scaled(param_dtype="float32", activ_dtype="float32")
+    lp = map_tree(lambda t: t[0].to(torch.float32),
+                  params_cpu["segments"][0])["L0"]
+    toks = torch.randint(0, cfg.vocab, (2, 64), generator=gen)
+    x = params_cpu["embed"]["table"].to(torch.float32)[toks]
+    held("attn+dense", f32, lp, x)
+    del lp, x
+    moe = configs.get_config("qwen3-moe-30b-a3b")
+    moe32 = moe.scaled(param_dtype="float32", activ_dtype="float32",
+                       capacity_factor=moe.n_experts / moe.top_k)
+    lp = init_tree(layer_meta(moe32, LayerDesc("attn", "moe")),
+                   torch.Generator(device=dev).manual_seed(seed + 7), dev)
+    lp = map_tree(lambda t: t.cpu(), lp)
+    free_device()
+    x = torch.randn(2, 32, moe.d_model, generator=gen)
+    held("attn+moe", moe32, lp, x)
+    del lp
+    free_device()
+    ok = all(r["ok"] for rows in lines.values() for r in rows.values()
+             if isinstance(r, dict))
+    emit({"phase": "train_f32_layers", "layers": lines,
+          "moe_capacity_factor": moe32.capacity_factor,
+          "inputs": {"attn+dense": [2, 64], "attn+moe": [2, 32]},
+          "within_1e-3_of_cpu": ok})
+    check(ok, f"float32 training layers off the CPU's: {lines}")
+
+
+# (g)'s runs of the training driver, (argv, whether the loss must fall).
+# TokenLoader's documents are random walks over the vocabulary (4
+# successors a token, no skew in the tokens' frequencies), so at the
+# 100m preset's 32,768 tokens 30 steps of 8 x 256 fresh tokens see each
+# bigram about 0.5 times and the loss does not fall (reported). With
+# --batch 512 (the loader's n_docs) every step takes the same 512
+# documents, which the model learns within 30 steps, as the reference's
+# own loss test repeats its 4 batches (held).
+TRAIN_DRIVER_RUNS = ((["--preset", "100m", "--steps", "30"], False),
+                     (["--preset", "100m", "--steps", "30", "--batch",
+                       "512", "--seq", "16"], True),
+                     (["--preset", "smoke", "--steps", "5", "--seq", "64"],
+                      False))
+
+
+def train_driver_checks(dev) -> None:
+    """``launch.train.main`` on the card (``TRAIN_DRIVER_RUNS``): each run
+    to its end with finite losses; where held, the mean loss of the last
+    5 steps below that of the first 5."""
+    import shutil
+    import numpy as np
+    from repro_torch.launch import train
+    ckpt = os.path.join(ROOT, "build", "train_driver_ckpt")
+    for argv, held in TRAIN_DRIVER_RUNS:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        t0 = time.perf_counter()
+        res = train.main(argv + ["--ckpt-dir", ckpt])
+        sec = time.perf_counter() - t0
+        losses = res.pop("losses")
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        emit({"phase": "train_driver", "argv": argv, "main_s": sec,
+              "first5_mean": first, "last5_mean": last, "falls": last < first,
+              "held": held, "losses": losses, **res})
+        steps = int(argv[argv.index("--steps") + 1])
+        check(res["steps"] == steps and all(np.isfinite(losses)),
+              f"launch.train {argv}: {res['steps']} steps, losses {losses}")
+        check(not held or last < first,
+              f"launch.train {argv}: the last 5 losses' mean {last} is not "
+              f"below the first 5's {first}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def train_phase(dev, seed: int) -> None:
+    """Training on the card: (a) one train step card = CPU on every smoke
+    config, (b) microbatches, (c) a bit-equal resume, then olmo-1b at full
+    width (:func:`train_full_phase`: the timed run, (f) the checkpoint
+    round trip, (d) the float64 derivative check, (e) float32 layers
+    forward and backward), then (g) the training driver."""
+    from repro_torch import configs
+    for arch in configs.ARCH_NAMES:
+        rep = train_step_card_vs_cpu(dev, arch, seed)
+        emit({"phase": "train_smoke", **rep})
+        check(rep["metrics_ok"] and rep["leaves_ok"],
+              f"{arch} train step: card off the CPU: {rep}")
+    rep = train_microbatch_check(dev, seed)
+    emit({"phase": "train_microbatch", **rep})
+    check(rep["ok"], f"microbatches=2 off microbatches=1 or off the "
+                     f"CPU: {rep}")
+    rep = train_resume_check(dev, os.path.join(ROOT, "build",
+                                               "train_resume_ckpt"), seed)
+    emit({"phase": "train_resume", **rep})
+    check(rep["bit_equal"], "TrainLoop resumed from a checkpoint differs "
+                            "from the unbroken run")
+    free_device()
+    train_full_phase(dev, seed)
+    train_driver_checks(dev)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -2830,6 +3471,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    # the train phase's resume check runs cuBLAS under
+    # torch.use_deterministic_algorithms, which needs this set before
+    # the card's first product
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     import torch
     if not torch.cuda.is_available():
@@ -2889,6 +3534,9 @@ def main() -> int:
         baselines_phase(dev, args.baselines_n, Qn, k, args.seed)
     if "lm" in phases:
         lm_phase(dev, args.seed)
+    if "train" in phases:
+        train_phase(dev, args.seed)
+        free_device()
     if "trace" in phases:
         phases.update(("flat", "graph"))
     if "quant_flat" in phases:

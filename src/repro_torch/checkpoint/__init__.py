@@ -1,3 +1,4 @@
+from .checkpointer import Checkpointer
 from .index_io import IndexIOError
 
-__all__ = ["IndexIOError"]
+__all__ = ["Checkpointer", "IndexIOError"]

@@ -9,7 +9,12 @@ into the port, without importing the reference:
   then serves as it is, without quantizing again;
 * :func:`lm_params_from_arrays` turns the reference LM's parameter tree,
   its leaves handed over as numpy, into the port's LM parameters: the
-  layouts are the same, so this is a rename and a copy, never a transpose.
+  layouts are the same, so this is a rename and a copy, never a transpose;
+  :func:`opt_state_from_arrays` does the same for the reference's AdamW
+  state ``{"m", "v", "step"}``;
+* :func:`arrays_from_tree` goes the other way: a port parameter tree or
+  optimizer state as numpy leaves in the reference's tree, ready for
+  ``jax.tree.map(jnp.asarray, ...)``.
 """
 from __future__ import annotations
 
@@ -123,16 +128,10 @@ def _host_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def lm_params_from_arrays(cfg, tree, device=None):
-    """The port's parameter tree for ``LM(cfg)`` from the reference's.
-
-    ``tree`` is the reference's parameter pytree with numpy leaves (nested
-    dicts and lists, e.g. ``jax.tree.map(np.asarray, params)``), or the
-    ``(key_path, leaf)`` pairs that ``jax.tree_util.tree_flatten_with_path``
-    gives. Each leaf is copied to ``device`` (``None`` means ``"cuda"``) in
-    the config's parameter dtype. A missing or unknown path raises
-    ``KeyError``, a leaf of another shape ``ValueError``. The result goes
-    to ``LM.set_params`` or ``ServeEngine(lm, params)``."""
+def _carry(cfg, tree, device, dtype=None):
+    """The port's tree in ``LM(cfg)``'s parameter layout from the
+    reference's (see :func:`lm_params_from_arrays`), each leaf in
+    ``dtype`` or, for ``None``, its parameter's dtype."""
     from .models.transformer import LM
     device = resolve_device(device)
     metas = LM(cfg).abstract_params()
@@ -146,7 +145,7 @@ def lm_params_from_arrays(cfg, tree, device=None):
     missing = sorted(name(p) for p in want if p not in have)
     unknown = sorted(name(p) for p in have if p not in want)
     if missing or unknown:
-        raise KeyError(f"lm_params_from_arrays({cfg.name!r}): missing "
+        raise KeyError(f"{cfg.name}: missing "
                        f"{missing}, unknown {unknown}")
     out = {}
     for path, m in want.items():
@@ -154,7 +153,7 @@ def lm_params_from_arrays(cfg, tree, device=None):
         if tuple(t.shape) != m.shape:
             raise ValueError(f"{name(path)}: shape {tuple(t.shape)}, "
                              f"{cfg.name} needs {m.shape}")
-        out[path] = t.to(device=device, dtype=m.dtype)
+        out[path] = t.to(device=device, dtype=dtype or m.dtype)
 
     def build(t, prefix=()):
         if isinstance(t, dict):
@@ -164,3 +163,44 @@ def lm_params_from_arrays(cfg, tree, device=None):
         return out[prefix]
 
     return build(metas)
+
+
+def lm_params_from_arrays(cfg, tree, device=None):
+    """The port's parameter tree for ``LM(cfg)`` from the reference's.
+
+    ``tree`` is the reference's parameter pytree with numpy leaves (nested
+    dicts and lists, e.g. ``jax.tree.map(np.asarray, params)``), or the
+    ``(key_path, leaf)`` pairs that ``jax.tree_util.tree_flatten_with_path``
+    gives. Each leaf is copied to ``device`` (``None`` means ``"cuda"``) in
+    the config's parameter dtype. A missing or unknown path raises
+    ``KeyError``, a leaf of another shape ``ValueError``. The result goes
+    to ``LM.set_params`` or ``ServeEngine(lm, params)``."""
+    return _carry(cfg, tree, device)
+
+
+def opt_state_from_arrays(cfg, state, device=None):
+    """The port's AdamW state (:func:`repro_torch.training.adamw_init`'s
+    layout) for ``LM(cfg)`` from the reference's ``{"m", "v", "step"}``
+    with numpy leaves: ``m`` and ``v`` carried as
+    :func:`lm_params_from_arrays` carries a parameter tree, in float32;
+    ``step`` an int32 scalar."""
+    dev = resolve_device(device)
+    return {"m": _carry(cfg, state["m"], dev, torch.float32),
+            "v": _carry(cfg, state["v"], dev, torch.float32),
+            "step": _host_tensor(state["step"]).to(device=dev,
+                                                   dtype=torch.int32)}
+
+
+def arrays_from_tree(tree):
+    """A port tree (parameters, an optimizer state, gradients) as the
+    reference's tree with numpy leaves: dicts and lists kept, each tensor
+    copied to the host. numpy has no bfloat16 of its own, so a bfloat16
+    leaf comes back as float32, which holds it exactly."""
+    if isinstance(tree, dict):
+        return {k: arrays_from_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [arrays_from_tree(v) for v in tree]
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy().copy()

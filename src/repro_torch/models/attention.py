@@ -14,7 +14,12 @@ inputs (float64 inputs keep float64 throughout, see
 Cross-attention (``is_cross`` / ``cross_memory``, the encoder-decoder
 configs) takes its keys and values from the encoder's output at prefill
 and from their cached projections at decode, with no rope and no mask.
-Training (``mode="train"``) waits for the port's training slice.
+
+``mode="train"`` is the prefill's arithmetic under autograd, with no
+cache. Training skips the kv blocks a causal or windowed q chunk cannot
+see, as the prefill does; the reference visits and masks every block in
+training (its loop bound must be static to differentiate), which gives
+the same result and the same gradient.
 """
 from __future__ import annotations
 
@@ -37,6 +42,19 @@ def _block_mask(q_pos, k_pos, causal: bool, window: Optional[int]):
     if window is not None and window > 0:
         m &= q_pos[:, None] - k_pos[None, :] < window
     return m
+
+
+def kv_blocks(q_lo: int, q_chunk: int, kv_chunk: int, nk: int,
+              causal: bool, window: Optional[int]):
+    """The kv blocks [lo, hi) that the q chunk starting at position
+    ``q_lo`` can see: up to its last row's position when causal, from its
+    first row's window when windowed."""
+    lo, hi = 0, nk
+    if causal:
+        hi = min(nk, (q_lo + q_chunk - 1) // kv_chunk + 1)
+    if window is not None and window > 0:
+        lo = max(0, (q_lo - window + 1) // kv_chunk)
+    return lo, hi
 
 
 def _inv_sqrt(d: int) -> float:
@@ -86,12 +104,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
         q_lo = q_offset + qi * q_chunk
         q_pos = q_lo + torch.arange(q_chunk, device=dev)
         q_blk = qg[:, qi * q_chunk:(qi + 1) * q_chunk].to(acc_t)
-        lo, hi = 0, nk
-        if block_skip:
-            if causal:
-                hi = min(nk, (q_lo + q_chunk - 1) // kv_chunk + 1)
-            if window is not None and window > 0:
-                lo = max(0, (q_lo - window + 1) // kv_chunk)
+        lo, hi = (kv_blocks(q_lo, q_chunk, kv_chunk, nk, causal, window)
+                  if block_skip else (0, nk))
         m_i = torch.full((B, Hkv, G, q_chunk), NEG_INF, dtype=acc_t,
                          device=dev)
         l_i = torch.zeros((B, Hkv, G, q_chunk), dtype=acc_t, device=dev)
@@ -193,10 +207,11 @@ def _qk_normalize(p, q, k):
 
 def _cross_apply(p, x, *, cfg, mode: str, cache, cross_memory, kv_len):
     """Cross-attention: keys and values are projected from
-    ``cross_memory`` (the encoder's output, (B, enc_len, D)) at prefill and
-    returned as the cache; decode reads them from ``cache`` and leaves it
-    as it is. No rope, no causal mask; ``q_norm`` applies to the queries
-    only, and decode attends over every cached entry."""
+    ``cross_memory`` (the encoder's output, (B, enc_len, D)) at prefill,
+    and returned as the cache, and in training (no cache); decode reads
+    them from ``cache`` and leaves it as it is. No rope, no causal mask;
+    ``q_norm`` applies to the queries only, and decode attends over every
+    cached entry."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
@@ -217,23 +232,22 @@ def _cross_apply(p, x, *, cfg, mode: str, cache, cross_memory, kv_len):
                               softcap=cfg.attn_logit_softcap,
                               q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
                               kv_len=kv_len)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (k, v)
+    return (torch.einsum("bshk,hkd->bsd", out, p["wo"]),
+            None if mode == "train" else (k, v))
 
 
 def attn_apply(p, x, *, cfg, rope_theta: float, window: Optional[int],
                positions, mode: str, cache=None, cur_pos=None,
                kv_len=None, cross_memory=None, causal: bool = True,
                is_cross: bool = False):
-    """Self-attention in ``mode`` ``"prefill"`` (returns the prompt's (k, v)
-    as the new cache) or ``"decode"`` (writes this token's k and v into the
-    cache **in place**, at the slot :func:`cache_slot_and_mask` gives, and
-    returns the same cache tensors). With ``is_cross`` or a
-    ``cross_memory``, cross-attention (:func:`_cross_apply`). Returns
-    (out, new_cache)."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"attn_apply mode {mode!r}: training waits "
-                                  f"for the port's training slice (ROADMAP "
-                                  f"§1)")
+    """Self-attention in ``mode`` ``"train"`` (no cache: returns None),
+    ``"prefill"`` (returns the prompt's (k, v) as the new cache) or
+    ``"decode"`` (writes this token's k and v into the cache **in place**,
+    at the slot :func:`cache_slot_and_mask` gives, and returns the same
+    cache tensors). With ``is_cross`` or a ``cross_memory``,
+    cross-attention (:func:`_cross_apply`). Returns (out, new_cache)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"attn_apply mode {mode!r}")
     if is_cross or cross_memory is not None:
         return _cross_apply(p, x, cfg=cfg, mode=mode, cache=cache,
                             cross_memory=cross_memory, kv_len=kv_len)
@@ -264,7 +278,7 @@ def attn_apply(p, x, *, cfg, rope_theta: float, window: Optional[int],
                               softcap=cfg.attn_logit_softcap,
                               q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
                               kv_len=kv_len)
-        new_cache = (k, v)
+        new_cache = None if mode == "train" else (k, v)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, new_cache
 
@@ -288,18 +302,17 @@ def mla_meta(cfg, dtype):
 
 
 def mla_apply(p, x, *, cfg, positions, mode: str, cache=None, cur_pos=None):
-    """Latent attention. ``prefill`` expands the latent into per-head keys
-    (nope part from the latent, one shared rope part) and values and runs
-    :func:`flash_attention` with Dk = dn + dr against Dv; it returns the
-    prompt's (latent (B, S, kv_lora_rank), k_rope (B, S, qk_rope_dim)) as
-    the cache. ``decode`` writes this token's latent and rope key into the
-    caches **in place** at ``cur_pos`` and attends in the latent space
-    (the absorbed form: the query is taken through ``w_uk``, the context
-    back through ``w_uv``). Returns (y, new_cache)."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mla_apply mode {mode!r}: training waits "
-                                  f"for the port's training slice (ROADMAP "
-                                  f"§1)")
+    """Latent attention. ``prefill`` and ``train`` expand the latent into
+    per-head keys (nope part from the latent, one shared rope part) and
+    values and run :func:`flash_attention` with Dk = dn + dr against Dv; a
+    prefill returns the prompt's (latent (B, S, kv_lora_rank), k_rope (B,
+    S, qk_rope_dim)) as the cache, training None. ``decode`` writes this
+    token's latent and rope key into the caches **in place** at
+    ``cur_pos`` and attends in the latent space (the absorbed form: the
+    query is taken through ``w_uk``, the context back through ``w_uv``).
+    Returns (y, new_cache)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mla_apply mode {mode!r}")
     B, S, D = x.shape
     H = cfg.n_heads
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
@@ -346,6 +359,7 @@ def mla_apply(p, x, *, cfg, positions, mode: str, cache=None, cur_pos=None):
         qq = torch.cat([q_nope, q_rope], dim=-1)
         out = flash_attention(qq, k, v, causal=True, q_chunk=cfg.q_chunk,
                               kv_chunk=cfg.kv_chunk)
-        new_cache = (latent, k_rope[:, :, 0, :])
+        new_cache = (None if mode == "train"
+                     else (latent, k_rope[:, :, 0, :]))
     y = torch.einsum("bshv,hvd->bsd", out, p["wo"])
     return y, new_cache

@@ -2,9 +2,8 @@
 
 The port of the reference's ``repro.models.common``: the same parameter
 layouts (``(d_model, d_ff)`` MLP weights, a ``(vocab, d_model)`` embedding
-table) and the same arithmetic, norms and rotary angles in float32. The
-reference's ``chunked_softmax_xent`` is training and waits for the port's
-training slice (ROADMAP §1).
+table) and the same arithmetic, norms and rotary angles in float32, and
+the training loss's chunked cross entropy.
 """
 from __future__ import annotations
 
@@ -123,3 +122,26 @@ def logits_fn(head_params, embed_params, x, tied: bool):
         return x @ embed_params["table"].T
     return x @ head_params["w_out"]
 
+
+
+def chunked_softmax_xent(logits_fn_, x, labels, mask, chunk: int = 512):
+    """Cross entropy over the sequence in chunks of ``chunk`` positions
+    (and a shorter last one), to bound the float32 (B, C, V) intermediate
+    on huge vocabularies. ``logits_fn_``: (B, C, D) -> (B, C, V), computed
+    in x's dtype and then cast to float32; ``mask`` weighs each position.
+
+    Returns (the masked sum over max(total weight, 1), total weight)."""
+    S = x.shape[1]
+    chunk = min(chunk, S)
+    acc = acc_dtype(x.dtype)
+    tot = torch.zeros((), dtype=acc, device=x.device)
+    cnt = torch.zeros((), dtype=acc, device=x.device)
+    for lo in range(0, S, chunk):
+        lg = logits_fn_(x[:, lo:lo + chunk]).to(acc)
+        lse = torch.logsumexp(lg, dim=-1)
+        yc = labels[:, lo:lo + chunk].long()
+        gold = torch.gather(lg, -1, yc[..., None])[..., 0]
+        mc = mask[:, lo:lo + chunk].to(acc)
+        tot = tot + torch.sum((lse - gold) * mc)
+        cnt = cnt + torch.sum(mc)
+    return tot / torch.clamp(cnt, min=1.0), cnt

@@ -15,14 +15,18 @@ parameters and caches are stacked with the repeat axis first, and this
 port walks the repeats in a Python loop (the reference's
 ``scan_layers=False`` walk).
 Parameter layouts are the reference's, so its weights carry across by name
-(:func:`repro_torch.convert.lm_params_from_arrays`); deepseek-v3's ``mtp``
-block is declared for that reason, though only training reads it.
+(:func:`repro_torch.convert.lm_params_from_arrays`); only training reads
+deepseek-v3's ``mtp`` block.
 
-The encoder runs as a prefill whose caches are dropped (the reference
-runs it in ``mode="train"``, which differs from a prefill only in visiting
-every kv block, as a non-causal layer does anyway). Training
-(``train_loss``, the MoE load-balance loss, ``_mtp_loss``) waits for the
-training slice.
+Every mode (``train``, ``prefill``, ``decode``) walks the same segments.
+``train`` keeps no cache and runs under autograd: :meth:`LM.train_loss`
+is the next-token cross entropy, plus DeepSeek's multi-token-prediction
+loss (``_mtp_loss``) and the MoE load-balance loss where the config has
+them; with ``cfg.remat`` each unit of a stacked segment is recomputed in
+the backward pass (``torch.utils.checkpoint``), so only one unit's
+activations live at a time. Serving runs the encoder as a prefill whose
+caches are dropped, training in ``train`` mode (the reference's mode for
+it; the two differ only in the caches).
 """
 from __future__ import annotations
 
@@ -31,14 +35,15 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.engine import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
 from . import recurrent as rec
-from .common import (acc_dtype, embed, embed_meta, logits_fn, make_norm, mlp,
-                     mlp_meta, unembed_meta)
+from .common import (acc_dtype, chunked_softmax_xent, embed, embed_meta,
+                     logits_fn, make_norm, mlp, mlp_meta, unembed_meta)
 from .params import ParamMeta, count_params, init_tree, map_tree, meta
 
 
@@ -144,9 +149,10 @@ def layer_apply(lp, x, desc: LayerDesc, *, cfg: ModelConfig, mode: str,
     """One pre-norm block: mixer, then (in a ``cross`` layer)
     cross-attention over ``cross_memory``, then MLP (dense or MoE), each
     added to the residual. A cross layer's cache is ``{"self": mixer
-    cache, "cross": (k, v)}``. Returns (x, new_cache); the MoE's
-    load-balance loss is training's and is dropped here."""
+    cache, "cross": (k, v)}``. Returns (x, new_cache, aux): the MoE's
+    load-balance loss, a float32 scalar (0.0 for a dense MLP)."""
     _, norm = make_norm(cfg)
+    aux = 0.0
     if desc.cross and isinstance(cache, dict):
         cache, cross_cache = cache["self"], cache["cross"]
     else:
@@ -181,11 +187,11 @@ def layer_apply(lp, x, desc: LayerDesc, *, cfg: ModelConfig, mode: str,
         new_cache = {"self": new_cache, "cross": new_cross}
     h = norm(lp["norm2"], x)
     if desc.mlp == "moe":
-        h, _ = moe_mod.moe_apply(lp["mlp"], h, cfg=cfg,
-                                 capacity_factor=cfg.capacity_factor)
+        h, aux = moe_mod.moe_apply(lp["mlp"], h, cfg=cfg,
+                                   capacity_factor=cfg.capacity_factor)
     else:
         h = mlp(lp["mlp"], h, cfg.act)
-    return x + h, new_cache
+    return x + h, new_cache, aux
 
 
 # ---------------- cache construction ----------------
@@ -260,33 +266,46 @@ def segment_apply(seg_p, x, seg: Segment, *, cfg: ModelConfig, mode: str,
                   caches, positions, cur_pos, cross_memory=None,
                   kv_len=None):
     """Run one segment: its pattern once, or for each of its repeats the
-    repeat's slice of the stacked parameters and caches.
+    repeat's slice of the stacked parameters and caches. Returns (x, new
+    caches, the summed load-balance aux).
 
-    ``prefill`` returns the prompt's caches, stacked like the parameters.
-    ``decode`` updates ``caches`` in place (a repeat's slice is a view of
-    the stacked tensor) and returns them."""
+    ``train`` returns no caches; with ``cfg.remat`` each repeat of a
+    stacked segment runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint`` around its scanned unit). ``prefill`` returns the
+    prompt's caches, stacked like the parameters. ``decode`` updates
+    ``caches`` in place (a repeat's slice is a view of the stacked tensor)
+    and returns them."""
 
     def unit(lp, xx, cache_unit):
-        new_c = {}
+        new_c, aux = {}, 0.0
         for j, d in enumerate(seg.pattern):
             c = cache_unit[f"L{j}"] if cache_unit is not None else None
-            xx, new_c[f"L{j}"] = layer_apply(
+            xx, new_c[f"L{j}"], a = layer_apply(
                 lp[f"L{j}"], xx, d, cfg=cfg, mode=mode, cache=c,
                 positions=positions, cur_pos=cur_pos,
                 cross_memory=cross_memory, kv_len=kv_len)
-        return xx, new_c
+            aux = aux + a
+        return xx, new_c, aux
 
     if seg.repeats == 1:
-        return unit(seg_p, x, caches)
-    ncs = []
+        x, nc, aux = unit(seg_p, x, caches)
+        return x, None if mode == "train" else nc, aux
+    remat = mode == "train" and cfg.remat
+    ncs, aux = [], 0.0
     for r in range(seg.repeats):
         lp = map_tree(lambda t: t[r], seg_p)
         cu = map_tree(lambda t: t[r], caches) if caches is not None else None
-        x, nc = unit(lp, x, cu)
+        if remat:
+            x, nc, a = checkpoint(unit, lp, x, cu, use_reentrant=False)
+        else:
+            x, nc, a = unit(lp, x, cu)
         ncs.append(nc)
+        aux = aux + a
+    if mode == "train":
+        return x, None, aux
     if mode == "decode":
-        return x, caches
-    return x, map_tree(lambda *ts: torch.stack(ts), *ncs)
+        return x, caches, aux
+    return x, map_tree(lambda *ts: torch.stack(ts), *ncs), aux
 
 
 # ---------------- the model ----------------
@@ -359,9 +378,13 @@ class LM(nn.Module):
     ``vision_stub`` front end; arrays or tensors, moved to the parameters'
     device.
 
-    :meth:`prefill` and :meth:`decode_step` take a parameter tree first, as
-    the reference's do; ``None`` means the registered parameters. They run
-    under ``torch.inference_mode()`` on the parameters' device.
+    :meth:`train_loss`, :meth:`prefill` and :meth:`decode_step` take a
+    parameter tree first, as the reference's do; ``None`` means the
+    registered parameters (registered with ``requires_grad=False``, so a
+    training step hands :meth:`train_loss` a tree of leaves that require
+    gradients, see :func:`repro_torch.training.make_train_step`).
+    :meth:`prefill` and :meth:`decode_step` run under
+    ``torch.inference_mode()`` on the parameters' device.
     """
 
     def __init__(self, cfg: ModelConfig):
@@ -402,8 +425,7 @@ class LM(nn.Module):
                 "w": meta((cfg.frontend_dim, cfg.d_model), (None, "embed"),
                           cfg.pdtype)}
         if cfg.mtp:
-            # DeepSeek-V3's multi-token-prediction block: parameters only,
-            # so the reference's tree carries across; training reads them
+            # DeepSeek-V3's multi-token-prediction block (_mtp_loss)
             p["mtp"] = {
                 "proj": meta((2 * cfg.d_model, cfg.d_model), (None, "embed"),
                              cfg.pdtype),
@@ -474,22 +496,99 @@ class LM(nn.Module):
             emb = emb @ params["frontend_proj"]["w"].to(emb.dtype)
         return torch.cat([emb, tokens_x], dim=1)
 
-    def _encode(self, params, frames):
+    def _encode(self, params, frames, mode: str = "prefill"):
         """The encoder over ``frames`` (B, enc_len, frontend_dim): cast to
         the activation dtype, projected by ``frontend_proj``, the
-        non-causal layers at positions 0..enc_len-1 (run as a prefill whose
-        caches are dropped), then the encoder's final norm."""
+        non-causal layers at positions 0..enc_len-1 (in serving a prefill
+        whose caches are dropped; ``mode="train"`` in training), then the
+        encoder's final norm. The encoder has no experts, so the
+        reference's aux is zero and not returned."""
         cfg = self.enc_cfg
         x = self._on_device(params, frames).to(cfg.adtype)
         if "frontend_proj" in params:
             x = x @ params["frontend_proj"]["w"].to(x.dtype)
         positions = torch.arange(x.shape[1], device=x.device)
         for sp, seg in zip(params["encoder"]["segments"], self.enc_layout):
-            x, _ = segment_apply(sp, x, seg, cfg=cfg, mode="prefill",
-                                 caches=None, positions=positions,
-                                 cur_pos=None)
+            x, _, _ = segment_apply(sp, x, seg, cfg=cfg, mode=mode,
+                                    caches=None, positions=positions,
+                                    cur_pos=None)
         _, norm = make_norm(cfg)
         return norm(params["encoder"]["final_norm"], x)
+
+    # ----- train -----
+    def _logits_fn(self, params):
+        cfg = self.cfg
+        return lambda xc: logits_fn(params.get("head", {}), params["embed"],
+                                    xc, cfg.tie_embeddings)
+
+    def train_loss(self, params, batch: Dict[str, Any]):
+        """The training loss of ``batch`` (``tokens`` (B, S) and their
+        next-token ``labels`` (B, S); ``frames`` or ``patches`` as the
+        config needs; a label below 0 is not scored): the cross entropy
+        over every scored position (the patches' positions take label -1),
+        plus 0.3 x the multi-token-prediction loss for an ``mtp`` config
+        and 0.01 x the summed load-balance aux for a MoE config. Returns
+        (loss, metrics): the loss is a scalar in the accumulation dtype
+        under autograd; ``metrics`` holds ``xent``, ``aux``, ``tokens``
+        (the scored positions) and, with ``mtp``, ``mtp``, detached."""
+        cfg = self.cfg
+        params = self.params if params is None else params
+        tokens = self._on_device(params, batch["tokens"])
+        labels = self._on_device(params, batch["labels"])
+        x = self._embed_tokens(params, tokens)
+        acc = acc_dtype(x.dtype)
+        cross_memory = None
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self.enc_cfg is not None:
+            cross_memory = self._encode(params, batch["frames"], mode="train")
+        if cfg.frontend == "vision_stub":
+            x = self._frontend(params, batch, x)
+            pad = torch.full((labels.shape[0], x.shape[1] - labels.shape[1]),
+                             -1, dtype=labels.dtype, device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
+        positions = torch.arange(x.shape[1], device=x.device)
+        for sp, seg in zip(params["segments"], self.layout):
+            x, _, a = segment_apply(sp, x, seg, cfg=cfg, mode="train",
+                                    caches=None, positions=positions,
+                                    cur_pos=None, cross_memory=cross_memory)
+            aux_total = aux_total + a
+        _, norm = make_norm(cfg)
+        x = norm(params["final_norm"], x)
+        mask = (labels >= 0).to(acc)
+        loss, denom = chunked_softmax_xent(self._logits_fn(params), x,
+                                           torch.clamp(labels, min=0), mask)
+        metrics = {"xent": loss.detach(), "aux": aux_total.detach(),
+                   "tokens": denom.detach()}
+        if cfg.mtp:
+            mtp_loss = self._mtp_loss(params, x, tokens, labels, positions)
+            metrics["mtp"] = mtp_loss.detach()
+            loss = loss + 0.3 * mtp_loss
+        if cfg.n_experts:
+            loss = loss + 0.01 * aux_total
+        return loss, metrics
+
+    def _mtp_loss(self, params, h, tokens, labels, positions):
+        """DeepSeek-V3 multi-token prediction: one extra block predicts
+        token t + 2 from [norm(h_t) ; norm(emb(token_{t+1}))] projected to
+        d_model, through the final norm and the shared head."""
+        cfg = self.cfg
+        _, norm = make_norm(cfg)
+        h_in = norm(params["mtp"]["norm_h"], h[:, :-1])
+        e_in = norm(params["mtp"]["norm_e"],
+                    self._embed_tokens(params, tokens[:, 1:]))
+        x = (torch.cat([h_in, e_in], dim=-1)
+             @ params["mtp"]["proj"].to(h.dtype))
+        desc = LayerDesc("mla" if cfg.use_mla else "attn",
+                         "moe" if cfg.n_experts else "dense")
+        x, _, _ = layer_apply(params["mtp"]["layer"], x, desc, cfg=cfg,
+                              mode="train", cache=None,
+                              positions=positions[:-1], cur_pos=None)
+        x = norm(params["final_norm"], x)
+        lab = labels[:, 1:]
+        mask = (lab >= 0).to(acc_dtype(x.dtype))
+        loss, _ = chunked_softmax_xent(self._logits_fn(params), x,
+                                       torch.clamp(lab, min=0), mask)
+        return loss
 
     # ----- prefill -----
     @torch.inference_mode()
@@ -512,9 +611,9 @@ class LM(nn.Module):
         positions = torch.arange(x.shape[1], device=x.device)
         caches = []
         for sp, seg in zip(params["segments"], self.layout):
-            x, nc = segment_apply(sp, x, seg, cfg=cfg, mode="prefill",
-                                  caches=None, positions=positions,
-                                  cur_pos=None, cross_memory=cross_memory)
+            x, nc, _ = segment_apply(sp, x, seg, cfg=cfg, mode="prefill",
+                                     caches=None, positions=positions,
+                                     cur_pos=None, cross_memory=cross_memory)
             caches.append(nc)
         _, norm = make_norm(cfg)
         x = norm(params["final_norm"], x)
@@ -539,9 +638,10 @@ class LM(nn.Module):
         positions = torch.tensor([cur_pos], device=x.device)
         new_caches = []
         for sp, seg, cu in zip(params["segments"], self.layout, caches):
-            x, nc = segment_apply(sp, x, seg, cfg=cfg, mode="decode",
-                                  caches=cu, positions=positions,
-                                  cur_pos=cur_pos, cross_memory=cross_memory)
+            x, nc, _ = segment_apply(sp, x, seg, cfg=cfg, mode="decode",
+                                     caches=cu, positions=positions,
+                                     cur_pos=cur_pos,
+                                     cross_memory=cross_memory)
             new_caches.append(nc)
         _, norm = make_norm(cfg)
         x = norm(params["final_norm"], x)

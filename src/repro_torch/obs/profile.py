@@ -31,12 +31,15 @@ class DevicePeaks(NamedTuple):
     fp32_flop_per_s: float     # outside the tensor cores
     int8_op_per_s: float       # tensor cores, dense
     tf32_flop_per_s: float     # tensor cores, dense
+    bf16_flop_per_s: float     # tensor cores, dense
 
 
 # NVIDIA's data sheet, H100 SXM at its 700 W limit: HBM3, float32 on the
-# CUDA cores, int8 and TF32 on the tensor cores without sparsity.
+# CUDA cores, int8, TF32 and bfloat16 on the tensor cores without
+# sparsity.
 PEAKS: Dict[str, DevicePeaks] = {
-    "NVIDIA H100 80GB HBM3": DevicePeaks(3.35e12, 67e12, 1979e12, 495e12),
+    "NVIDIA H100 80GB HBM3": DevicePeaks(3.35e12, 67e12, 1979e12, 495e12,
+                                         989e12),
 }
 
 

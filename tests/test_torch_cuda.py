@@ -671,8 +671,8 @@ def test_serve_engine_on_cuda_equals_cpu(dev, arch):
     lm = LM(configs.get_smoke_config(arch))
     lm.init(torch.Generator().manual_seed(3), device="cpu")
     if lm.cfg.frontend:
-        lm.set_params(chip_smoke.scale_wq(lm.params,
-                                          chip_smoke.SMOKE_FRONT_WQ_SCALE))
+        lm.set_params(chip_smoke.scale_leaves(
+            lm.params, {"wq": chip_smoke.SMOKE_FRONT_WQ_SCALE}))
     # RWKV's chunk scan takes a multiple of its 16-token chunk
     P = 32 if arch == "rwkv6-7b" else 20
     rng = np.random.default_rng(3)
@@ -723,3 +723,39 @@ def test_serve_driver_on_cuda(dev):
     out = serve.main(["--requests", "8", "--n", "600"])
     assert out["device"] == "cuda" and out["served"] == 8
     assert out["non_empty"] == 8
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "gemma3-1b", "qwen3-32b",
+                                  "qwen1.5-110b", "qwen3-moe-30b-a3b",
+                                  "recurrentgemma-2b", "rwkv6-7b",
+                                  "deepseek-v3-671b",
+                                  "seamless-m4t-large-v2",
+                                  "llava-next-mistral-7b"])
+def test_train_step_on_cuda_equals_cpu(dev, arch):
+    """One ``make_train_step`` on the card and on the CPU from one CPU
+    init: loss and grad_norm within 1e-4 relative, every updated leaf
+    within 1e-4 (``chip_smoke.train_step_card_vs_cpu``)."""
+    rep = chip_smoke.train_step_card_vs_cpu(dev, arch, 0)
+    assert rep["metrics_ok"] and rep["leaves_ok"], rep
+
+
+def test_microbatched_train_step_on_cuda(dev):
+    rep = chip_smoke.train_microbatch_check(dev, 0)
+    assert rep["ok"], rep
+
+
+def test_train_loop_resume_on_cuda_is_bit_equal(dev, tmp_path, monkeypatch):
+    """4 steps straight against 2, a checkpoint, a restore and 2 more,
+    under ``torch.use_deterministic_algorithms`` (cuBLAS needs
+    ``CUBLAS_WORKSPACE_CONFIG`` for it)."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    rep = chip_smoke.train_resume_check(dev, str(tmp_path / "ckpt"), 0)
+    assert rep["bit_equal"], rep
+
+
+def test_train_driver_on_cuda(dev, tmp_path):
+    from repro_torch.launch import train
+    out = train.main(["--steps", "3", "--batch", "2", "--seq", "32",
+                      "--ckpt-dir", str(tmp_path)])
+    assert out["device"] == "cuda" and out["steps"] == 3
+    assert all(np.isfinite(out["losses"]))

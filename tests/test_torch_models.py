@@ -209,13 +209,24 @@ def test_every_config_constructs(arch):
 
 
 def test_attention_raises_on_training_mode():
+    """Since the training slice, ``mode="train"`` runs: self- and
+    cross-attention give the prefill's output and keep no cache. An
+    unknown mode raises."""
     cfg = tcfg.get_smoke_config("olmo-1b")
-    x = torch.zeros(1, 4, cfg.d_model)
+    gen = torch.Generator().manual_seed(0)
+    p = tparams.init_tree(tattn.attn_meta(cfg, torch.float32), gen, "cpu")
+    x = torch.randn(1, 4, cfg.d_model, generator=gen)
+    kw = dict(cfg=cfg, rope_theta=1e4, window=None,
+              positions=torch.arange(4))
     for cross in (None, x):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tattn.attn_apply({}, x, cfg=cfg, rope_theta=1e4, window=None,
-                             positions=torch.arange(4), mode="train",
-                             cross_memory=cross)
+        y, cache = tattn.attn_apply(p, x, mode="train", cross_memory=cross,
+                                    **kw)
+        want, _ = tattn.attn_apply(p, x, mode="prefill", cross_memory=cross,
+                                   **kw)
+        assert cache is None and torch.equal(y, want)
+        with pytest.raises(ValueError, match="mode"):
+            tattn.attn_apply(p, x, mode="training", cross_memory=cross,
+                             **kw)
 
 
 def test_init_registers_reference_paths_and_is_seeded():
