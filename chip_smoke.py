@@ -214,6 +214,27 @@ Phases, each printing one JSON object per line:
    default batch (reported) and with ``--batch 512 --seq 16`` (the same
    512 documents every step; the last 5 losses' mean below the first
    5's), and ``--preset smoke``.
+17. ``lm_mesh``: qwen3-moe-30b-a3b at full width on a mesh of ranks (no
+   hand-written kernel either). (a) ``ServeEngine(lm, params, mesh=)`` on
+   a one-rank NCCL process group, a (data 1, model 1) mesh, with the
+   model ``lm_moe_full`` holds (or, without ``lm``, one made from the same
+   seed): the MoE takes ``_moe_full_ep`` (``mesh.counts``) and the
+   bfloat16 tokens (B = 8, 128 + 32) are bit-equal to the mesh-less run.
+   (b) With the model freed, two ranks on the one card over gloo (NCCL
+   refuses two ranks on one GPU), a (data 1, model 2) mesh, started with
+   the ``spawn`` method: each draws its shard with ``init_tree(...,
+   mesh=)`` from the same seed; held: its parameter bytes equal the
+   metas' reckoning under ``SERVE_RULES`` and are at most 0.55 of the
+   whole; float32 layer 0 on the mesh (the MoE alone, and attention +
+   MoE through ``segment_apply``'s per-unit gather) within 1e-3 of the
+   scale of rank 0's mesh-less run on the gathered float32 weights, and
+   those gathered weights (all but the experts) equal to the mesh-less
+   model's layer 0 by order-free fingerprints taken before it was freed;
+   ``generate`` of the first 8 new tokens (each decode step gathers every
+   layer's attention leaves through the host) equal on both ranks.
+   Reported: the share of those tokens equal to the mesh-less bfloat16
+   run's, each rank's peak bytes, prefill and decode ms, the
+   collectives' calls and staged bytes, and the world-2 run's wall time.
 
 Launch counts are set to 0 just before each main-path run (flat, graph,
 each tier's flat and graph run, the ``trace`` phase's kernel calls, the
@@ -253,7 +274,7 @@ T_START = time.perf_counter()
 ALL_PHASES = ("env", "kernels", "scan_sweep", "gathered_sweep", "flat",
               "quant_flat", "graph", "quant_graph", "routes", "quant_routes",
               "trace", "streaming", "sharded", "serving", "baselines", "lm",
-              "train")
+              "lm_mesh", "train")
 # the card's published peaks (repro_torch.obs.profile.PEAKS), set in main
 PEAKS = None
 
@@ -2160,10 +2181,11 @@ def moe_routing_records():
     from repro_torch.models import moe
     records, apply = [], moe.moe_apply
 
-    def recorded(p, x, *, cfg, capacity_factor=1.25):
+    def recorded(p, x, *, cfg, capacity_factor=1.25, **on_mesh):
         records.append(moe.routing(p, x, cfg=cfg,
                                    capacity_factor=capacity_factor))
-        return apply(p, x, cfg=cfg, capacity_factor=capacity_factor)
+        return apply(p, x, cfg=cfg, capacity_factor=capacity_factor,
+                     **on_mesh)
 
     moe.moe_apply = recorded
     try:
@@ -2182,7 +2204,7 @@ def lm_timed_run(dev, lm, rng, B: int, P: int, n_new: int, max_len: int,
     profiled prefill and decode step. ``front`` holds the batch's frames
     or patches (:func:`front_inputs`); patches count toward the prompt, so
     decoding starts at P + their number. Returns (report, routing
-    records)."""
+    records, the prompt, ``generate``'s result)."""
     import numpy as np
     import torch
     from repro_torch.serving import ServeEngine, seed_caches
@@ -2257,7 +2279,7 @@ def lm_timed_run(dev, lm, rng, B: int, P: int, n_new: int, max_len: int,
                        "frontend_dim": cfg.frontend_dim})
     if enc_len:
         report["encode_ms"] = ev[2].elapsed_time(ev[3])
-    return report, routing
+    return report, routing, toks, gen
 
 
 def moe_routing_report(lm, routing, B: int, P: int, read_bytes: int) -> dict:
@@ -2507,7 +2529,8 @@ def f64_teacher_forcing(dev, cfg64, params_cpu, toks, front,
             "logits_moved_by_1e-12_weights": moved}
 
 
-def lm_full_phase(dev, phase: str, arch: str, depth, seed: int, rng) -> None:
+def lm_full_phase(dev, phase: str, arch: str, depth, seed: int, rng,
+                  with_mesh: bool = False):
     """``arch`` at its published widths and full depth in bfloat16 on the
     card, seeded random weights (:func:`lm_timed_run`; a MoE's routing
     with :func:`moe_routing_report`), with ``FULL_ENC_LEN`` frames for an
@@ -2519,7 +2542,10 @@ def lm_full_phase(dev, phase: str, arch: str, depth, seed: int, rng) -> None:
     (the encoder's, the cross layers' and the front end's projection too)
     in float32 on the card within 1e-3 of the CPU's from the CPU's
     input. The decode bound counts what a decode step reads
-    (:func:`decode_read_bytes`)."""
+    (:func:`decode_read_bytes`). With ``with_mesh``, the served model
+    also runs on a one-rank NCCL mesh (:func:`mesh_world1`), and the
+    return is (that check, the prompt, the mesh-less tokens) for
+    :func:`mesh_world2`; ``None`` otherwise."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -2542,8 +2568,10 @@ def lm_full_phase(dev, phase: str, arch: str, depth, seed: int, rng) -> None:
     lm.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    report, routing = lm_timed_run(dev, lm, rng, B, P, n_new, max_len,
-                                   front)
+    report, routing, prompt, gen = lm_timed_run(dev, lm, rng, B, P, n_new,
+                                                max_len, front)
+    world1 = mesh_world1(dev, lm, prompt, gen, n_new, max_len) \
+        if with_mesh else None
     line = {"phase": phase, "arch": arch, "dtype": cfg.param_dtype,
             "layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
             "params": lm.param_count(),
@@ -2613,6 +2641,7 @@ def lm_full_phase(dev, phase: str, arch: str, depth, seed: int, rng) -> None:
                      f"{layer_errs}")
     del params_cpu
     free_device()
+    return (world1, prompt, gen.tokens) if with_mesh else None
 
 
 def olmo_held_checks(dev, cfg, params, rng, seed: int) -> None:
@@ -2728,7 +2757,7 @@ def olmo_held_checks(dev, cfg, params, rng, seed: int) -> None:
                                       / exact.abs().max())})
 
 
-def lm_phase(dev, seed: int) -> None:
+def lm_phase(dev, seed: int, with_mesh: bool = False) -> None:
     """The LM and ``ServeEngine`` on the card: smoke-size parity with the
     CPU (every ported family, front ends included), olmo-1b at full width
     in bfloat16 (init, prefill, decode per token against its byte bound,
@@ -2789,7 +2818,7 @@ def lm_phase(dev, seed: int) -> None:
     init_s = time.perf_counter() - t0
     pbytes = tree_bytes(lm.abstract_params())
     read = decode_read_bytes(lm, B, max_len, 0)
-    report, _ = lm_timed_run(dev, lm, rng, B, P, n_new, max_len)
+    report, _, _, _ = lm_timed_run(dev, lm, rng, B, P, n_new, max_len)
     peak = torch.cuda.max_memory_allocated()
     # the attention yardstick: the port's flash_attention against torch's
     # scaled_dot_product_attention at the prefill's shapes (not on the path)
@@ -2817,7 +2846,10 @@ def lm_phase(dev, seed: int) -> None:
     # 4. full width: the MoE, the hybrid recurrent model, RWKV-6, the
     # encoder-decoder and the vision front end
     for phase, arch, depth in LM_FULL:
-        lm_full_phase(dev, phase, arch, depth, seed, rng)
+        mesh_args = lm_full_phase(dev, phase, arch, depth, seed, rng,
+                                  with_mesh=with_mesh and arch == MESH_ARCH)
+        if mesh_args:
+            lm_mesh_phase(dev, seed, *mesh_args)
 
     # 5. the serving driver, in-process, in each mode, and with the MoE,
     # the encoder-decoder and the vision front end. At the driver's 1,500
@@ -2855,6 +2887,332 @@ def lm_phase(dev, seed: int) -> None:
                   f"launch.serve {mode}: routes {res['routes']}, launches "
                   f"{launches}; the {route} route must launch "
                   f"{route_kernels[route]}")
+
+# ---- the LM on a mesh of ranks -----------------------------------------------
+
+# the served model split over ranks, and its mesh-less run's shape
+MESH_ARCH = "qwen3-moe-30b-a3b"
+MESH_B, MESH_P, MESH_NEW, MESH_MAX_LEN = 8, 128, 32, 256
+# world 2: a (data 1, model 2) mesh, two processes on the one card over
+# gloo (NCCL refuses two ranks on one GPU), joined within these limits
+MESH2_SHAPE = (1, 2)
+# new tokens of the world-2 run: each decode step there gathers every
+# layer's attention leaves through the host (gloo), so it runs the first
+# MESH2_NEW of the mesh-less run's MESH_NEW
+MESH2_NEW = 8
+MESH2_RANK0_LIMIT_S, MESH2_GRACE_S = 600, 60
+# each rank's parameters: at most this share of the whole model's bytes
+MESH2_MAX_PARAM_SHARE = 0.55
+
+
+def layer0_fingerprints(layer0, metas0) -> list:
+    """Order-free fingerprints of layer 0's leaves but the experts' (a
+    leaf whose meta names the ``expert`` axis), in ``leaves`` order: the
+    int64 sum, wrapping, of each element's float32 bits times its flat
+    index mod 65521 plus one, so equal leaves give equal numbers on any
+    rank. ``layer0``: the first repeat of the stacked segment's ``L0``."""
+    import torch
+    from repro_torch.models.params import leaves
+    out = []
+    for t, m in zip(leaves(layer0), leaves(metas0)):
+        if "expert" in m.axes:
+            continue
+        bits = t.float().contiguous().view(-1).view(torch.int32)
+        w = torch.arange(bits.numel(), device=t.device) % 65521 + 1
+        out.append(int((bits.to(torch.int64) * w).sum()))
+    return out
+
+
+def mesh_world1(dev, lm, toks, want, n_new: int, max_len: int) -> dict:
+    """(a): ``ServeEngine(lm, lm.params, mesh=)`` on a one-rank NCCL
+    process group (a ``file://`` store) and a (data 1, model 1) mesh; the
+    MoE must take ``_moe_full_ep`` (counted on the mesh) and the tokens
+    must equal the mesh-less ``want`` bit for bit. The group is destroyed
+    after."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import make_rank_mesh
+    from repro_torch.models.params import map_tree
+    from repro_torch.serving import ServeEngine
+    store = os.path.join(tempfile.mkdtemp(), "store")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")    # one host
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_rank_mesh((1, 1), ("data", "model"), device=dev)
+        init_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ServeEngine(lm, lm.params, mesh=mesh).generate(
+            {"tokens": toks}, n_new=n_new, max_len=max_len)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = dict(mesh.counts)
+    finally:
+        dist.destroy_process_group()
+    out = {"backend": "nccl", "mesh": {"data": 1, "model": 1},
+           "process_group_s": init_s, "generate_s": wall_s,
+           "tokens_bit_equal_meshless": bool(np.array_equal(got.tokens,
+                                                            want.tokens)),
+           "logits_bit_equal_meshless": bool(np.array_equal(
+               got.logits_last, want.logits_last)),
+           "counts": counts}
+    check(out["tokens_bit_equal_meshless"],
+          f"{lm.cfg.name} on a one-rank NCCL mesh: tokens differ from the "
+          f"mesh-less run")
+    check(counts.get("moe_full_ep", 0) > 0,
+          f"{lm.cfg.name} on a one-rank mesh: _moe_full_ep not taken "
+          f"({counts})")
+    # what world 2's gathered layer 0 is held against (mesh_world2)
+    out["layer0_fingerprints"] = layer0_fingerprints(
+        map_tree(lambda t: t[0], lm.params["segments"][0]["L0"]),
+        lm.abstract_params()["segments"][0]["L0"])
+    return out
+
+
+def _mesh_rank(rank: int, world: int, store: str, out_dir: str, seed: int,
+               toks, device: str) -> None:
+    """(b), one rank: its shard of the model under SERVE_RULES drawn by
+    ``init_tree(..., mesh=)`` on the card, its resident bytes against the
+    metas' reckoning, one float32 MoE layer and one float32 attention
+    layer on the mesh against rank 0's mesh-less run from the gathered
+    float32 weights, then ``ServeEngine(mesh=)``. Writes
+    ``rank<r>.json``, or ``rank<r>.err`` with the traceback."""
+    import datetime
+    import traceback
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    try:
+        # one host: gloo's sockets on the loopback interface
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from repro_torch import configs
+        from repro_torch.distributed import collectives as coll
+        from repro_torch.launch import make_rank_mesh
+        from repro_torch.models import LM, moe
+        B, P = np.shape(toks)
+        from repro_torch.models.params import (SERVE_RULES, init_tree,
+                                               leaves, map_tree,
+                                               shard_metas, spec_for,
+                                               tree_bytes)
+        from repro_torch.models.transformer import Segment, segment_apply
+        from repro_torch.serving import ServeEngine, seed_caches
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", dev.index or 0)
+            torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=300))
+        mesh = make_rank_mesh(MESH2_SHAPE, ("data", "model"), device=dev)
+        cfg = configs.get_config(MESH_ARCH)
+        lm = LM(cfg)
+        metas = lm.abstract_params()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shard = init_tree(metas, torch.Generator(device=dev).manual_seed(seed),
+                          dev, mesh=mesh, rules=SERVE_RULES)
+        torch.cuda.synchronize()
+        res = {"rank": rank, "coord": mesh.coord,
+               "init_s": time.perf_counter() - t0,
+               "resident_param_bytes": sum(t.numel() * t.element_size()
+                                           for t in leaves(shard)),
+               "reckoned_param_bytes": tree_bytes(
+                   shard_metas(metas, mesh, SERVE_RULES)),
+               "whole_param_bytes": tree_bytes(metas),
+               "allocated_after_init": torch.cuda.memory_allocated()}
+
+        # float32 layers at full width: layer 0 of the one stacked segment,
+        # (i) the MoE alone (full expert parallelism on the mesh), (ii) the
+        # whole layer, attention and MoE, through segment_apply's per-unit
+        # gather; rank 0 runs both mesh-less on the gathered weights
+        cfg32 = cfg.scaled(param_dtype="float32", activ_dtype="float32")
+        seg = Segment(lm.layout[0].pattern, 1)
+        unit = {"L0": map_tree(lambda t: t[0].float(),
+                               shard["segments"][0]["L0"])}
+        umeta = {"L0": metas["segments"][0]["L0"]}
+        whole = map_tree(lambda t, m: coll.unshard(
+            t, spec_for(m, mesh, SERVE_RULES)[1:], mesh), unit, umeta)
+        res["layer0_fingerprints"] = layer0_fingerprints(whole["L0"],
+                                                         umeta["L0"])
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        x = torch.randn((2, 64, cfg.d_model), generator=g, device=dev)
+        pos = torch.arange(x.shape[1], device=dev)
+        moe_p = unit["L0"]["mlp"]
+        layer = dict(positions=pos, cur_pos=None, mode="prefill",
+                     caches=None, cfg=cfg32)
+        with torch.inference_mode():
+            m_mesh, aux_mesh = moe.moe_apply(
+                moe_p, x, cfg=cfg32, mesh=mesh,
+                capacity_factor=cfg.capacity_factor, mode="prefill")
+            l_mesh, _, _ = segment_apply(
+                unit, x, seg, mesh=mesh,
+                unshard=lm._unit_unshard(seg, mesh, cfg32, "prefill"),
+                **layer)
+            if rank == 0:
+                m_one, aux_one = moe.moe_apply(
+                    whole["L0"]["mlp"], x, cfg=cfg32,
+                    capacity_factor=cfg.capacity_factor)
+                l_one, _, _ = segment_apply(whole, x, seg, **layer)
+                res["f32_layer_rel_err"] = {
+                    "moe": float((m_mesh - m_one).abs().max()
+                                 / m_one.abs().max()),
+                    "attn+moe": float((l_mesh - l_one).abs().max()
+                                      / l_one.abs().max()),
+                    "moe_aux": float(abs(aux_mesh - aux_one))}
+        del unit, whole, moe_p, x
+        mesh.counts.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        # the entry point: generate on the mesh, then one timed prefill
+        # and decode step
+        batch = {"tokens": torch.as_tensor(toks, device=dev)}
+        eng = ServeEngine(lm, shard, mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = eng.generate(batch, n_new=MESH2_NEW, max_len=MESH_MAX_LEN)
+        torch.cuda.synchronize()
+        res["generate_s"] = time.perf_counter() - t0
+        res["counts"] = dict(mesh.counts)
+        res["tokens"] = gen.tokens.tolist()
+        res["logits_finite"] = bool(np.isfinite(gen.logits_last).all())
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        with torch.inference_mode():
+            ev[0].record()
+            logits, pc = lm.prefill(shard, batch, mesh=mesh)
+            ev[1].record()
+            caches = seed_caches(lm, pc, B, MESH_MAX_LEN, P)
+            cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            ev[2].record()
+            lm.decode_step(shard, caches, cur, P, mesh=mesh)
+            ev[3].record()
+        torch.cuda.synchronize()
+        res.update({"prefill_ms": ev[0].elapsed_time(ev[1]),
+                    "decode_ms": ev[2].elapsed_time(ev[3]),
+                    "peak_allocated": torch.cuda.max_memory_allocated()})
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def mesh_world2(dev, seed: int, toks, want_tokens, fingerprints) -> dict:
+    """(b): two ranks on the one card over gloo, a (data 1, model 2) mesh:
+    experts over model (64 a rank), the attention, vocabulary and head
+    tensor-parallel. The caller has freed the model and the card's cache;
+    the ranks start with the ``spawn`` method (CUDA is initialised here)
+    and draw the same seeded weights as the mesh-less model. Held: each
+    rank's resident parameter bytes equal the metas' reckoning under
+    SERVE_RULES and are at most MESH2_MAX_PARAM_SHARE of the whole; the
+    float32 layers within 1e-3 of the scale; equal tokens on both ranks;
+    the fingerprints of rank 0's gathered layer 0 (all leaves but the
+    experts') equal to the mesh-less model's, ``fingerprints``
+    (:func:`layer0_fingerprints`), so a gather in the wrong rank order,
+    which the float32 layer checks share with their mesh-less side, fails.
+    Reported: the share of tokens equal to the mesh-less bfloat16 run's."""
+    import tempfile
+    import numpy as np
+    from torch import multiprocessing as tmp
+    out_dir = tempfile.mkdtemp()
+    world = MESH2_SHAPE[0] * MESH2_SHAPE[1]
+    t0 = time.perf_counter()
+    ctx = tmp.start_processes(
+        _mesh_rank, args=(world, os.path.join(out_dir, "store"), out_dir,
+                          seed, np.asarray(toks), str(dev)),
+        nprocs=world, join=False, start_method="spawn")
+    ctx.processes[0].join(MESH2_RANK0_LIMIT_S)
+    for p in ctx.processes[1:]:
+        p.join(MESH2_GRACE_S)
+    hung = [r for r, p in enumerate(ctx.processes) if p.is_alive()]
+    for p in ctx.processes:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    wall_s = time.perf_counter() - t0
+    errs = [open(os.path.join(out_dir, f"rank{r}.err")).read()
+            for r in range(world)
+            if os.path.exists(os.path.join(out_dir, f"rank{r}.err"))]
+    check(not hung and not errs,
+          f"world 2: ranks {hung} passed their time limit; {errs}")
+    ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+             for r in range(world)]
+    toks0 = np.asarray(ranks[0]["tokens"])
+    out = {"backend": "gloo", "mesh": dict(zip(("data", "model"),
+                                               MESH2_SHAPE)),
+           "wall_s": wall_s,
+           "tokens_equal_across_ranks": all(
+               np.array_equal(np.asarray(r["tokens"]), toks0)
+               for r in ranks),
+           "new_tokens": MESH2_NEW,
+           "tokens_agree_with_meshless_share": float(
+               (toks0 == np.asarray(want_tokens)[:, :MESH2_NEW]).mean()),
+           "f32_layer_rel_err": ranks[0]["f32_layer_rel_err"],
+           "ranks": [{k: v for k, v in r.items()
+                      if k not in ("tokens", "layer0_fingerprints")}
+                     for r in ranks]}
+    whole = ranks[0]["whole_param_bytes"]
+    for r in ranks:
+        check(r["resident_param_bytes"] == r["reckoned_param_bytes"],
+              f"world 2 rank {r['rank']}: {r['resident_param_bytes']} "
+              f"resident parameter bytes, the metas reckon "
+              f"{r['reckoned_param_bytes']}")
+        check(r["resident_param_bytes"] <= MESH2_MAX_PARAM_SHARE * whole,
+              f"world 2 rank {r['rank']}: {r['resident_param_bytes']} "
+              f"parameter bytes of {whole}")
+        check(r["logits_finite"], f"world 2 rank {r['rank']}: non-finite "
+                                  f"logits")
+    out["layer0_gathered_equal_meshless"] = \
+        ranks[0]["layer0_fingerprints"] == list(fingerprints)
+    check(out["layer0_gathered_equal_meshless"],
+          f"world 2: rank 0's gathered layer 0 differs from the mesh-less "
+          f"model's: {ranks[0]['layer0_fingerprints']} against "
+          f"{list(fingerprints)}")
+    errs32 = ranks[0]["f32_layer_rel_err"]
+    check(errs32["attn+moe"] <= 1e-3 and errs32["moe"] <= 1e-3,
+          f"world 2: float32 layers off the mesh-less run: {errs32}")
+    check(out["tokens_equal_across_ranks"], "world 2: ranks' tokens differ")
+    return out
+
+
+def lm_mesh_phase(dev, seed: int, world1=None, toks=None,
+                  want_tokens=None) -> None:
+    """The ``lm_mesh`` line: (a) :func:`mesh_world1` and (b)
+    :func:`mesh_world2` on MESH_ARCH at full width. Inside the ``lm``
+    phase, (a) ran in ``lm_moe_full`` on its model (``world1``, ``toks``,
+    ``want_tokens``); alone, this makes the model from the same seed,
+    generates mesh-less, runs (a) and frees the model first."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import LM
+    from repro_torch.serving import ServeEngine
+    if world1 is None:
+        free_device()
+        lm = LM(configs.get_config(MESH_ARCH))
+        lm.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+        toks = np.random.default_rng(seed + 31).integers(
+            0, lm.cfg.vocab, (MESH_B, MESH_P))
+        want = ServeEngine(lm, device=dev).generate(
+            {"tokens": toks}, n_new=MESH_NEW, max_len=MESH_MAX_LEN)
+        world1 = mesh_world1(dev, lm, toks, want, MESH_NEW, MESH_MAX_LEN)
+        want_tokens = want.tokens
+        del lm, want
+    fingerprints = world1.pop("layer0_fingerprints")
+    free_device()
+    world2 = mesh_world2(dev, seed, toks, want_tokens, fingerprints)
+    emit({"phase": "lm_mesh", "arch": MESH_ARCH,
+          "batch": int(np.shape(toks)[0]), "prompt": int(np.shape(toks)[1]),
+          "new_tokens": int(np.shape(want_tokens)[1]), "world1": world1,
+          "world2": world2})
 
 
 # ---- training ----------------------------------------------------------------
@@ -3533,7 +3891,9 @@ def main() -> int:
     if "baselines" in phases:
         baselines_phase(dev, args.baselines_n, Qn, k, args.seed)
     if "lm" in phases:
-        lm_phase(dev, args.seed)
+        lm_phase(dev, args.seed, with_mesh="lm_mesh" in phases)
+    elif "lm_mesh" in phases:
+        lm_mesh_phase(dev, args.seed)
     if "train" in phases:
         train_phase(dev, args.seed)
         free_device()

@@ -128,11 +128,17 @@ def _host_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _carry(cfg, tree, device, dtype=None):
+def _carry(cfg, tree, device, dtype=None, mesh=None, rules=None):
     """The port's tree in ``LM(cfg)``'s parameter layout from the
     reference's (see :func:`lm_params_from_arrays`), each leaf in
-    ``dtype`` or, for ``None``, its parameter's dtype."""
+    ``dtype`` or, for ``None``, its parameter's dtype; with ``mesh``, this
+    rank's shard of each leaf under ``rules``."""
+    from .distributed.sharding import NamedSharding
+    from .models.params import spec_for
     from .models.transformer import LM
+    if mesh is not None and rules is None:
+        raise ValueError("carrying parameters onto a mesh needs its rules "
+                         "(SERVE_RULES or DEFAULT_RULES)")
     device = resolve_device(device)
     metas = LM(cfg).abstract_params()
     want = _flat_paths(metas)
@@ -149,11 +155,15 @@ def _carry(cfg, tree, device, dtype=None):
                        f"{missing}, unknown {unknown}")
     out = {}
     for path, m in want.items():
-        t = _host_tensor(have[path])
-        if tuple(t.shape) != m.shape:
-            raise ValueError(f"{name(path)}: shape {tuple(t.shape)}, "
+        a = np.asarray(have[path])
+        if tuple(a.shape) != m.shape:
+            raise ValueError(f"{name(path)}: shape {tuple(a.shape)}, "
                              f"{cfg.name} needs {m.shape}")
-        out[path] = t.to(device=device, dtype=dtype or m.dtype)
+        if mesh is not None:
+            a = a[NamedSharding(mesh, spec_for(m, mesh, rules)).index(
+                m.shape)]
+        out[path] = _host_tensor(a).to(device=device,
+                                       dtype=dtype or m.dtype)
 
     def build(t, prefix=()):
         if isinstance(t, dict):
@@ -165,7 +175,7 @@ def _carry(cfg, tree, device, dtype=None):
     return build(metas)
 
 
-def lm_params_from_arrays(cfg, tree, device=None):
+def lm_params_from_arrays(cfg, tree, device=None, *, mesh=None, rules=None):
     """The port's parameter tree for ``LM(cfg)`` from the reference's.
 
     ``tree`` is the reference's parameter pytree with numpy leaves (nested
@@ -174,8 +184,14 @@ def lm_params_from_arrays(cfg, tree, device=None):
     gives. Each leaf is copied to ``device`` (``None`` means ``"cuda"``) in
     the config's parameter dtype. A missing or unknown path raises
     ``KeyError``, a leaf of another shape ``ValueError``. The result goes
-    to ``LM.set_params`` or ``ServeEngine(lm, params)``."""
-    return _carry(cfg, tree, device)
+    to ``LM.set_params`` or ``ServeEngine(lm, params)``.
+
+    With ``mesh`` (a mesh of ranks) each leaf is this rank's slice of the
+    reference's under ``rules``, which a mesh requires (``ValueError``
+    without; see :func:`repro_torch.models.params.sharding_tree`); under
+    ``SERVE_RULES`` it is the tree ``ServeEngine(lm, params, mesh=mesh)``
+    takes."""
+    return _carry(cfg, tree, device, mesh=mesh, rules=rules)
 
 
 def opt_state_from_arrays(cfg, state, device=None):

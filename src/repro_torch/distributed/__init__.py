@@ -1,5 +1,7 @@
-"""Sharded serving of the port on one device: logical corpus shards, the
-merge schedules over a stacked shard axis, heartbeat-based fault handling.
+"""Distributed pieces of the port.
+
+Sharded retrieval on one device: logical corpus shards, the merge
+schedules over a stacked shard axis, heartbeat-based fault handling.
 
     from repro_torch.distributed import DeploymentSpec, ShardedDeployment
     from repro_torch.launch import make_mesh
@@ -9,6 +11,13 @@ merge schedules over a stacked shard axis, heartbeat-based fault handling.
                                  spec=DeploymentSpec(n_shards=4,
                                                      merge="tournament"))
     result = dep.execute(SearchRequest(...))   # result.report.shards
+
+A model over a mesh of ranks (``repro_torch.launch.make_rank_mesh``, one
+process a rank): :mod:`.collectives` (the reference's named-axis ``psum``,
+``pmean``, ``all_gather`` and ``axis_index``) and :mod:`.sharding` (its
+spec helpers and ``NamedSharding``), which ``ServeEngine(mesh=)`` and the
+model's expert-parallel paths run on. Training on more than one rank is
+not ported yet and raises.
 """
 from .topk import (sharded_flat_topk, sharded_topk_merge,
                    tournament_topk_merge, global_topk_merge,

@@ -58,7 +58,7 @@ import torch
 from .. import obs
 from ..core.api import (IndexSpec, RouteReport, SearchRequest, SearchResult,
                         ShardReport)
-from ..core.engine import EngineConfig, QueryEngine, resolve_device
+from ..core.engine import EngineConfig, QueryEngine
 from ..core.flat import flat_search
 from ..core.hnsw import NO_EDGE
 from ..core.mstg import MSTGIndex
@@ -66,6 +66,7 @@ from ..core.parallel import pool_size, run_build_pool
 from ..core.search import as_tensor
 from ..streaming.segmented import SegmentedIndex, _merge_topk_host
 
+from ..launch.mesh import pick_device
 from .fault import HeartbeatRegistry
 from .topk import resolve_merge, sharded_flat_topk, sharded_topk_merge
 
@@ -202,7 +203,7 @@ class ShardedDeployment:
         self.shards = list(shards)
         self.spec = spec
         self.mesh = mesh
-        self.device = _pick_device(device, mesh)
+        self.device = pick_device(device, mesh)
         self._flat = None              # (corpus, lo, hi) on the device
         if _flat_arrays is not None:
             corpus, lo, hi = _flat_arrays
@@ -231,7 +232,7 @@ class ShardedDeployment:
         carries a ``build_report`` dict — pool size, wall seconds, per-shard
         build seconds, rows/sec — for bench attribution."""
         spec = spec or DeploymentSpec()
-        device = _pick_device(device, mesh)
+        device = pick_device(device, mesh)
         vectors = np.ascontiguousarray(vectors, np.float32)
         lo = np.asarray(lo, np.float64)
         hi = np.asarray(hi, np.float64)
@@ -283,7 +284,7 @@ class ShardedDeployment:
         they also share its segment engines, so no segment is staged on the
         device twice."""
         spec = spec or DeploymentSpec()
-        device = _pick_device(device, mesh)
+        device = pick_device(device, mesh)
         share = (spec.engine == segmented.engine_config
                  and device == segmented.device)
         shards = []
@@ -498,22 +499,3 @@ class ShardedDeployment:
             est_selectivity=None, slot_count=0, variants=(),
             shards=reports, missing_shards=missing, merge=merge)
         return SearchResult(gi, gd, report)
-
-
-def _pick_device(device, mesh) -> torch.device:
-    """``device`` if given, else the mesh's, else ``"cuda"``. A mesh's
-    shards live on its device, so a different ``device`` is refused."""
-    if mesh is None:
-        return resolve_device(device)
-    if device is not None and _index(resolve_device(device)) != \
-            _index(mesh.device):
-        raise ValueError(f"device {device!r} differs from the mesh's "
-                         f"device {mesh.device}")
-    return mesh.device
-
-
-def _index(dev: torch.device) -> Tuple[str, Optional[int]]:
-    """``dev`` with a bare ``"cuda"`` read as the current card."""
-    if dev.type == "cuda" and dev.index is None:
-        return dev.type, torch.cuda.current_device()
-    return dev.type, dev.index

@@ -27,6 +27,19 @@ the backward pass (``torch.utils.checkpoint``), so only one unit's
 activations live at a time. Serving runs the encoder as a prefill whose
 caches are dropped, training in ``train`` mode (the reference's mode for
 it; the two differ only in the caches).
+
+On a mesh of ranks (:func:`repro_torch.launch.mesh.make_rank_mesh`),
+:meth:`LM.prefill` and :meth:`LM.decode_step` serve one model from its
+parameters sharded under ``SERVE_RULES``: every rank is given the whole
+batch, and its activations, caches and logits are whole. The embedding
+table and an untied head are vocabulary-parallel (a masked lookup summed
+over the vocabulary's axes; local logits gathered along the vocabulary).
+Before each unit of a segment runs, each rank all-gathers the unit's
+leaves that are sharded outside the MoE's experts (:meth:`LM._unit_unshard`),
+so the unit computes on whole dense weights; the MoE's experts stay
+sharded and take the reference's expert-parallel paths
+(:mod:`repro_torch.models.moe`). Training on more than one rank raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -39,12 +52,14 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.engine import resolve_device
+from ..distributed import collectives as coll
 from . import attention as attn
 from . import moe as moe_mod
 from . import recurrent as rec
 from .common import (acc_dtype, chunked_softmax_xent, embed, embed_meta,
                      logits_fn, make_norm, mlp, mlp_meta, unembed_meta)
-from .params import ParamMeta, count_params, init_tree, map_tree, meta
+from .params import (ParamMeta, count_params, init_tree, map_tree, meta,
+                     rules_for, shard_metas, spec_for)
 
 
 # ---------------- layer descriptors & segments ----------------
@@ -145,12 +160,15 @@ def _theta_window(cfg: ModelConfig, desc: LayerDesc):
 
 
 def layer_apply(lp, x, desc: LayerDesc, *, cfg: ModelConfig, mode: str,
-                cache, positions, cur_pos, cross_memory=None, kv_len=None):
+                cache, positions, cur_pos, mesh=None, batch_axes=("data",),
+                cross_memory=None, kv_len=None):
     """One pre-norm block: mixer, then (in a ``cross`` layer)
     cross-attention over ``cross_memory``, then MLP (dense or MoE), each
     added to the residual. A cross layer's cache is ``{"self": mixer
     cache, "cross": (k, v)}``. Returns (x, new_cache, aux): the MoE's
-    load-balance loss, a float32 scalar (0.0 for a dense MLP)."""
+    load-balance loss, a float32 scalar (0.0 for a dense MLP). On a mesh,
+    every leaf but the MoE's experts is whole (:meth:`LM._unit_unshard`)
+    and the MoE takes ``mesh`` / ``batch_axes``."""
     _, norm = make_norm(cfg)
     aux = 0.0
     if desc.cross and isinstance(cache, dict):
@@ -187,8 +205,10 @@ def layer_apply(lp, x, desc: LayerDesc, *, cfg: ModelConfig, mode: str,
         new_cache = {"self": new_cache, "cross": new_cross}
     h = norm(lp["norm2"], x)
     if desc.mlp == "moe":
-        h, aux = moe_mod.moe_apply(lp["mlp"], h, cfg=cfg,
-                                   capacity_factor=cfg.capacity_factor)
+        h, aux = moe_mod.moe_apply(lp["mlp"], h, cfg=cfg, mesh=mesh,
+                                   batch_axes=batch_axes,
+                                   capacity_factor=cfg.capacity_factor,
+                                   mode=mode)
     else:
         h = mlp(lp["mlp"], h, cfg.act)
     return x + h, new_cache, aux
@@ -263,8 +283,9 @@ def zeros_like_meta(tree, device):
 
 # ---------------- segment walk ----------------
 def segment_apply(seg_p, x, seg: Segment, *, cfg: ModelConfig, mode: str,
-                  caches, positions, cur_pos, cross_memory=None,
-                  kv_len=None):
+                  caches, positions, cur_pos, mesh=None,
+                  batch_axes=("data",), cross_memory=None, kv_len=None,
+                  unshard=None):
     """Run one segment: its pattern once, or for each of its repeats the
     repeat's slice of the stacked parameters and caches. Returns (x, new
     caches, the summed load-balance aux).
@@ -274,16 +295,25 @@ def segment_apply(seg_p, x, seg: Segment, *, cfg: ModelConfig, mode: str,
     ``jax.checkpoint`` around its scanned unit). ``prefill`` returns the
     prompt's caches, stacked like the parameters. ``decode`` updates
     ``caches`` in place (a repeat's slice is a view of the stacked tensor)
-    and returns them."""
+    and returns them.
+
+    ``unshard``: on ``mesh``, one unit's (unstacked) tree of the specs its
+    leaves are held under (:meth:`LM._unit_unshard`), ``None`` for a leaf
+    used as it is; each unit all-gathers those leaves whole before it
+    runs."""
 
     def unit(lp, xx, cache_unit):
+        if unshard is not None:
+            lp = map_tree(lambda t, sp: t if sp is None
+                          else coll.unshard(t, sp, mesh), lp, unshard)
         new_c, aux = {}, 0.0
         for j, d in enumerate(seg.pattern):
             c = cache_unit[f"L{j}"] if cache_unit is not None else None
             xx, new_c[f"L{j}"], a = layer_apply(
                 lp[f"L{j}"], xx, d, cfg=cfg, mode=mode, cache=c,
-                positions=positions, cur_pos=cur_pos,
-                cross_memory=cross_memory, kv_len=kv_len)
+                positions=positions, cur_pos=cur_pos, mesh=mesh,
+                batch_axes=batch_axes, cross_memory=cross_memory,
+                kv_len=kv_len)
             aux = aux + a
         return xx, new_c, aux
 
@@ -384,7 +414,9 @@ class LM(nn.Module):
     training step hands :meth:`train_loss` a tree of leaves that require
     gradients, see :func:`repro_torch.training.make_train_step`).
     :meth:`prefill` and :meth:`decode_step` run under
-    ``torch.inference_mode()`` on the parameters' device.
+    ``torch.inference_mode()`` on the parameters' device; with ``mesh``
+    (a mesh of ranks) they take this rank's shards (:meth:`check_params`)
+    and return whole logits and caches on every rank.
     """
 
     def __init__(self, cfg: ModelConfig):
@@ -401,7 +433,8 @@ class LM(nn.Module):
                                                block_pattern=(),
                                                local_per_global=0)
             self.enc_layout = make_segments(layer_descs(self.enc_cfg))
-        self._top = tuple(self.abstract_params())
+        self._metas = self.abstract_params()
+        self._top = tuple(self._metas)
 
     # ----- params -----
     def abstract_params(self):
@@ -449,9 +482,19 @@ class LM(nn.Module):
     def set_params(self, tree) -> None:
         """Register ``tree`` (nested dicts and lists of tensors, shaped as
         :meth:`abstract_params`) as this model's parameters."""
-        _check_tree(self.abstract_params(), tree)
+        self.check_params(tree)
         for k in self._top:
             setattr(self, k, _Params(tree[k]))
+
+    def check_params(self, tree, mesh=None) -> None:
+        """Raise ``KeyError`` on a missing or unknown path of ``tree`` and
+        ``ValueError`` on a leaf of another shape than the whole
+        parameter's or, on ``mesh``, than this rank's shard of it under
+        ``SERVE_RULES`` (:func:`repro_torch.models.params.init_tree` with
+        ``mesh=``)."""
+        metas = (self._metas if mesh is None
+                 else shard_metas(self._metas, mesh, rules_for("prefill")))
+        _check_tree(metas, tree)
 
     @property
     def params(self):
@@ -476,9 +519,66 @@ class LM(nn.Module):
         per_expert = 3 * cfg.d_model * cfg.moe_d_ff
         return total - moe_layers * (cfg.n_experts - cfg.top_k) * per_expert
 
+    # ----- the mesh -----
+    @staticmethod
+    def _ranks(mesh):
+        if mesh is not None and mesh.device_mesh is None:
+            raise ValueError("the LM runs on a mesh of ranks "
+                             "(make_rank_mesh), not on a logical mesh")
+        return mesh
+
+    def _unit_unshard(self, seg: Segment, mesh, cfg, mode: str):
+        """One unit of ``seg``: the spec each leaf is held under on
+        ``mesh`` in ``mode``, for the leaves the unit all-gathers whole
+        before it runs, and ``None`` for the rest: the MoE's expert leaves
+        (which ``moe_apply`` gathers as its path needs) and whole leaves.
+        ``None`` without a mesh. The reference constrains the same leaves
+        to their unsharded specs and lets XLA partition the products; the
+        port gathers the tensor-parallel ``model`` axis too."""
+        if mesh is None:
+            return None
+        rules = rules_for(mode)
+        pat = {f"L{j}": layer_meta(cfg, d) for j, d in enumerate(seg.pattern)}
+
+        def f(m):
+            if any(a in ("expert", "expert_mlp") for a in m.axes):
+                return None
+            sp = spec_for(m, mesh, rules)
+            return sp if any(e is not None for e in sp) else None
+
+        return map_tree(f, pat)
+
+    @staticmethod
+    def _vocab_parallel(w, m: ParamMeta, vdim: int, mesh, mode: str):
+        """(``w``, this rank's shard of a leaf of meta ``m``, gathered
+        whole but for its vocabulary dim ``vdim``; that dim's axes, or
+        ``None`` where it is whole; the first vocabulary row it holds)."""
+        if mesh is None:
+            return w, None, 0
+        spec = spec_for(m, mesh, rules_for(mode))
+        w = coll.unshard(w, tuple(None if d == vdim else e
+                                  for d, e in enumerate(spec)), mesh)
+        v_ax = spec[vdim]
+        return w, v_ax, coll.axis_index(mesh, v_ax) * w.shape[vdim]
+
     # ----- embedding -----
-    def _embed_tokens(self, params, tokens):
-        x = embed(params["embed"], tokens).to(self.cfg.adtype)
+    def _embed_tokens(self, params, tokens, mesh=None, mode="train"):
+        """The tokens' rows of the table, in the activation dtype (times
+        sqrt(d_model) with ``embed_scale``). On a mesh whose vocabulary
+        axes split the table, each rank looks up the tokens in its rows
+        (zeros elsewhere) and a ``psum`` over those axes completes it."""
+        table, v_ax, v_lo = self._vocab_parallel(
+            params["embed"]["table"], self._metas["embed"]["table"], 0,
+            mesh, mode)
+        if v_ax is None:
+            x = embed({"table": table}, tokens)
+        else:
+            loc = tokens - v_lo
+            inside = (loc >= 0) & (loc < table.shape[0])
+            x = torch.where(inside[..., None],
+                            table[loc.clamp(0, table.shape[0] - 1)], 0)
+            x = coll.psum(x, mesh, v_ax)
+        x = x.to(self.cfg.adtype)
         if self.cfg.embed_scale:
             d = torch.tensor(float(self.cfg.d_model), dtype=torch.float32,
                              device=x.device)
@@ -496,7 +596,8 @@ class LM(nn.Module):
             emb = emb @ params["frontend_proj"]["w"].to(emb.dtype)
         return torch.cat([emb, tokens_x], dim=1)
 
-    def _encode(self, params, frames, mode: str = "prefill"):
+    def _encode(self, params, frames, mode: str = "prefill", mesh=None,
+                batch_axes=("data",)):
         """The encoder over ``frames`` (B, enc_len, frontend_dim): cast to
         the activation dtype, projected by ``frontend_proj``, the
         non-causal layers at positions 0..enc_len-1 (in serving a prefill
@@ -509,19 +610,32 @@ class LM(nn.Module):
             x = x @ params["frontend_proj"]["w"].to(x.dtype)
         positions = torch.arange(x.shape[1], device=x.device)
         for sp, seg in zip(params["encoder"]["segments"], self.enc_layout):
-            x, _, _ = segment_apply(sp, x, seg, cfg=cfg, mode=mode,
-                                    caches=None, positions=positions,
-                                    cur_pos=None)
+            x, _, _ = segment_apply(
+                sp, x, seg, cfg=cfg, mode=mode, caches=None,
+                positions=positions, cur_pos=None, mesh=mesh,
+                batch_axes=batch_axes,
+                unshard=self._unit_unshard(seg, mesh, cfg, mode))
         _, norm = make_norm(cfg)
         return norm(params["encoder"]["final_norm"], x)
 
+    def _logits(self, params, x, mesh, mode: str):
+        """Logits of ``x`` over the vocabulary, whole (``logits_fn``). On a
+        mesh whose vocabulary axes split the head (or the tied table),
+        each rank multiplies by its vocabulary rows and the pieces are
+        all-gathered along the vocabulary."""
+        tied = self.cfg.tie_embeddings
+        group, leaf, vdim = ("embed", "table", 0) if tied else \
+            ("head", "w_out", 1)
+        w, v_ax, _ = self._vocab_parallel(
+            params[group][leaf], self._metas[group][leaf], vdim, mesh, mode)
+        local = logits_fn({"w_out": w}, {"table": w}, x, tied)
+        return coll.all_gather(local, mesh, v_ax, -1)
+
     # ----- train -----
     def _logits_fn(self, params):
-        cfg = self.cfg
-        return lambda xc: logits_fn(params.get("head", {}), params["embed"],
-                                    xc, cfg.tie_embeddings)
+        return lambda xc: self._logits(params, xc, None, "train")
 
-    def train_loss(self, params, batch: Dict[str, Any]):
+    def train_loss(self, params, batch: Dict[str, Any], *, mesh=None):
         """The training loss of ``batch`` (``tokens`` (B, S) and their
         next-token ``labels`` (B, S); ``frames`` or ``patches`` as the
         config needs; a label below 0 is not scored): the cross entropy
@@ -530,7 +644,15 @@ class LM(nn.Module):
         and 0.01 x the summed load-balance aux for a MoE config. Returns
         (loss, metrics): the loss is a scalar in the accumulation dtype
         under autograd; ``metrics`` holds ``xent``, ``aux``, ``tokens``
-        (the scored positions) and, with ``mtp``, ``mtp``, detached."""
+        (the scored positions) and, with ``mtp``, ``mtp``, detached.
+
+        A mesh of one rank is the mesh-less run; more than one rank raises
+        ``NotImplementedError`` (training on a mesh, its FSDP gradients and
+        embedding gather, is not ported yet: ROADMAP §1 item 6)."""
+        if self._ranks(mesh) is not None and mesh.size > 1:
+            raise NotImplementedError(
+                f"training on a mesh of {mesh.size} ranks is not ported; "
+                f"one rank (or mesh=None) is")
         cfg = self.cfg
         params = self.params if params is None else params
         tokens = self._on_device(params, batch["tokens"])
@@ -592,62 +714,68 @@ class LM(nn.Module):
 
     # ----- prefill -----
     @torch.inference_mode()
-    def prefill(self, params, batch: Dict[str, Any]):
+    def prefill(self, params, batch: Dict[str, Any], *, mesh=None,
+                batch_axes=("data",)):
         """Full-prompt forward; returns (last_logits (B, 1, V), caches).
 
         Prefill caches are emitted at prompt length (the patches count
         toward it; cross leaves hold the encoder's enc_len entries); the
         decode cache layout (:meth:`decode_cache_meta`) is seeded from them
-        by :func:`repro_torch.serving.seed_caches`."""
+        by :func:`repro_torch.serving.seed_caches`. On ``mesh`` (a mesh of
+        ranks) ``params`` are this rank's shards and ``batch`` the whole
+        batch (module docstring)."""
         cfg = self.cfg
+        mesh = self._ranks(mesh)
         params = self.params if params is None else params
         tokens = self._on_device(params, batch["tokens"])
-        x = self._embed_tokens(params, tokens)
+        x = self._embed_tokens(params, tokens, mesh, "prefill")
         cross_memory = None
         if self.enc_cfg is not None:
-            cross_memory = self._encode(params, batch["frames"])
+            cross_memory = self._encode(params, batch["frames"], "prefill",
+                                        mesh, batch_axes)
         if cfg.frontend == "vision_stub":
             x = self._frontend(params, batch, x)
         positions = torch.arange(x.shape[1], device=x.device)
         caches = []
         for sp, seg in zip(params["segments"], self.layout):
-            x, nc, _ = segment_apply(sp, x, seg, cfg=cfg, mode="prefill",
-                                     caches=None, positions=positions,
-                                     cur_pos=None, cross_memory=cross_memory)
+            x, nc, _ = segment_apply(
+                sp, x, seg, cfg=cfg, mode="prefill", caches=None,
+                positions=positions, cur_pos=None, mesh=mesh,
+                batch_axes=batch_axes, cross_memory=cross_memory,
+                unshard=self._unit_unshard(seg, mesh, cfg, "prefill"))
             caches.append(nc)
         _, norm = make_norm(cfg)
         x = norm(params["final_norm"], x)
-        logits = logits_fn(params.get("head", {}), params["embed"],
-                           x[:, -1:], cfg.tie_embeddings)
-        return logits, caches
+        return self._logits(params, x[:, -1:], mesh, "prefill"), caches
 
     # ----- decode -----
     @torch.inference_mode()
     def decode_step(self, params, caches, tokens, cur_pos: int,
-                    cross_memory=None):
+                    cross_memory=None, *, mesh=None, batch_axes=("data",)):
         """One token for every sequence. tokens: (B, 1); cur_pos: the
         position of that token (past the patches, in a front-end model).
         ``caches`` are updated in place and returned; cross-attention reads
         its cached projections, so ``cross_memory`` is taken for the
-        reference's signature and not read."""
+        reference's signature and not read. ``mesh`` as in
+        :meth:`prefill`."""
         cfg = self.cfg
+        mesh = self._ranks(mesh)
         params = self.params if params is None else params
         tokens = self._on_device(params, tokens)
-        x = self._embed_tokens(params, tokens)
+        x = self._embed_tokens(params, tokens, mesh, "decode")
         cur_pos = int(cur_pos)
         positions = torch.tensor([cur_pos], device=x.device)
         new_caches = []
         for sp, seg, cu in zip(params["segments"], self.layout, caches):
-            x, nc, _ = segment_apply(sp, x, seg, cfg=cfg, mode="decode",
-                                     caches=cu, positions=positions,
-                                     cur_pos=cur_pos,
-                                     cross_memory=cross_memory)
+            x, nc, _ = segment_apply(
+                sp, x, seg, cfg=cfg, mode="decode", caches=cu,
+                positions=positions, cur_pos=cur_pos, mesh=mesh,
+                batch_axes=batch_axes, cross_memory=cross_memory,
+                unshard=self._unit_unshard(seg, mesh, cfg, "decode"))
             new_caches.append(nc)
         _, norm = make_norm(cfg)
         x = norm(params["final_norm"], x)
-        logits = logits_fn(params.get("head", {}), params["embed"], x,
-                           cfg.tie_embeddings)
-        return logits, new_caches
+        return self._logits(params, x, mesh, "decode"), new_caches
 
     # ----- shapes -----
     def decode_cache_meta(self, batch: int, max_len: int, enc_len: int = 0):

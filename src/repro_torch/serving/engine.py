@@ -3,8 +3,8 @@ and the sync retrieval front end (the reference's ``repro.serving.engine``).
 
 * :class:`ServeEngine` — batched greedy decoding over the port's
   :class:`repro_torch.models.LM` on a device (the card unless the caller
-  asks for the CPU); :func:`seed_caches` places prefill caches into the
-  decode layout.
+  asks for the CPU), or on a mesh of ranks with the parameters sharded;
+  :func:`seed_caches` places prefill caches into the decode layout.
 * :class:`RetrievalServer` — queues requests and answers a whole tick at
   once: the tick's queue is embedded in one ``embed_fn`` call and executed
   grouped by predicate mask against any ``execute(SearchRequest)`` backend
@@ -26,7 +26,7 @@ import torch
 
 from .. import obs
 from ..core import QueryEngine, QueryHit, SearchRequest, as_mask
-from ..core.engine import resolve_device
+from ..launch.mesh import pick_device
 from .ops import DeleteOp, QueryOp, UpsertOp
 from .scheduler import ServerMetrics
 
@@ -104,12 +104,30 @@ class ServeEngine:
     (an encoder-decoder config) or ``patches`` (a vision front end) beside
     its ``tokens``; the patches count toward the prompt, so decoding starts
     at P + n_patches.
+
+    With ``mesh`` (a mesh of ranks, :func:`repro_torch.launch.mesh.
+    make_rank_mesh`) every rank runs the engine on the same whole batch:
+    ``params`` are this rank's shards under ``SERVE_RULES`` (checked by
+    ``lm.check_params``; :func:`repro_torch.models.params.init_tree` or
+    :func:`repro_torch.convert.lm_params_from_arrays` with ``mesh=`` and
+    ``rules=SERVE_RULES`` make them), ``device`` defaults to the mesh's and must be it, and
+    ``batch_axes`` are the axes the MoE's ``shard_map`` branch splits the
+    batch over. Tokens and ``logits_last`` come back whole on every rank,
+    and the caches, which :func:`seed_caches` seeds on each rank, are
+    whole too.
     """
 
-    def __init__(self, lm, params=None, *, device=None):
+    def __init__(self, lm, params=None, *, device=None, mesh=None,
+                 batch_axes=("data",)):
+        if mesh is not None and mesh.device_mesh is None:
+            raise ValueError("ServeEngine serves on a mesh of ranks "
+                             "(make_rank_mesh), not on a logical mesh")
         self.lm = lm
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.batch_axes = batch_axes
+        self.device = pick_device(device, mesh)
         params = lm.params if params is None else params
+        lm.check_params(params, mesh)
         self.params = _map_tree(lambda t: t.to(self.device), params)
 
     @torch.inference_mode()
@@ -119,7 +137,8 @@ class ServeEngine:
         inputs = {k: torch.as_tensor(batch[k], device=self.device)
                   for k in ("tokens", "frames", "patches") if k in batch}
         B, P = inputs["tokens"].shape
-        logits, prefill_caches = lm.prefill(self.params, inputs)
+        on_mesh = {"mesh": self.mesh, "batch_axes": self.batch_axes}
+        logits, prefill_caches = lm.prefill(self.params, inputs, **on_mesh)
         enc_len = inputs["frames"].shape[1] if "frames" in inputs else 0
         prompt_len = P + (inputs["patches"].shape[1] if "patches" in inputs
                           else 0)
@@ -130,7 +149,7 @@ class ServeEngine:
         for i in range(n_new):
             out.append(cur)
             logits, caches = lm.decode_step(self.params, caches, cur,
-                                            prompt_len + i)
+                                            prompt_len + i, **on_mesh)
             cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
         return GenerationResult(
             tokens=torch.cat(out, 1).to(torch.int32).cpu().numpy(),

@@ -6,9 +6,9 @@ quantize -> all-reduce -> dequantize``, with the quantization residual
 carried to the next step so compression bias does not accumulate
 (Seide et al. / EF-SGD). The reference reduces over a mesh axis inside
 ``shard_map``; the port reduces over a process group, of which only one
-rank is supported until the port has process groups (ROADMAP §1, item 6):
-its all-reduce is the identity, and the mean of the scales is the rank's
-own scale.
+rank is supported until training runs on a mesh of ranks (ROADMAP §1,
+item 6's training half): its all-reduce is the identity, and the mean of
+the scales is the rank's own scale.
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ def _group_size(group) -> int:
     if n != 1:
         raise NotImplementedError(
             f"compressed_mean over {n} ranks: the port reduces over one rank "
-            f"until it has process groups (ROADMAP §1, item 6)")
+            f"until training runs on a mesh (ROADMAP §1, item 6)")
     return n
 
 

@@ -11,8 +11,10 @@ watchdog.
 
 With ``microbatches > 1`` the gradients are summed in float32 and divided
 by the count, as the reference sums them; with one microbatch they stay
-in the parameters' dtype. A mesh (FSDP / tensor-parallel shardings) waits
-for the port's process groups (ROADMAP §1, item 6).
+in the parameters' dtype. A mesh of one rank trains as no mesh does; a
+mesh of more than one rank (FSDP / tensor-parallel shardings) raises
+``NotImplementedError`` (ROADMAP §1, item 6): serving runs on such a mesh,
+training does not yet.
 """
 from __future__ import annotations
 
@@ -51,12 +53,17 @@ def loss_and_grads(lm, params, batch):
 
 
 def make_train_step(lm, opt_cfg: Optional[AdamWConfig] = None,
-                    microbatches: int = 1):
+                    microbatches: int = 1, *, mesh=None):
     """The step ``(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``params`` and ``opt_state`` are updated in place and
     returned. ``metrics``: the model's (``xent``, ``aux``, ``tokens``,
     ``mtp``; ``xent`` alone with microbatches), ``loss`` and the
-    gradients' ``grad_norm`` before the clip, as device scalars."""
+    gradients' ``grad_norm`` before the clip, as device scalars. On a
+    ``mesh`` of more than one rank it raises ``NotImplementedError``."""
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            f"training on a mesh of {mesh.size} ranks is not ported; one "
+            f"rank (or mesh=None) is")
     opt_cfg = opt_cfg or AdamWConfig()
 
     def train_step(params, opt_state, batch):

@@ -1,0 +1,132 @@
+"""What the mesh tests' two sides share: the mesh, the configs, the weights
+and the inputs, all made from seeds on the CPU.
+
+The reference side (``tests/_mesh_reference.py``, a subprocess with four
+forced host devices) and the port side (``tests/_mesh_ranks.py``, four
+gloo ranks) each build the same numpy weights with the port's
+``init_tree`` on a seeded CPU generator and the same numpy inputs with
+``numpy.random.default_rng``; the reference takes them as jax arrays
+placed by its ``sharding_tree``, the port through
+``convert.lm_params_from_arrays(..., mesh=)`` and ``init_tree(..., mesh=)``.
+"""
+import numpy as np
+import torch
+
+MESH_SHAPE = (2, 2)
+MESH_AXES = ("data", "model")
+WORLD = 4
+
+# configs served on the mesh, the smoke sizes of all ten
+SERVE_ARCHS = ("qwen3-moe-30b-a3b", "olmo-1b", "gemma3-1b", "qwen3-32b",
+               "qwen1.5-110b", "deepseek-v3-671b", "recurrentgemma-2b",
+               "rwkv6-7b", "seamless-m4t-large-v2", "llava-next-mistral-7b")
+SERVE_B, SERVE_P, SERVE_NEW, SERVE_MAX_LEN = 4, 8, 4, 32
+# The smoke models' attention scores under the init as drawn are wide
+# enough that float32 rounding in another summation order alone moves the
+# front-end configs' logits past the tolerance (tests/test_torch_frontends.py):
+# their wq leaves are scaled, on both sides.
+WQ_SCALE = {"seamless-m4t-large-v2": 0.25, "llava-next-mistral-7b": 0.25}
+
+# MoE cases: (name, arch, capacity factor); the router is widened so that
+# routing is decisive and a capacity of T_loc drops assignments
+MOE_CASES = (("qwen3_moe", "qwen3-moe-30b-a3b", 1.0),
+             ("deepseek", "deepseek-v3-671b", 1.0))
+MOE_B, MOE_S = 4, 6
+ROUTER_SCALE = 50.0
+# A prefill past the full-EP limit of 16,384 tokens takes the shard_map
+# branch on experts placed by SERVE_RULES (the branch's expert reshard).
+PREFILL_B, PREFILL_S = 4, 4100
+# qwen3-moe's smoke layer with 5 experts: the model axis (2) does not
+# divide E, so a mesh runs the local path on the whole batch
+LOCAL_ARCH, LOCAL_E = "qwen3-moe-30b-a3b", 5
+
+
+def _scaled(tree, key: str, factor: float):
+    if isinstance(tree, dict):
+        return {k: (v * factor if k == key and not isinstance(v, (dict, list))
+                    else _scaled(v, key, factor)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_scaled(v, key, factor) for v in tree]
+    return tree
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy(v) for v in tree]
+    return tree.numpy()
+
+
+def weights(arch: str, seed: int = 0):
+    """``arch``'s smoke parameters as a numpy tree in the reference's
+    layout: the port's ``init_tree`` from ``seed``, ``wq`` scaled where
+    :data:`WQ_SCALE` says and every MoE ``router`` times
+    :data:`ROUTER_SCALE`."""
+    from repro_torch import configs
+    from repro_torch.models import LM
+    from repro_torch.models.params import init_tree
+    cfg = configs.get_smoke_config(arch)
+    tree = init_tree(LM(cfg).abstract_params(),
+                     torch.Generator().manual_seed(seed), "cpu")
+    if arch in WQ_SCALE:
+        tree = _scaled(tree, "wq", WQ_SCALE[arch])
+    tree = _scaled(tree, "router", ROUTER_SCALE)
+    return _numpy(tree)
+
+
+def serve_inputs(arch: str, seed: int = 1) -> dict:
+    """The prompt (and frames or patches) of ``arch``'s serving case."""
+    from repro_torch import configs
+    cfg = configs.get_smoke_config(arch)
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (SERVE_B, SERVE_P)
+                                    ).astype(np.int32)}
+    if cfg.n_enc_layers:
+        batch["frames"] = rng.normal(
+            0, 1, (SERVE_B, 16, cfg.frontend_dim)).astype(np.float32)
+    if cfg.frontend == "vision_stub":
+        batch["patches"] = rng.normal(
+            0, 1, (SERVE_B, cfg.n_frontend_tokens, cfg.frontend_dim)
+        ).astype(np.float32)
+    return batch
+
+
+def moe_layer(tree) -> dict:
+    """The first MoE layer's ``mlp`` subtree of a parameter tree (a
+    stacked segment's first repeat)."""
+    for seg in tree["segments"]:
+        for unit in seg.values():
+            if "router" in unit["mlp"]:
+                mlp = unit["mlp"]
+                stacked = mlp["router"].ndim == 3
+                return {k: (_first(v) if stacked else v)
+                        for k, v in mlp.items()}
+    raise KeyError("no MoE layer")
+
+
+def _first(v):
+    if isinstance(v, dict):
+        return {k: _first(x) for k, x in v.items()}
+    return v[0]
+
+
+def moe_input(arch: str, seed: int = 2, B: int = MOE_B,
+              S: int = MOE_S) -> np.ndarray:
+    from repro_torch import configs
+    cfg = configs.get_smoke_config(arch)
+    return np.random.default_rng(seed).normal(
+        0, 1, (B, S, cfg.d_model)).astype(np.float32)
+
+
+def local_layer(seed: int = 4) -> dict:
+    """The MoE layer of :data:`LOCAL_ARCH`'s smoke config with
+    :data:`LOCAL_E` experts as a numpy tree, drawn by the port's
+    ``init_tree`` from ``seed``, the router times :data:`ROUTER_SCALE`."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_tree
+    cfg = configs.get_smoke_config(LOCAL_ARCH).scaled(n_experts=LOCAL_E)
+    tree = init_tree(moe.moe_meta(cfg, torch.float32),
+                     torch.Generator().manual_seed(seed), "cpu")
+    return _numpy(_scaled(tree, "router", ROUTER_SCALE))

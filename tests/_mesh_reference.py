@@ -1,0 +1,105 @@
+"""The reference's side of the mesh tests, run as its own process:
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
+        python tests/_mesh_reference.py OUT.npz moe|serve
+
+on a (data 2, model 2) mesh of four forced host devices. ``moe``: the MoE
+cases of ``_mesh_common.MOE_CASES`` through ``repro.models.moe.moe_apply``
+in the full-EP branch (``mode="decode"``, experts placed by
+``SERVE_RULES``), the ``shard_map`` branch (``mode="train"``, placed by
+``DEFAULT_RULES``; and ``mode="prefill"`` past 16,384 tokens, placed by
+``SERVE_RULES``) and without a mesh, and the local branch on the mesh
+(``_mesh_common.local_layer``, whose E the model axis does not divide),
+each under ``jax.jit`` (eager
+``shard_map`` takes ~10x longer here). ``serve``: ``ServeEngine(lm,
+params, mesh=mesh).generate`` for each of ``_mesh_common.SERVE_ARCHS``,
+the parameters placed by ``SERVE_RULES``. The outputs go to ``OUT.npz``.
+The flag must be set before jax is imported; jax's ``shard_map``
+deprecation warning is ignored in this process.
+"""
+import functools
+import os
+import sys
+import warnings
+
+warnings.simplefilter("ignore", DeprecationWarning)
+
+import numpy as np  # noqa: E402
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import _mesh_common as mc  # noqa: E402
+
+
+def main(out: str, what: str) -> None:
+    import jax
+    import jax.numpy as jnp
+    from repro import configs
+    from repro.launch.mesh import make_mesh
+    from repro.models import moe as rmoe
+    from repro.models.params import (DEFAULT_RULES, SERVE_RULES,
+                                     sharding_tree)
+    from repro.models.transformer import LM
+    from repro.serving import ServeEngine
+
+    assert len(jax.devices()) == mc.WORLD, jax.devices()
+    mesh = make_mesh(mc.MESH_SHAPE, mc.MESH_AXES)
+    res = {}
+    if what == "moe":
+        for name, arch, cf in mc.MOE_CASES:
+            rcfg = configs.get_smoke_config(arch)
+            layer = jax.tree.map(jnp.asarray, mc.moe_layer(mc.weights(arch)))
+            metas = rmoe.moe_meta(rcfg, jnp.float32)
+            x = jnp.asarray(mc.moe_input(arch))
+            for mode, rules in (("decode", SERVE_RULES),
+                                ("train", DEFAULT_RULES)):
+                p = jax.device_put(layer, sharding_tree(metas, mesh, rules))
+                y, aux = jax.jit(functools.partial(
+                    rmoe.moe_apply, cfg=rcfg, mesh=mesh,
+                    batch_axes=("data",), capacity_factor=cf,
+                    mode=mode))(p, x)
+                res[f"{name}/{mode}/y"] = np.asarray(y)
+                res[f"{name}/{mode}/aux"] = np.asarray(aux)
+            y, aux = jax.jit(functools.partial(
+                rmoe.moe_apply, cfg=rcfg, mesh=None, batch_axes=None,
+                capacity_factor=cf, mode="train"))(layer, x)
+            res[f"{name}/local/y"] = np.asarray(y)
+            res[f"{name}/local/aux"] = np.asarray(aux)
+            p = jax.device_put(layer, sharding_tree(metas, mesh,
+                                                    SERVE_RULES))
+            y, aux = jax.jit(functools.partial(
+                rmoe.moe_apply, cfg=rcfg, mesh=mesh, batch_axes=("data",),
+                capacity_factor=cf, mode="prefill"))(
+                    p, jnp.asarray(mc.moe_input(arch, B=mc.PREFILL_B,
+                                                S=mc.PREFILL_S)))
+            res[f"{name}/prefill/y"] = np.asarray(y)
+            res[f"{name}/prefill/aux"] = np.asarray(aux)
+        rcfg = configs.get_smoke_config(mc.LOCAL_ARCH).scaled(
+            n_experts=mc.LOCAL_E)
+        layer = jax.tree.map(jnp.asarray, mc.local_layer())
+        p = jax.device_put(layer, sharding_tree(
+            rmoe.moe_meta(rcfg, jnp.float32), mesh, DEFAULT_RULES))
+        y, aux = jax.jit(functools.partial(
+            rmoe.moe_apply, cfg=rcfg, mesh=mesh, batch_axes=("data",),
+            capacity_factor=1.0, mode="train"))(
+                p, jnp.asarray(mc.moe_input(mc.LOCAL_ARCH)))
+        res["local_e5/train/y"] = np.asarray(y)
+        res["local_e5/train/aux"] = np.asarray(aux)
+    elif what == "serve":
+        for arch in mc.SERVE_ARCHS:
+            lm = LM(configs.get_smoke_config(arch))
+            params = jax.device_put(
+                jax.tree.map(jnp.asarray, mc.weights(arch)),
+                sharding_tree(lm.abstract_params(), mesh, SERVE_RULES))
+            batch = {k: jnp.asarray(v)
+                     for k, v in mc.serve_inputs(arch).items()}
+            g = ServeEngine(lm, params, mesh=mesh).generate(
+                batch, n_new=mc.SERVE_NEW, max_len=mc.SERVE_MAX_LEN)
+            res[f"{arch}/tokens"] = np.asarray(g.tokens)
+            res[f"{arch}/logits"] = np.asarray(g.logits_last)
+    else:
+        raise SystemExit(f"unknown case group {what!r}")
+    np.savez(out, **res)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2])

@@ -759,3 +759,33 @@ def test_train_driver_on_cuda(dev, tmp_path):
                       "--ckpt-dir", str(tmp_path)])
     assert out["device"] == "cuda" and out["steps"] == 3
     assert all(np.isfinite(out["losses"]))
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_one_rank_mesh_serves_bit_equal_on_cuda(dev, backend, tmp_path):
+    """qwen3-moe's smoke config on a one-rank (data 1, model 1) mesh over
+    NCCL and over gloo (whose collectives on CUDA tensors copy through the
+    host, counted): the MoE takes full expert parallelism, and the tokens
+    and logits equal the mesh-less run's bit for bit."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch import make_rank_mesh
+    from repro_torch.models import LM
+    from repro_torch.serving import ServeEngine
+    lm = LM(configs.get_smoke_config("qwen3-moe-30b-a3b"))
+    lm.init(torch.Generator(device=dev).manual_seed(5), device=dev)
+    toks = np.random.default_rng(5).integers(0, lm.cfg.vocab, (4, 16))
+    want = ServeEngine(lm, device=dev).generate({"tokens": toks}, n_new=6,
+                                                max_len=32)
+    dist.init_process_group(backend, init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_rank_mesh((1, 1), ("data", "model"), device=dev)
+        got = ServeEngine(lm, lm.params, mesh=mesh).generate(
+            {"tokens": toks}, n_new=6, max_len=32)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_array_equal(got.logits_last, want.logits_last)
+    assert mesh.counts["moe_full_ep"] > 0
+    assert (mesh.counts["staged_bytes"] > 0) == (backend == "gloo")

@@ -9,6 +9,12 @@ schedules run per shard under ``jax.vmap(..., axis_name="data")``, one
 vmapped lane per shard; the port's take the stacked (D, Q, k') lists and
 return shard 0's list, which is what they are held against. Distances are
 small integers, so ties occur in every merge.
+
+Every deployment here but the heartbeat test's is made with a heartbeat
+timeout (``shard_timeout_s``) that no run reaches: under a loaded parallel
+test run, the time between a build and its first search has passed the
+default 30 s, and a shard found lost then changed the answer. The
+heartbeat test keeps its own timeout and pings a stale heartbeat.
 """
 import time
 import warnings
@@ -35,6 +41,7 @@ from repro_torch.streaming import SegmentedIndex
 
 SPEC = dict(variants=("T", "Tp", "Tpp"), m=8, ef_con=40)
 NO_EDGE = -1
+NEVER_S = 1e9      # a heartbeat timeout no run reaches (module docstring)
 
 
 @pytest.fixture(scope="module")
@@ -196,10 +203,12 @@ def built(ref_dist, dds):
     ref = dep.ShardedDeployment.build(
         dds.vectors, dds.lo, dds.hi,
         spec=dep.DeploymentSpec(n_shards=3, index=RefSpec(**SPEC),
-                                engine=RefConfig(use_kernel=True)))
+                                engine=RefConfig(use_kernel=True),
+                                shard_timeout_s=NEVER_S))
     port = ShardedDeployment.build(
         dds.vectors, dds.lo, dds.hi,
-        spec=DeploymentSpec(n_shards=3, index=IndexSpec(**SPEC)),
+        spec=DeploymentSpec(n_shards=3, index=IndexSpec(**SPEC),
+                            shard_timeout_s=NEVER_S),
         device="cpu")
     return ref, port
 
@@ -224,7 +233,8 @@ def test_build_pool_builds_the_same_shards(dds, built):
     pooled = ShardedDeployment.build(
         dds.vectors, dds.lo, dds.hi,
         spec=DeploymentSpec(n_shards=3, index=IndexSpec(**SPEC),
-                            build_workers=2), device="cpu")
+                            build_workers=2, shard_timeout_s=NEVER_S),
+        device="cpu")
     assert pooled.build_report["pool_size"] == 2
     assert len(pooled.build_report["shard_seconds"]) == 3
     for a, b in zip(serial.shards, pooled.shards):
@@ -235,6 +245,7 @@ def test_build_pool_builds_the_same_shards(dds, built):
 
 
 def _flat_pair(ref_dist, dds, D=4, **kw):
+    kw.setdefault("shard_timeout_s", NEVER_S)
     dep = ref_dist[1]
     ref = dep.ShardedDeployment.flat(
         dds.vectors, dds.lo, dds.hi,
@@ -260,7 +271,8 @@ def test_flat_layout_matches_reference(ref_dist, dds, per_shard_k):
         dev = ShardedDeployment.flat(
             dds.vectors, dds.lo, dds.hi, mesh=mesh,
             spec=DeploymentSpec(n_shards=4, merge=merge,
-                                per_shard_k=per_shard_k))
+                                per_shard_k=per_shard_k,
+                                shard_timeout_s=NEVER_S))
         assert dev.device.type == "cpu"
         c = _answers(dev, dds, SearchRequest)
         assert c.report.merge == merge
@@ -269,7 +281,8 @@ def test_flat_layout_matches_reference(ref_dist, dds, per_shard_k):
 
 def test_flat_layout_is_staged_once(dds):
     port = ShardedDeployment.flat(dds.vectors, dds.lo, dds.hi,
-                                  spec=DeploymentSpec(n_shards=4),
+                                  spec=DeploymentSpec(
+                                      n_shards=4, shard_timeout_s=NEVER_S),
                                   device="cpu")
     corpus, lo, hi = port._flat
     assert isinstance(corpus, torch.Tensor) and corpus.shape == (400, 16)
@@ -282,8 +295,9 @@ def test_fail_restore_and_missing_shards_match_reference(ref_dist, dds):
     ref, port = _flat_pair(ref_dist, dds)
     mesh = make_mesh((4,), ("data",), device="cpu")
     dev = ShardedDeployment.flat(dds.vectors, dds.lo, dds.hi, mesh=mesh,
-                                 spec=DeploymentSpec(n_shards=4,
-                                                     merge="tournament"))
+                                 spec=DeploymentSpec(
+                                     n_shards=4, merge="tournament",
+                                     shard_timeout_s=NEVER_S))
     for d in (ref, port, dev):
         d.fail(3)
     a = _answers(ref, dds, RefRequest)
@@ -357,9 +371,11 @@ def test_from_segmented_matches_reference(ref_dist, dds, segmented_pair,
     ref_s, port_s = segmented_pair
     ref = dep.ShardedDeployment.from_segmented(
         ref_s, spec=dep.DeploymentSpec(n_shards=2,
-                                       engine=RefConfig(use_kernel=True)))
+                                       engine=RefConfig(use_kernel=True),
+                                       shard_timeout_s=NEVER_S))
     port = ShardedDeployment.from_segmented(
-        port_s, spec=DeploymentSpec(n_shards=2), device="cpu")
+        port_s, spec=DeploymentSpec(n_shards=2, shard_timeout_s=NEVER_S),
+        device="cpu")
     assert [s.n for s in port.shards] == [s.n for s in ref.shards]
     assert port.shards[0].engine.delta is port_s.delta
     a = _answers(ref, dds, RefRequest, route=route)
@@ -378,7 +394,8 @@ def test_from_segmented_shares_the_source_engines(dds, segmented_pair):
     port_s = segmented_pair[1]
     port = ShardedDeployment.from_segmented(
         port_s, spec=DeploymentSpec(n_shards=2,
-                                    engine=port_s.engine_config),
+                                    engine=port_s.engine_config,
+                                    shard_timeout_s=NEVER_S),
         device="cpu")
     _answers(port, dds, SearchRequest, route="pruned")
     before = dict(port_s._engines)
