@@ -17,6 +17,16 @@ numpy has no bfloat16 of its own: a bfloat16 leaf is written as its raw
 2-byte words (``.npy`` type ``V2``, what ``np.save`` writes for an
 ``ml_dtypes`` bfloat16 array) with ``"dtype": "bfloat16"`` in the
 manifest, and read back through the manifest as those bits.
+
+A state sharded over a mesh of ranks is saved whole: ``save(...,
+mesh=, specs=)`` all-gathers each leaf from the ranks' shards (every rank
+calls it), the rank at the mesh's origin writes, and every rank returns
+once the step is published, so a checkpoint does not depend on the mesh it
+was written from. ``restore(..., mesh=, specs=)`` (the reference's
+``shardings=``, its elastic restore) gives each rank its box of every leaf
+on the mesh it runs on now, of any shape; a logical mesh
+(:func:`repro_torch.launch.make_mesh`) whose axes all have one shard
+restores the whole leaves.
 """
 from __future__ import annotations
 
@@ -57,6 +67,22 @@ def _unflatten(tree, values: Dict[str, Any], prefix: str = ""):
     return values[prefix.replace(" ", "_")]
 
 
+class _Spec:
+    """A spec as a leaf (a spec is a tuple, which a tree walk enters)."""
+    __slots__ = ("spec",)
+
+    def __init__(self, spec):
+        self.spec = spec
+
+
+def _specs_by_name(tree, specs) -> Dict[str, Any]:
+    """Each leaf's spec in ``specs`` (a tree of specs matching ``tree``),
+    by the leaf's name."""
+    from ..models.params import map_tree    # (the core imports this module)
+    boxed = map_tree(lambda _, sp: _Spec(sp), tree, specs)
+    return {name: b.spec for name, b in _flatten_with_paths(boxed)}
+
+
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
     """(a host copy as numpy, the manifest's dtype name)."""
     if torch.is_tensor(leaf):
@@ -88,10 +114,17 @@ class Checkpointer:
         os.makedirs(directory, exist_ok=True)
 
     # ---- save ----
-    def save(self, step: int, tree: Any, extra: Optional[Dict] = None) -> str:
+    def save(self, step: int, tree: Any, extra: Optional[Dict] = None, *,
+             mesh=None, specs=None) -> str:
         """Write ``tree`` as step ``step``; returns its directory (written
-        once :meth:`wait` returns)."""
+        once :meth:`wait` returns). With ``mesh`` (a mesh of ranks, every
+        one of which calls this) ``tree`` holds this rank's shards laid out
+        by ``specs`` (a matching tree of specs): each leaf is gathered
+        whole, the rank at the mesh's origin writes them, and every rank
+        returns once the step is published."""
         self.wait()
+        if mesh is not None:
+            return self._save_sharded(step, tree, extra, mesh, specs)
         host = [(name, *_to_host(leaf))
                 for name, leaf in _flatten_with_paths(tree)]
         if self.async_write:
@@ -100,6 +133,23 @@ class Checkpointer:
             self._thread.start()
         else:
             self._write(step, host, extra or {})
+        return self.step_dir(step)
+
+    def _save_sharded(self, step, tree, extra, mesh, specs) -> str:
+        from ..distributed import collectives as coll
+        writer = coll.axis_index(mesh, tuple(mesh.shape)) == 0
+        spec = _specs_by_name(tree, specs)
+        host = []
+        with torch.no_grad():
+            for name, leaf in _flatten_with_paths(tree):
+                whole = coll.unshard(leaf, spec[name], mesh)
+                if writer:
+                    host.append((name, *_to_host(whole)))
+        if writer:
+            self._write(step, host, extra or {})
+        # every rank returns once the step is on disk
+        coll.psum(torch.zeros(1, device=mesh.device), mesh,
+                  tuple(mesh.shape))
         return self.step_dir(step)
 
     def wait(self) -> None:
@@ -145,11 +195,15 @@ class Checkpointer:
         steps = self.list_steps()
         return steps[-1] if steps else None
 
-    def restore(self, example_tree: Any, step: Optional[int] = None):
+    def restore(self, example_tree: Any, step: Optional[int] = None, *,
+                mesh=None, specs=None):
         """(tree, step, extra). ``example_tree`` gives the structure and the
         leaf names; each leaf comes back as a tensor on the device of the
         example's tensor at its path (the CPU where the example has none).
-        ``step``: the latest by default."""
+        ``step``: the latest by default. With ``mesh`` and ``specs`` (a
+        tree of specs matching ``example_tree``), each leaf is this rank's
+        box of the saved whole leaf on ``mesh`` (the reference's elastic
+        restore onto the current mesh)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -157,9 +211,15 @@ class Checkpointer:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         by_name = {leaf["name"]: leaf for leaf in manifest["leaves"]}
+        spec = _specs_by_name(example_tree, specs) if mesh is not None \
+            else {}
         values = {}
         for name, ex in _flatten_with_paths(example_tree):
             info = by_name[name]
             t = _from_file(os.path.join(d, info["file"]), info["dtype"])
+            if mesh is not None:
+                from ..distributed.sharding import NamedSharding
+                t = t[NamedSharding(mesh, spec[name]).index(t.shape)]
+                t = t.contiguous()
             values[name] = t.to(ex.device if torch.is_tensor(ex) else "cpu")
         return _unflatten(example_tree, values), step, manifest["extra"]

@@ -194,15 +194,18 @@ def lm_params_from_arrays(cfg, tree, device=None, *, mesh=None, rules=None):
     return _carry(cfg, tree, device, mesh=mesh, rules=rules)
 
 
-def opt_state_from_arrays(cfg, state, device=None):
+def opt_state_from_arrays(cfg, state, device=None, *, mesh=None,
+                          rules=None):
     """The port's AdamW state (:func:`repro_torch.training.adamw_init`'s
     layout) for ``LM(cfg)`` from the reference's ``{"m", "v", "step"}``
     with numpy leaves: ``m`` and ``v`` carried as
-    :func:`lm_params_from_arrays` carries a parameter tree, in float32;
-    ``step`` an int32 scalar."""
+    :func:`lm_params_from_arrays` carries a parameter tree, in float32
+    (with ``mesh``, this rank's slices under ``rules``, the parameters'
+    layout); ``step`` an int32 scalar, whole."""
     dev = resolve_device(device)
-    return {"m": _carry(cfg, state["m"], dev, torch.float32),
-            "v": _carry(cfg, state["v"], dev, torch.float32),
+    kw = dict(mesh=mesh, rules=rules)
+    return {"m": _carry(cfg, state["m"], dev, torch.float32, **kw),
+            "v": _carry(cfg, state["v"], dev, torch.float32, **kw),
             "step": _host_tensor(state["step"]).to(device=dev,
                                                    dtype=torch.int32)}
 

@@ -14,10 +14,11 @@ schedules over a stacked shard axis, heartbeat-based fault handling.
 
 A model over a mesh of ranks (``repro_torch.launch.make_rank_mesh``, one
 process a rank): :mod:`.collectives` (the reference's named-axis ``psum``,
-``pmean``, ``all_gather`` and ``axis_index``) and :mod:`.sharding` (its
-spec helpers and ``NamedSharding``), which ``ServeEngine(mesh=)`` and the
-model's expert-parallel paths run on. Training on more than one rank is
-not ported yet and raises.
+``pmean``, ``all_gather``, ``psum_scatter`` and ``axis_index``, with the
+backward rules training needs) and :mod:`.sharding` (its spec helpers,
+``batch_rows`` and ``NamedSharding``), which ``ServeEngine(mesh=)``,
+``LM.train_loss(mesh=)``, ``make_train_step(mesh=)`` and the model's
+expert-parallel paths run on.
 """
 from .topk import (sharded_flat_topk, sharded_topk_merge,
                    tournament_topk_merge, global_topk_merge,

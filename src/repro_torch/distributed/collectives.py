@@ -1,21 +1,44 @@
 """The reference's named-axis collectives over a mesh of ranks
 (:func:`repro_torch.launch.mesh.make_rank_mesh`): ``lax.psum``,
-``lax.pmean``, ``lax.all_gather(..., tiled=True)`` and ``lax.axis_index``,
-each over one axis or a tuple of axes; and :func:`unshard`, a whole leaf
-from this rank's shard of it.
+``lax.pmean``, ``lax.all_gather(..., tiled=True)``, ``lax.psum_scatter``
+and ``lax.axis_index``, each over one axis or a tuple of axes;
+:func:`unshard`, a whole leaf from this rank's shard of it; and
+:func:`pvary`, the identity whose gradient is summed.
 
 A tuple of axes is one axis of their product with the last axis varying
 fastest, as in an entry of a ``PartitionSpec``. A collective runs over the
 axes one after another, each on ``DeviceMesh.get_group(axis)``, whose group
 ranks follow the coordinate on that axis. Each call adds one to
-``mesh.counts[name]`` (``psum``, ``all_gather``).
+``mesh.counts[name]`` (``psum``, ``all_gather``, ``psum_scatter``).
 
 Transport (:meth:`repro_torch.launch.mesh.Mesh.transport`): NCCL with CUDA
 tensors and gloo with CPU tensors run on the tensor's own device. Gloo with
 CUDA tensors copies the tensor to the host once, runs every axis's
 collective there and copies the result back once, adding the bytes of both
-copies to ``mesh.counts["staged_bytes"]``. Any other pairing raises. The
-collectives are not differentiable: they serve inference.
+copies to ``mesh.counts["staged_bytes"]``. Any other pairing raises.
+
+Gradients. Training on a mesh splits the batch over ``batch_axes``; every
+other axis is one on which each rank computes the same thing (activations
+are whole and replicated along ``model``). Every rank differentiates the
+same global loss, so the backward of each collective is:
+
+* :func:`psum` / :func:`pmean`: the output feeds work that is replicated
+  over the axes, so the cotangent passes through unchanged (divided by the
+  rank count for ``pmean``);
+* :func:`all_gather`: over an axis in ``batch_axes`` each rank's cotangent
+  is its own rows' part, so it is summed and scattered
+  (:func:`psum_scatter`); over any other axis every rank holds the whole
+  cotangent, so it is this rank's slice (a sum would scale it by the
+  axis's size);
+* :func:`pvary`: a replicated input that feeds a partial result later
+  summed over ``axes`` (the MoE's tokens and router ahead of the experts'
+  ``psum`` over ``model``) gets its cotangent summed over ``axes``;
+* :func:`psum_scatter`: the :func:`all_gather` of the cotangent.
+
+These are the transposes ``shard_map`` gives the reference with
+``check_rep=False``. A leaf that no collective gathers and that is
+replicated over a batch axis gets its gradient summed over that axis by
+the train step (:func:`repro_torch.training.train_loop.sync_grads`).
 """
 from __future__ import annotations
 
@@ -42,7 +65,9 @@ def axis_size(mesh, axes: Axes) -> int:
 def axis_index(mesh, axes: Axes) -> int:
     """This rank's index on ``axes`` as one axis, the last varying
     fastest (``lax.axis_index``; the reference's ``e_lo`` sum over several
-    axes)."""
+    axes); 0 over no axes, on any mesh."""
+    if not _axes(axes):
+        return 0
     if mesh.coord is None:
         raise ValueError("a logical mesh has no rank coordinate")
     i = 0
@@ -70,9 +95,7 @@ def _run(mesh, name: str, x: torch.Tensor, fn, axes) -> torch.Tensor:
     return out.to(x.device)
 
 
-def psum(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
-    """The sum of ``x`` over the ranks of ``axes`` (``lax.psum``), the
-    same on every one of them."""
+def _psum(x, mesh, axes):
     def run(t):
         t = t.clone()
         for a in _axes(axes):
@@ -81,15 +104,7 @@ def psum(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     return _run(mesh, "psum", x, run, axes)
 
 
-def pmean(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
-    """:func:`psum` over the number of ranks of ``axes`` (``lax.pmean``)."""
-    return psum(x, mesh, axes) / axis_size(mesh, axes)
-
-
-def all_gather(x: torch.Tensor, mesh, axes: Axes, dim: int = 0
-               ) -> torch.Tensor:
-    """Every rank's ``x`` of ``axes`` concatenated along ``dim`` in rank
-    order (``lax.all_gather(..., tiled=True)``)."""
+def _all_gather(x, mesh, axes, dim):
     def run(t):
         for a in reversed(_axes(axes)):
             parts = [torch.empty_like(t) for _ in range(mesh.shape[a])]
@@ -99,12 +114,137 @@ def all_gather(x: torch.Tensor, mesh, axes: Axes, dim: int = 0
     return _run(mesh, "all_gather", x, run, axes)
 
 
-def unshard(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+def _psum_scatter(x, mesh, axes, dim):
+    # an all-reduce, then this rank's block: gloo has no reduce-scatter,
+    # and one path serves every backend
+    def run(t):
+        t = t.clone()
+        for a in _axes(axes):
+            dist.all_reduce(t, group=mesh.device_mesh.get_group(a))
+        return _block(t, mesh, axes, dim).contiguous()
+    return _run(mesh, "psum_scatter", x, run, axes)
+
+
+def _block(x, mesh, axes, dim):
+    """This rank's block of ``x`` along ``dim`` split over ``axes``."""
+    n = x.shape[dim] // axis_size(mesh, axes)
+    return x.narrow(dim, axis_index(mesh, axes) * n, n)
+
+
+def _gather_grad(g, mesh, axes, dim, batch_axes):
+    """The cotangent of a tiled all-gather over ``axes``: summed over those
+    in ``batch_axes`` and scattered, sliced over the rest."""
+    axes = _axes(axes)
+    summed = tuple(a for a in axes if a in _axes(batch_axes))
+    if not summed:
+        return _block(g, mesh, axes, dim).contiguous()
+    if summed != axes:
+        # select this rank's coordinate on the replicated axes; what is
+        # left is the blocks of the summed axes, in their order
+        sizes = [mesh.shape[a] for a in axes]
+        shape = list(g.shape)
+        g = g.reshape(shape[:dim] + sizes + [shape[dim] // math.prod(sizes)]
+                      + shape[dim + 1:])
+        for i, a in reversed(list(enumerate(axes))):
+            if a not in summed:
+                g = g.select(dim + i, mesh.coord[a])
+        g = g.flatten(dim, dim + len(summed))
+    return _psum_scatter(g, mesh, summed, dim)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _psum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _PVary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, ctx.mesh, ctx.axes), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, batch_axes):
+        ctx.args = (mesh, axes, dim, batch_axes)
+        return _all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_grad(g, *ctx.args), None, None, None, None
+
+
+class _PSumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _psum_scatter(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, *ctx.args), None, None, None
+
+
+def psum(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes`` (``lax.psum``), the
+    same on every one of them; the gradient passes through."""
+    if not _axes(axes):
+        return x
+    return _PSum.apply(x, mesh, axes)
+
+
+def pmean(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """:func:`psum` over the number of ranks of ``axes`` (``lax.pmean``)."""
+    return psum(x, mesh, axes) / axis_size(mesh, axes)
+
+
+def pvary(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """``x`` itself, whose gradient is summed over ``axes``: a value that
+    is the same on every rank of ``axes`` and feeds a partial result that
+    a :func:`psum` over them completes."""
+    if not _axes(axes):
+        return x
+    return _PVary.apply(x, mesh, axes)
+
+
+def all_gather(x: torch.Tensor, mesh, axes: Axes, dim: int = 0, *,
+               batch_axes: Axes = ()) -> torch.Tensor:
+    """Every rank's ``x`` of ``axes`` concatenated along ``dim`` in rank
+    order (``lax.all_gather(..., tiled=True)``). ``batch_axes`` are read
+    by the gradient only: summed and scattered over those of ``axes``,
+    this rank's slice over the rest."""
+    if not _axes(axes):
+        return x
+    return _AllGather.apply(x, mesh, axes, dim % x.dim(), batch_axes)
+
+
+def psum_scatter(x: torch.Tensor, mesh, axes: Axes, dim: int = 0
+                 ) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes``, of which each rank
+    keeps its block along ``dim`` (``lax.psum_scatter(..., tiled=True)``):
+    an all-reduce and this rank's block, on every backend."""
+    if not _axes(axes):
+        return x
+    return _PSumScatter.apply(x, mesh, axes, dim % x.dim())
+
+
+def unshard(x: torch.Tensor, spec, mesh, *, batch_axes: Axes = ()
+            ) -> torch.Tensor:
     """The whole leaf from this rank's shard ``x`` of a leaf laid out by
     ``spec`` (one entry a dim: ``None``, an axis or a tuple of axes): an
     :func:`all_gather` along each sharded dim. ``x`` itself where nothing
     is sharded."""
     for d, entry in enumerate(spec):
         if entry is not None:
-            x = all_gather(x, mesh, entry, d)
+            x = all_gather(x, mesh, entry, d, batch_axes=batch_axes)
     return x

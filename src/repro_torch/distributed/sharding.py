@@ -48,6 +48,28 @@ def batch_spec(mesh, batch: int, axes=("pod", "data")) -> Spec:
     return (present[0] if len(present) == 1 else present,)
 
 
+def spec_axes(spec) -> Tuple[str, ...]:
+    """The mesh axes that ``spec`` shards a leaf over, sorted."""
+    return tuple(sorted({a for e in spec if e is not None
+                         for a in ((e,) if isinstance(e, str) else e)}))
+
+
+def batch_rows(batch: dict, mesh, axes=("data",)) -> dict:
+    """This rank's rows of ``batch`` (a dict of arrays or tensors whose
+    first dim is the global batch) split over the present ``axes`` as the
+    reference's training step splits it (``batch_spec(mesh, 1 << 30,
+    axes)``: every present axis); ``ValueError`` where they do not divide
+    the batch."""
+    present = tuple(a for a in axes if a in mesh.shape)
+    n = mesh_axis_size(mesh, present)
+    B = len(next(iter(batch.values())))
+    if B % n:
+        raise ValueError(f"a batch of {B} does not split over {present} "
+                         f"({n} ranks)")
+    i, m = axis_index(mesh, present), B // n
+    return {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+
+
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """A leaf laid out over ``mesh`` by ``spec`` (entries past the spec's

@@ -124,13 +124,16 @@ def logits_fn(head_params, embed_params, x, tied: bool):
 
 
 
-def chunked_softmax_xent(logits_fn_, x, labels, mask, chunk: int = 512):
+def chunked_softmax_xent(logits_fn_, x, labels, mask, chunk: int = 512,
+                         denom=None):
     """Cross entropy over the sequence in chunks of ``chunk`` positions
     (and a shorter last one), to bound the float32 (B, C, V) intermediate
     on huge vocabularies. ``logits_fn_``: (B, C, D) -> (B, C, V), computed
     in x's dtype and then cast to float32; ``mask`` weighs each position.
 
-    Returns (the masked sum over max(total weight, 1), total weight)."""
+    Returns (the masked sum over max(total weight, 1), total weight).
+    ``denom``: the total weight to divide by instead of ``mask``'s (on a
+    mesh, the whole batch's)."""
     S = x.shape[1]
     chunk = min(chunk, S)
     acc = acc_dtype(x.dtype)
@@ -144,4 +147,6 @@ def chunked_softmax_xent(logits_fn_, x, labels, mask, chunk: int = 512):
         mc = mask[:, lo:lo + chunk].to(acc)
         tot = tot + torch.sum((lse - gold) * mc)
         cnt = cnt + torch.sum(mc)
+    if denom is not None:
+        cnt = denom.to(acc)
     return tot / torch.clamp(cnt, min=1.0), cnt

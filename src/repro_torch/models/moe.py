@@ -16,8 +16,13 @@ the local experts, and the gather back, weighted by the gates.
 * otherwise the reference's ``shard_map`` branch: experts over ``model``,
   the batch split over ``batch_axes``, capacity reckoned per batch shard
   from ``T_loc = (B / dp) * S``, one ``psum`` over ``model``, the aux
-  ``pmean``'d, and the batch shards gathered back so every rank holds the
-  whole output. Under ``DEFAULT_RULES`` (training) the expert weights are
+  ``pmean``'d over the batch axes and ``model``. In serving every rank
+  holds the whole batch: the branch takes its batch shard and gathers the
+  shards' outputs back. In training (``mode="train"``) the batch was split
+  before the model ran: x is this rank's rows, and so is the output. The
+  tokens and the router enter through ``pvary`` over ``model``, so their
+  gradients sum the experts' partial results (the reference's
+  ``shard_map`` transpose). Under ``DEFAULT_RULES`` (training) the expert weights are
   FSDP-sharded over ``data`` on D and all-gathered here, as in the
   reference. Under ``SERVE_RULES`` each rank holds experts over the whole
   mesh, with D whole: the branch reshards explicitly, all-gathering over
@@ -27,7 +32,10 @@ the local experts, and the gather back, weighted by the gates.
   exactly one model rank, so the sum differs only in its order);
 * on a mesh without a ``model`` axis that divides E: the local path on the
   whole batch, its expert weights gathered whole, with the capacity of
-  ``T_loc`` (the reference's local branch on a mesh).
+  ``T_loc`` (the reference's local branch on a mesh). In training the
+  ranks' rows are gathered first and each keeps its own rows of the
+  output; the aux, the same on every rank, is ``pmean``'d over the batch
+  axes, so that its gradient is counted once.
 
 ``mesh.counts`` records the path each call took (``moe_full_ep``,
 ``moe_shard_map``, ``moe_local``).
@@ -135,7 +143,7 @@ def _slots(loc_e, mine, E_loc: int, capacity: int):
 
 def _local_moe(x, router_w, bias, wg, wu, wd, *, cfg, capacity: int,
                act: str, experts: Optional[torch.Tensor] = None, mesh=None,
-               fsdp_axis=None, model_axis=None):
+               fsdp_axis=None, model_axis=None, batch_axes=()):
     """x: (T, D) -> (out (T, D), aux): the reference's ``_local_moe``.
 
     ``experts`` are the global ids of the experts in ``wg`` / ``wu`` /
@@ -143,12 +151,13 @@ def _local_moe(x, router_w, bias, wg, wu, wd, *, cfg, capacity: int,
     ``e_lo + E_loc``; ``None``: all of them, ``e_lo = 0``); an assignment
     to another expert is not ``mine`` and adds nothing here. On ``mesh``:
     ``fsdp_axis`` all-gathers the expert weights' D (dim 1 of ``wg`` /
-    ``wu``, dim 2 of ``wd``) first, and ``model_axis`` sums the output over
-    its ranks last."""
+    ``wu``, dim 2 of ``wd``) first (their gradients summed over
+    ``batch_axes``), and ``model_axis`` sums the output over its ranks
+    last."""
     if fsdp_axis is not None:
-        wg = coll.all_gather(wg, mesh, fsdp_axis, 1)
-        wu = coll.all_gather(wu, mesh, fsdp_axis, 1)
-        wd = coll.all_gather(wd, mesh, fsdp_axis, 2)
+        wg, wu = (coll.all_gather(w, mesh, fsdp_axis, 1,
+                                  batch_axes=batch_axes) for w in (wg, wu))
+        wd = coll.all_gather(wd, mesh, fsdp_axis, 2, batch_axes=batch_axes)
     E_loc = wg.shape[0]
     T, D = x.shape
     k = cfg.top_k
@@ -235,10 +244,11 @@ def moe_apply(p, x, *, cfg, mesh=None, batch_axes=("data",),
               capacity_factor: float = 1.25, mode: str = "train"):
     """x: (B, S, D) -> (y (B, S, D), aux), by the reference's choice of
     path (module docstring). Without a mesh every mode runs the local
-    path. On a mesh of ranks every rank holds the whole x and gets the
-    whole y; its parameters are its shards under ``rules_for(mode)``
-    (the shared experts and the router whole, as the model's per-unit
-    gather leaves them)."""
+    path. On a mesh of ranks the parameters are this rank's shards under
+    ``rules_for(mode)`` (the shared experts and the router whole, as the
+    model's per-unit gather leaves them); in serving every rank holds the
+    whole x and gets the whole y, in training (``mode="train"``) its rows
+    of the batch split over ``batch_axes``, B of them."""
     B, S, D = x.shape
     E = cfg.n_experts
     if mesh is None:
@@ -261,18 +271,27 @@ def moe_apply(p, x, *, cfg, mesh=None, batch_axes=("data",),
                 and E % mesh.shape["model"] == 0)
     data_axes = tuple(a for a in (batch_axes or ()) if a in mesh.shape)
     dp = coll.axis_size(mesh, data_axes)
-    if B % dp:
+    train = mode == "train"
+    if not train and B % dp:
         raise ValueError(f"batch {B} does not split over {data_axes} "
                          f"({dp})")
-    capacity = capacity_for((B // dp) * S, cfg, capacity_factor)
+    Bl = B if train else B // dp          # the rows of one batch shard
+    capacity = capacity_for(Bl * S, cfg, capacity_factor)
     specs = _expert_specs(p, cfg, mesh, mode)
     if not model_ok:
         mesh.counts["moe_local"] += 1
-        wg, wu, wd = (coll.unshard(p[n], sp, mesh) for n, sp in
-                      zip(("w_gate", "w_up", "w_down"), specs))
-        out, aux = _local_moe(x.reshape(B * S, D), p["router"], p["bias"],
+        wg, wu, wd = (coll.unshard(p[n], sp, mesh, batch_axes=data_axes)
+                      for n, sp in zip(("w_gate", "w_up", "w_down"), specs))
+        # in training each rank holds its rows: the whole batch is gathered
+        xg = coll.all_gather(x, mesh, data_axes if train else (), 0,
+                             batch_axes=data_axes)
+        out, aux = _local_moe(xg.reshape(-1, D), p["router"], p["bias"],
                               wg, wu, wd, cfg=cfg, capacity=capacity,
                               act=cfg.act)
+        if train:
+            b = coll.axis_index(mesh, data_axes)
+            out = out.view(-1, S, D)[b * B:(b + 1) * B]
+            aux = coll.pmean(aux, mesh, data_axes)
         return _shared(p, x, out.reshape(B, S, D), cfg), aux
 
     # the shard_map branch: experts over model, the batch over data_axes
@@ -302,19 +321,28 @@ def moe_apply(p, x, *, cfg, mesh=None, batch_axes=("data",),
     fsdp_axis = specs[0][1]
     if specs[1][1] != fsdp_axis or specs[2][2] != fsdp_axis:
         raise ValueError(f"expert weights laid out as {specs}")
-    wg = coll.unshard(wg, (None, None) + specs[0][2:], mesh)
-    wu = coll.unshard(wu, (None, None) + specs[1][2:], mesh)
-    wd = coll.unshard(wd, (None, specs[2][1], None), mesh)
+    wg = coll.unshard(wg, (None, None) + specs[0][2:], mesh,
+                      batch_axes=data_axes)
+    wu = coll.unshard(wu, (None, None) + specs[1][2:], mesh,
+                      batch_axes=data_axes)
+    wd = coll.unshard(wd, (None, specs[2][1], None), mesh,
+                      batch_axes=data_axes)
 
-    Bl = B // dp
-    b = coll.axis_index(mesh, data_axes)
-    x_blk = x[b * Bl:(b + 1) * Bl]
-    out, aux = _local_moe(x_blk.reshape(Bl * S, D), p["router"], p["bias"],
-                          wg, wu, wd, cfg=cfg, capacity=capacity,
-                          act=cfg.act, experts=experts, mesh=mesh,
-                          fsdp_axis=fsdp_axis, model_axis="model")
+    if train:
+        x_blk = x
+    else:
+        b = coll.axis_index(mesh, data_axes)
+        x_blk = x[b * Bl:(b + 1) * Bl]
+    router, bias, x_in = (coll.pvary(t, mesh, "model")
+                          for t in (p["router"], p["bias"], x_blk))
+    out, aux = _local_moe(x_in.reshape(Bl * S, D), router, bias, wg, wu, wd,
+                          cfg=cfg, capacity=capacity, act=cfg.act,
+                          experts=experts, mesh=mesh, fsdp_axis=fsdp_axis,
+                          model_axis="model", batch_axes=data_axes)
     aux = coll.pmean(aux, mesh, data_axes + ("model",))
-    y = coll.all_gather(out.reshape(Bl, S, D), mesh, data_axes, 0)
+    y = out.reshape(Bl, S, D)
+    if not train:
+        y = coll.all_gather(y, mesh, data_axes, 0)
     return _shared(p, x, y, cfg), aux
 
 

@@ -31,15 +31,19 @@ it; the two differ only in the caches).
 On a mesh of ranks (:func:`repro_torch.launch.mesh.make_rank_mesh`),
 :meth:`LM.prefill` and :meth:`LM.decode_step` serve one model from its
 parameters sharded under ``SERVE_RULES``: every rank is given the whole
-batch, and its activations, caches and logits are whole. The embedding
-table and an untied head are vocabulary-parallel (a masked lookup summed
-over the vocabulary's axes; local logits gathered along the vocabulary).
-Before each unit of a segment runs, each rank all-gathers the unit's
-leaves that are sharded outside the MoE's experts (:meth:`LM._unit_unshard`),
-so the unit computes on whole dense weights; the MoE's experts stay
-sharded and take the reference's expert-parallel paths
-(:mod:`repro_torch.models.moe`). Training on more than one rank raises
-``NotImplementedError``.
+batch, and its activations, caches and logits are whole.
+:meth:`LM.train_loss` trains from parameters sharded under
+``DEFAULT_RULES`` (FSDP over ``data``, tensor-parallel over ``model``):
+every rank is given the whole batch and scores its rows of it, split over
+``batch_axes``; its activations are whole along ``model``. In every mode
+the embedding table and an untied head are vocabulary-parallel (a masked
+lookup summed over the vocabulary's axes; local logits gathered along the
+vocabulary), and before each unit of a segment runs, each rank all-gathers
+the unit's leaves that are sharded outside the MoE's experts
+(:meth:`LM._unit_unshard`), so the unit computes on whole dense weights;
+the MoE's experts stay sharded and take the reference's expert-parallel
+paths (:mod:`repro_torch.models.moe`). The gradients flow back through
+the collectives' backward rules (:mod:`repro_torch.distributed.collectives`).
 """
 from __future__ import annotations
 
@@ -56,6 +60,7 @@ from ..distributed import collectives as coll
 from . import attention as attn
 from . import moe as moe_mod
 from . import recurrent as rec
+from ..distributed.sharding import batch_rows
 from .common import (acc_dtype, chunked_softmax_xent, embed, embed_meta,
                      logits_fn, make_norm, mlp, mlp_meta, unembed_meta)
 from .params import (ParamMeta, count_params, init_tree, map_tree, meta,
@@ -300,12 +305,14 @@ def segment_apply(seg_p, x, seg: Segment, *, cfg: ModelConfig, mode: str,
     ``unshard``: on ``mesh``, one unit's (unstacked) tree of the specs its
     leaves are held under (:meth:`LM._unit_unshard`), ``None`` for a leaf
     used as it is; each unit all-gathers those leaves whole before it
-    runs."""
+    runs (in training, their gradients are summed over ``batch_axes``)."""
 
     def unit(lp, xx, cache_unit):
         if unshard is not None:
             lp = map_tree(lambda t, sp: t if sp is None
-                          else coll.unshard(t, sp, mesh), lp, unshard)
+                          else coll.unshard(t, sp, mesh,
+                                            batch_axes=batch_axes),
+                          lp, unshard)
         new_c, aux = {}, 0.0
         for j, d in enumerate(seg.pattern):
             c = cache_unit[f"L{j}"] if cache_unit is not None else None
@@ -486,14 +493,15 @@ class LM(nn.Module):
         for k in self._top:
             setattr(self, k, _Params(tree[k]))
 
-    def check_params(self, tree, mesh=None) -> None:
+    def check_params(self, tree, mesh=None, mode: str = "prefill") -> None:
         """Raise ``KeyError`` on a missing or unknown path of ``tree`` and
         ``ValueError`` on a leaf of another shape than the whole
         parameter's or, on ``mesh``, than this rank's shard of it under
-        ``SERVE_RULES`` (:func:`repro_torch.models.params.init_tree` with
-        ``mesh=``)."""
+        the rules of ``mode`` (``rules_for(mode)``: ``SERVE_RULES`` in
+        serving, ``DEFAULT_RULES`` in ``train``; see
+        :func:`repro_torch.models.params.init_tree` with ``mesh=``)."""
         metas = (self._metas if mesh is None
-                 else shard_metas(self._metas, mesh, rules_for("prefill")))
+                 else shard_metas(self._metas, mesh, rules_for(mode)))
         _check_tree(metas, tree)
 
     @property
@@ -549,7 +557,8 @@ class LM(nn.Module):
         return map_tree(f, pat)
 
     @staticmethod
-    def _vocab_parallel(w, m: ParamMeta, vdim: int, mesh, mode: str):
+    def _vocab_parallel(w, m: ParamMeta, vdim: int, mesh, mode: str,
+                        batch_axes=()):
         """(``w``, this rank's shard of a leaf of meta ``m``, gathered
         whole but for its vocabulary dim ``vdim``; that dim's axes, or
         ``None`` where it is whole; the first vocabulary row it holds)."""
@@ -557,19 +566,42 @@ class LM(nn.Module):
             return w, None, 0
         spec = spec_for(m, mesh, rules_for(mode))
         w = coll.unshard(w, tuple(None if d == vdim else e
-                                  for d, e in enumerate(spec)), mesh)
+                                  for d, e in enumerate(spec)), mesh,
+                         batch_axes=batch_axes)
         v_ax = spec[vdim]
         return w, v_ax, coll.axis_index(mesh, v_ax) * w.shape[vdim]
 
+    def _table(self, params, mesh, mode: str, batch_axes=()):
+        return self._vocab_parallel(params["embed"]["table"],
+                                    self._metas["embed"]["table"], 0, mesh,
+                                    mode, batch_axes)
+
+    def _head(self, params, mesh, mode: str, batch_axes=()):
+        if self.cfg.tie_embeddings:
+            return self._table(params, mesh, mode, batch_axes)
+        return self._vocab_parallel(params["head"]["w_out"],
+                                    self._metas["head"]["w_out"], 1, mesh,
+                                    mode, batch_axes)
+
+    def _vocab_weights(self, params, mesh, mode: str, batch_axes=()):
+        """``{"embed": ..., "head": ...}``, :meth:`_vocab_parallel`'s
+        triple for the table and for the head (the table's, tied): gathered
+        once for every lookup and logits chunk of a training step (the
+        reference's ``_gather_embed``)."""
+        emb = self._table(params, mesh, mode, batch_axes)
+        return {"embed": emb, "head": emb if self.cfg.tie_embeddings
+                else self._head(params, mesh, mode, batch_axes)}
+
     # ----- embedding -----
-    def _embed_tokens(self, params, tokens, mesh=None, mode="train"):
+    def _embed_tokens(self, params, tokens, mesh=None, mode="train",
+                      vocab=None):
         """The tokens' rows of the table, in the activation dtype (times
         sqrt(d_model) with ``embed_scale``). On a mesh whose vocabulary
         axes split the table, each rank looks up the tokens in its rows
-        (zeros elsewhere) and a ``psum`` over those axes completes it."""
-        table, v_ax, v_lo = self._vocab_parallel(
-            params["embed"]["table"], self._metas["embed"]["table"], 0,
-            mesh, mode)
+        (zeros elsewhere) and a ``psum`` over those axes completes it.
+        ``vocab``: :meth:`_vocab_weights` gathered already."""
+        table, v_ax, v_lo = (vocab["embed"] if vocab
+                             else self._table(params, mesh, mode))
         if v_ax is None:
             x = embed({"table": table}, tokens)
         else:
@@ -618,24 +650,50 @@ class LM(nn.Module):
         _, norm = make_norm(cfg)
         return norm(params["encoder"]["final_norm"], x)
 
-    def _logits(self, params, x, mesh, mode: str):
+    def _logits(self, params, x, mesh, mode: str, vocab=None):
         """Logits of ``x`` over the vocabulary, whole (``logits_fn``). On a
         mesh whose vocabulary axes split the head (or the tied table),
         each rank multiplies by its vocabulary rows and the pieces are
-        all-gathered along the vocabulary."""
+        all-gathered along the vocabulary. ``vocab``:
+        :meth:`_vocab_weights` gathered already."""
         tied = self.cfg.tie_embeddings
-        group, leaf, vdim = ("embed", "table", 0) if tied else \
-            ("head", "w_out", 1)
-        w, v_ax, _ = self._vocab_parallel(
-            params[group][leaf], self._metas[group][leaf], vdim, mesh, mode)
+        w, v_ax, _ = (vocab["head"] if vocab
+                      else self._head(params, mesh, mode))
+        # each rank's logits are a part of the whole: x's gradient sums them
+        x = coll.pvary(x, mesh, v_ax)
         local = logits_fn({"w_out": w}, {"table": w}, x, tied)
         return coll.all_gather(local, mesh, v_ax, -1)
 
     # ----- train -----
-    def _logits_fn(self, params):
-        return lambda xc: self._logits(params, xc, None, "train")
+    def _whole_outside_units(self, params, mesh, batch_axes):
+        """``params`` with the leaves that training reads outside the
+        segments' units, the embedding and the head (the final norms,
+        ``frontend_proj``, ``mtp``'s projection and norms) all-gathered
+        whole from their ``DEFAULT_RULES`` shards."""
+        rules = rules_for("train")
 
-    def train_loss(self, params, batch: Dict[str, Any], *, mesh=None):
+        def whole(key_tree, meta_tree):
+            return map_tree(lambda t, m: coll.unshard(
+                t, spec_for(m, mesh, rules), mesh, batch_axes=batch_axes),
+                key_tree, meta_tree)
+
+        out = dict(params, final_norm=whole(params["final_norm"],
+                                            self._metas["final_norm"]))
+        if "encoder" in params:
+            out["encoder"] = dict(params["encoder"], final_norm=whole(
+                params["encoder"]["final_norm"],
+                self._metas["encoder"]["final_norm"]))
+        if "frontend_proj" in params:
+            out["frontend_proj"] = whole(params["frontend_proj"],
+                                         self._metas["frontend_proj"])
+        if "mtp" in params:
+            out["mtp"] = dict(params["mtp"], **{
+                k: whole(params["mtp"][k], self._metas["mtp"][k])
+                for k in ("proj", "norm_h", "norm_e")})
+        return out
+
+    def train_loss(self, params, batch: Dict[str, Any], *, mesh=None,
+                   batch_axes=("data",)):
         """The training loss of ``batch`` (``tokens`` (B, S) and their
         next-token ``labels`` (B, S); ``frames`` or ``patches`` as the
         config needs; a label below 0 is not scored): the cross entropy
@@ -646,23 +704,41 @@ class LM(nn.Module):
         under autograd; ``metrics`` holds ``xent``, ``aux``, ``tokens``
         (the scored positions) and, with ``mtp``, ``mtp``, detached.
 
-        A mesh of one rank is the mesh-less run; more than one rank raises
-        ``NotImplementedError`` (training on a mesh, its FSDP gradients and
-        embedding gather, is not ported yet: ROADMAP §1 item 6)."""
-        if self._ranks(mesh) is not None and mesh.size > 1:
-            raise NotImplementedError(
-                f"training on a mesh of {mesh.size} ranks is not ported; "
-                f"one rank (or mesh=None) is")
+        On ``mesh`` (a mesh of ranks; one rank is the mesh-less run)
+        ``params`` are this rank's shards under ``DEFAULT_RULES``
+        (:meth:`check_params` with ``mode="train"``) and ``batch`` the
+        whole batch, the same on every rank: each rank scores its rows of
+        it, split over the present ``batch_axes``
+        (:func:`repro_torch.distributed.sharding.batch_rows`, which raises
+        ``ValueError`` where they do not divide it). The cross entropy's
+        sum over the rank's rows is divided by the scored positions of the
+        whole batch and summed over ``batch_axes``, so every rank returns
+        the loss of the whole batch and its gradients with respect to its
+        shards are the slices of the whole batch's (the collectives'
+        backward rules, :mod:`repro_torch.distributed.collectives`; a leaf
+        replicated over a batch axis still needs its gradient summed over
+        it, :func:`repro_torch.training.train_loop.sync_grads`). The MoE's
+        aux is the reference's on a mesh: the mean over the batch shards
+        of each shard's aux."""
         cfg = self.cfg
+        mesh = self._ranks(mesh)
+        if mesh is not None and mesh.size == 1:
+            mesh = None
         params = self.params if params is None else params
+        ba = ()
+        if mesh is not None:
+            ba = tuple(a for a in batch_axes if a in mesh.shape)
+            batch = batch_rows(batch, mesh, ba)
+            params = self._whole_outside_units(params, mesh, ba)
+        vocab = self._vocab_weights(params, mesh, "train", ba)
         tokens = self._on_device(params, batch["tokens"])
         labels = self._on_device(params, batch["labels"])
-        x = self._embed_tokens(params, tokens)
-        acc = acc_dtype(x.dtype)
+        x = self._embed_tokens(params, tokens, mesh, "train", vocab)
         cross_memory = None
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.enc_cfg is not None:
-            cross_memory = self._encode(params, batch["frames"], mode="train")
+            cross_memory = self._encode(params, batch["frames"], "train",
+                                        mesh, ba)
         if cfg.frontend == "vision_stub":
             x = self._frontend(params, batch, x)
             pad = torch.full((labels.shape[0], x.shape[1] - labels.shape[1]),
@@ -670,46 +746,68 @@ class LM(nn.Module):
             labels = torch.cat([pad, labels], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)
         for sp, seg in zip(params["segments"], self.layout):
-            x, _, a = segment_apply(sp, x, seg, cfg=cfg, mode="train",
-                                    caches=None, positions=positions,
-                                    cur_pos=None, cross_memory=cross_memory)
+            x, _, a = segment_apply(
+                sp, x, seg, cfg=cfg, mode="train", caches=None,
+                positions=positions, cur_pos=None, mesh=mesh, batch_axes=ba,
+                cross_memory=cross_memory,
+                unshard=self._unit_unshard(seg, mesh, cfg, "train"))
             aux_total = aux_total + a
         _, norm = make_norm(cfg)
         x = norm(params["final_norm"], x)
-        mask = (labels >= 0).to(acc)
-        loss, denom = chunked_softmax_xent(self._logits_fn(params), x,
-                                           torch.clamp(labels, min=0), mask)
+        logits = lambda xc: self._logits(params, xc, mesh, "train", vocab)
+        loss, denom = self._xent(logits, x, labels, mesh, ba)
         metrics = {"xent": loss.detach(), "aux": aux_total.detach(),
                    "tokens": denom.detach()}
         if cfg.mtp:
-            mtp_loss = self._mtp_loss(params, x, tokens, labels, positions)
+            mtp_loss = self._mtp_loss(params, x, tokens, labels, positions,
+                                      mesh, ba, vocab)
             metrics["mtp"] = mtp_loss.detach()
             loss = loss + 0.3 * mtp_loss
         if cfg.n_experts:
             loss = loss + 0.01 * aux_total
         return loss, metrics
 
-    def _mtp_loss(self, params, h, tokens, labels, positions):
+    @staticmethod
+    def _xent(logits, x, labels, mesh, ba):
+        """(the cross entropy of the scored positions, their count), of
+        the whole batch on a mesh: this rank's sum over the global count,
+        summed over the batch axes ``ba``."""
+        mask = (labels >= 0).to(acc_dtype(x.dtype))
+        lab = torch.clamp(labels, min=0)
+        if mesh is None:
+            return chunked_softmax_xent(logits, x, lab, mask)
+        denom = coll.psum(mask.sum(), mesh, ba)
+        loss, _ = chunked_softmax_xent(logits, x, lab, mask, denom=denom)
+        return coll.psum(loss, mesh, ba), denom
+
+    def _mtp_loss(self, params, h, tokens, labels, positions, mesh=None,
+                  ba=(), vocab=None):
         """DeepSeek-V3 multi-token prediction: one extra block predicts
         token t + 2 from [norm(h_t) ; norm(emb(token_{t+1}))] projected to
-        d_model, through the final norm and the shared head."""
+        d_model, through the final norm and the shared head. On a mesh
+        the block's layer is gathered as a unit is."""
         cfg = self.cfg
         _, norm = make_norm(cfg)
         h_in = norm(params["mtp"]["norm_h"], h[:, :-1])
         e_in = norm(params["mtp"]["norm_e"],
-                    self._embed_tokens(params, tokens[:, 1:]))
+                    self._embed_tokens(params, tokens[:, 1:], mesh, "train",
+                                       vocab))
         x = (torch.cat([h_in, e_in], dim=-1)
              @ params["mtp"]["proj"].to(h.dtype))
         desc = LayerDesc("mla" if cfg.use_mla else "attn",
                          "moe" if cfg.n_experts else "dense")
-        x, _, _ = layer_apply(params["mtp"]["layer"], x, desc, cfg=cfg,
-                              mode="train", cache=None,
-                              positions=positions[:-1], cur_pos=None)
+        lp = params["mtp"]["layer"]
+        if mesh is not None:
+            us = self._unit_unshard(Segment((desc,), 1), mesh, cfg,
+                                    "train")["L0"]
+            lp = map_tree(lambda t, sp: t if sp is None else coll.unshard(
+                t, sp, mesh, batch_axes=ba), lp, us)
+        x, _, _ = layer_apply(lp, x, desc, cfg=cfg, mode="train", cache=None,
+                              positions=positions[:-1], cur_pos=None,
+                              mesh=mesh, batch_axes=ba)
         x = norm(params["final_norm"], x)
-        lab = labels[:, 1:]
-        mask = (lab >= 0).to(acc_dtype(x.dtype))
-        loss, _ = chunked_softmax_xent(self._logits_fn(params), x,
-                                       torch.clamp(lab, min=0), mask)
+        logits = lambda xc: self._logits(params, xc, mesh, "train", vocab)
+        loss, _ = self._xent(logits, x, labels[:, 1:], mesh, ba)
         return loss
 
     # ----- prefill -----

@@ -13,6 +13,13 @@ The reference returns new trees. Here :func:`adamw_update` writes the new
 parameters and moments **into the tensors it was given** and returns the
 same trees (the reference donates its parameter and optimizer buffers, so
 neither package holds a second copy).
+
+On a mesh of ranks each rank holds its shards of the parameters, their
+gradients and ``m`` / ``v`` (the parameters' specs; ``step`` whole).
+AdamW is elementwise, so it runs on the shards as it is. The clip's global
+norm (:func:`global_norm` with ``mesh`` and ``specs``) sums each leaf's
+partial squares over the axes that shard it, so a leaf replicated over an
+axis counts once.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from ..distributed import collectives as coll
+from ..distributed.sharding import spec_axes
 from ..models.params import leaves, map_tree
 
 
@@ -51,16 +60,32 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in float32."""
-    sq = [torch.sum(torch.square(x.to(torch.float32))) for x in leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+def global_norm(tree, *, mesh=None, specs=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in float32. On ``mesh``,
+    ``tree`` holds this rank's shards laid out by ``specs`` (a matching
+    tree of specs): the leaves' partial squares are summed over the axes
+    that shard them, one ``psum`` for each set of axes, and the norm is
+    the same on every rank."""
+    sq = lambda x: torch.sum(torch.square(x.to(torch.float32)))
+    if mesh is None:
+        return torch.sqrt(torch.sum(torch.stack([sq(x)
+                                                 for x in leaves(tree)])))
+    by_axes = {}
+
+    def add(x, spec):
+        by_axes.setdefault(spec_axes(spec), []).append(sq(x))
+
+    map_tree(add, tree, specs)
+    parts = [coll.psum(torch.sum(torch.stack(v)), mesh, axes)
+             for axes, v in sorted(by_axes.items())]
+    return torch.sqrt(torch.sum(torch.stack(parts)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
+def clip_by_global_norm(tree, max_norm: float, *, mesh=None, specs=None):
     """(the tree scaled by min(1, max_norm / max(norm, 1e-9)), the norm):
-    each leaf scaled in float32 and cast back to its dtype."""
-    gn = global_norm(tree)
+    each leaf scaled in float32 and cast back to its dtype. ``mesh`` and
+    ``specs`` as in :func:`global_norm`."""
+    gn = global_norm(tree, mesh=mesh, specs=specs)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return map_tree(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
                     tree), gn

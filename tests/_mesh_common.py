@@ -9,8 +9,15 @@ gloo ranks) each build the same numpy weights with the port's
 placed by its ``sharding_tree``, the port through
 ``convert.lm_params_from_arrays(..., mesh=)`` and ``init_tree(..., mesh=)``.
 """
+import os
+import sys
+
 import numpy as np
 import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from chip_smoke import TRAIN_CONDITIONING  # noqa: E402  (the card's too)
 
 MESH_SHAPE = (2, 2)
 MESH_AXES = ("data", "model")
@@ -39,6 +46,83 @@ PREFILL_B, PREFILL_S = 4, 4100
 # qwen3-moe's smoke layer with 5 experts: the model axis (2) does not
 # divide E, so a mesh runs the local path on the whole batch
 LOCAL_ARCH, LOCAL_E = "qwen3-moe-30b-a3b", 5
+
+
+# training on the mesh: the dense, MoE (its shard_map branch, capacity
+# per batch shard at TRAIN_CF, where assignments drop) and encoder smoke
+# configs, a global batch of TRAIN_B sequences of TRAIN_S tokens
+TRAIN_ARCHS = ("olmo-1b", "qwen3-moe-30b-a3b", "seamless-m4t-large-v2",
+               "deepseek-v3-671b", "llava-next-mistral-7b")
+TRAIN_B, TRAIN_S = 4, 16
+TRAIN_CF = 1.0
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 20
+# int8 error-feedback syncs of one gradient over the data axis
+COMPRESSED_N, COMPRESSED_STEPS = 64, 8
+
+
+def train_config(arch: str, configs):
+    """``arch``'s smoke config from ``configs`` (either package's), the
+    MoE at :data:`TRAIN_CF`."""
+    cfg = configs.get_smoke_config(arch)
+    return cfg.scaled(capacity_factor=TRAIN_CF) if cfg.n_experts else cfg
+
+
+def train_weights(arch: str, seed: int = 0):
+    """``arch``'s smoke parameters as a numpy tree, drawn as
+    :func:`weights` draws them, with the leaves of ``TRAIN_CONDITIONING``
+    scaled (the training parity tests' weights) and every MoE ``router``
+    times :data:`ROUTER_SCALE`."""
+    from repro_torch import configs
+    from repro_torch.models import LM
+    from repro_torch.models.params import init_tree
+    tree = init_tree(LM(configs.get_smoke_config(arch)).abstract_params(),
+                     torch.Generator().manual_seed(seed), "cpu")
+    for key, factor in TRAIN_CONDITIONING.items():
+        tree = _scaled(tree, key, factor)
+    return _numpy(_scaled(tree, "router", ROUTER_SCALE))
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def train_opt_state(arch: str, seed: int = 2) -> dict:
+    """An AdamW state two steps in for ``arch``'s smoke parameters, as
+    numpy: ``m`` normal at 1e-3, ``v`` uniform in [5e-7, 2e-6] (the square
+    of 1e-3's scale), ``step`` 2. A step from it keeps every update smooth
+    in the gradient: from zero moments, or a ``v`` near zero, an update is
+    about g / (|g| + eps), which turns rounding in a small gradient into a
+    sign."""
+    rng = np.random.default_rng(seed)
+    w = train_weights(arch)
+    return {"m": _map(lambda a: rng.normal(0, 1e-3, np.shape(a)).astype(
+                np.float32), w),
+            "v": _map(lambda a: rng.uniform(5e-7, 2e-6, np.shape(a)).astype(
+                np.float32), w),
+            "step": np.int32(2)}
+
+
+def train_batch(arch: str, seed: int = 1) -> dict:
+    """The global batch of ``arch``'s training case: the port's
+    ``TokenLoader`` (the reference's draws) at step 0."""
+    from repro_torch import configs
+    from repro_torch.data import TokenLoader
+    cfg = configs.get_smoke_config(arch)
+    b = TokenLoader(vocab=cfg.vocab, batch=TRAIN_B, seq_len=TRAIN_S,
+                    seed=seed, frontend=cfg.frontend,
+                    n_frontend_tokens=cfg.n_frontend_tokens,
+                    frontend_dim=cfg.frontend_dim).batch_at(0)
+    return {k: np.asarray(v) for k, v in b.items()}
+
+
+def compressed_input(d: int) -> np.ndarray:
+    """Data rank ``d``'s gradient for the compressed-mean case."""
+    return np.random.default_rng(40 + d).normal(
+        0, 1 + d, (COMPRESSED_N,)).astype(np.float32)
 
 
 def _scaled(tree, key: str, factor: float):

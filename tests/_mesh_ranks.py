@@ -104,7 +104,7 @@ def _rank_main(rank: int, store: str, out_dir: str, what: str) -> None:
             timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
         from repro_torch.launch import make_rank_mesh
         mesh = make_rank_mesh(mc.MESH_SHAPE, mc.MESH_AXES, device="cpu")
-        res = GROUPS[what](mesh)
+        res = GROUPS[what](mesh, out_dir)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
         dist.destroy_process_group()
     except BaseException:
@@ -129,15 +129,16 @@ def _raises(fn, exc) -> bool:
     return False
 
 
-def _group_moe(mesh) -> dict:
+def _group_moe(mesh, out_dir: str) -> dict:
     """Sharded init and carry, the MoE's paths, and what must raise."""
     from repro_torch import configs
     from repro_torch.convert import lm_params_from_arrays
     from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import batch_rows
     from repro_torch.launch import make_host_mesh, make_production_mesh
     from repro_torch.launch import make_rank_mesh
     from repro_torch.models import LM, moe, params
-    from repro_torch.training import make_train_step
+    from repro_torch.training import adamw_init, make_train_step
     res = {}
     rules = {"serve": params.SERVE_RULES, "default": params.DEFAULT_RULES}
     for arch in configs.ARCH_NAMES:
@@ -175,12 +176,19 @@ def _group_moe(mesh) -> dict:
 
     def run(key, cfg, layer, x, mode, cf):
         """``moe_apply`` on the mesh; ``layer`` as the model's per-unit
-        gather leaves it: the experts this rank's shards, the rest whole."""
+        gather leaves it: the experts this rank's shards, the rest whole.
+        In training the rank takes its rows of x (the batch split over
+        data) and gives its rows of y, gathered here to the whole."""
         mesh.counts.clear()
+        x = torch.from_numpy(x)
+        if mode == "train":
+            x = batch_rows({"x": x}, mesh, ("data",))["x"]
         with torch.no_grad():
-            y, aux = moe.moe_apply(layer, torch.from_numpy(x), cfg=cfg,
+            y, aux = moe.moe_apply(layer, x, cfg=cfg,
                                    mesh=mesh, batch_axes=("data",),
                                    capacity_factor=cf, mode=mode)
+            if mode == "train":
+                y = coll.all_gather(y, mesh, "data", 0)
         res[f"{key}/{mode}/y"] = y.numpy()
         res[f"{key}/{mode}/aux"] = aux.numpy()
         for path in ("moe_full_ep", "moe_shard_map", "moe_local"):
@@ -232,6 +240,7 @@ def _group_moe(mesh) -> dict:
                              mesh=mesh, rules=params.DEFAULT_RULES)
     batch = {"tokens": torch.zeros((4, 8), dtype=torch.int32),
              "labels": torch.zeros((4, 8), dtype=torch.int32)}
+    odd = {k: v[:3] for k, v in batch.items()}
     res["raises/world_size"] = _raises(
         lambda: make_rank_mesh((2, 4), ("data", "model"), device="cpu"),
         ValueError)
@@ -244,16 +253,18 @@ def _group_moe(mesh) -> dict:
         lambda: params.init_tree(lm.abstract_params(),
                                  torch.Generator().manual_seed(0), "cpu",
                                  mesh=mesh), ValueError)
+    # a global batch (or microbatch) that the data axis does not divide
     res["raises/train_loss"] = _raises(
-        lambda: lm.train_loss(shard, batch, mesh=mesh), NotImplementedError)
+        lambda: lm.train_loss(shard, odd, mesh=mesh), ValueError)
     res["raises/train_step"] = _raises(
-        lambda: make_train_step(lm, mesh=mesh), NotImplementedError)
+        lambda: make_train_step(lm, mesh=mesh, microbatches=4)(
+            shard, adamw_init(shard), batch), ValueError)
     res["host_mesh"] = make_host_mesh(2, 8, device="cpu").shape == {
         "data": 2, "model": 2}
     return res
 
 
-def _group_serve(mesh) -> dict:
+def _group_serve(mesh, out_dir: str) -> dict:
     """``ServeEngine`` on the mesh and without one, each config."""
     from repro_torch import configs
     from repro_torch.convert import lm_params_from_arrays
@@ -282,4 +293,207 @@ def _group_serve(mesh) -> dict:
     return res
 
 
-GROUPS = {"moe": _group_moe, "serve": _group_serve}
+def _box(n, shape) -> np.ndarray:
+    """A sharding's box of a leaf of ``shape``: (start, stop) a dim."""
+    return np.array([[b.start, b.stop] for b in n.index(shape)],
+                    dtype=np.int64).reshape(-1, 2)
+
+
+def _rule_cases(mesh) -> dict:
+    """The collectives' backward rules on float64 tensors, each against
+    its gradient worked out by hand: the error of each."""
+    from repro_torch.distributed import collectives as coll
+    d, m = mesh.coord["data"], mesh.coord["model"]
+    draw = lambda seed, *shape: torch.randn(
+        *shape, generator=torch.Generator().manual_seed(seed),
+        dtype=torch.float64)
+    err = lambda g, want: float((g.detach() - want).abs().max())
+    out = {}
+    # every rank's loss is the global one: its own part summed over data
+    loss = lambda t, seed: coll.psum((t * draw(seed + d, *t.shape)).sum(),
+                                     mesh, "data")
+    # an all-gather over a batch axis: the cotangent summed and scattered
+    x = draw(1, 4, 3)[2 * d:2 * d + 2].requires_grad_(True)
+    y = coll.all_gather(x, mesh, "data", 0, batch_axes=("data",))
+    (g,) = torch.autograd.grad(loss(y, 10), x)
+    out["all_gather_batch_axis"] = err(
+        g, (draw(10, 4, 3) + draw(11, 4, 3))[2 * d:2 * d + 2])
+    # over a replicated axis: this rank's slice, not a sum
+    w = draw(2, 4, 3)[2 * m:2 * m + 2].requires_grad_(True)
+    y = coll.all_gather(w, mesh, "model", 0, batch_axes=("data",))
+    (g,) = torch.autograd.grad(loss(y, 20), w)
+    out["all_gather_replicated_axis"] = err(
+        g, draw(20 + d, 4, 3)[2 * m:2 * m + 2])
+    # a leaf over (model, data) on two dims: both rules at once
+    w = draw(3, 4, 6)[2 * m:2 * m + 2, 3 * d:3 * d + 3].requires_grad_(True)
+    y = coll.unshard(w, ("model", "data"), mesh, batch_axes=("data",))
+    (g,) = torch.autograd.grad(loss(y, 30), w)
+    out["unshard_model_data"] = err(g, (draw(30, 4, 6) + draw(31, 4, 6))[
+        2 * m:2 * m + 2, 3 * d:3 * d + 3])
+    # a psum whose output feeds replicated work: the cotangent unchanged
+    x = draw(40 + 2 * d + m, 5).requires_grad_(True)
+    (g,) = torch.autograd.grad(loss(coll.psum(x, mesh, "model"), 50), x)
+    out["psum_feeds_replicated"] = err(g, draw(50 + d, 5))
+    # the router ahead of the experts' psum over model: its gradient sums
+    # every model rank's partial result
+    r = draw(60 + d, 5).requires_grad_(True)
+    part = coll.pvary(r, mesh, "model") * draw(70 + m, 5)
+    (g,) = torch.autograd.grad(loss(coll.psum(part, mesh, "model"), 80), r)
+    out["router_ahead_of_psum"] = err(
+        g, draw(80 + d, 5) * (draw(70, 5) + draw(71, 5)))
+    # pmean of a replicated value: the cotangent over the ranks' count
+    x = draw(90, 3).requires_grad_(True)
+    (g,) = torch.autograd.grad(
+        coll.pmean(x, mesh, ("data", "model")).sum(), x)
+    out["pmean"] = err(g, torch.full((3,), 0.25, dtype=torch.float64))
+    # psum_scatter: the block of the sum; its gradient the gathered one
+    x = draw(100 + d, 4, 2).requires_grad_(True)
+    y = coll.psum_scatter(x, mesh, "data", 0)
+    out["psum_scatter"] = err(y, (draw(100, 4, 2) + draw(101, 4, 2))[
+        2 * d:2 * d + 2])
+    (g,) = torch.autograd.grad((y * draw(110 + d, 2, 2)).sum(), x)
+    out["psum_scatter_grad"] = err(g, torch.cat([draw(110, 2, 2),
+                                                 draw(111, 2, 2)]))
+    return out
+
+
+def _group_train(mesh, out_dir: str) -> dict:
+    """Training on the mesh: the parity cases of ``mc.TRAIN_ARCHS``, the
+    backward rules, ``compressed_grad_sync`` over data, microbatches, the
+    elastic checkpoint and ``TrainLoop``'s resume."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.convert import (lm_params_from_arrays,
+                                     opt_state_from_arrays)
+    from repro_torch.data import TokenLoader
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import NamedSharding
+    from repro_torch.launch import make_mesh, make_rank_mesh
+    from repro_torch.models import LM, params
+    from repro_torch.training import (AdamWConfig, TrainLoop, adamw_init,
+                                      compressed_grad_sync, loss_and_grads,
+                                      make_train_step, sync_grads)
+    res = {f"rule/{k}": v for k, v in _rule_cases(mesh).items()}
+    opt_cfg = AdamWConfig(lr=mc.TRAIN_LR, warmup_steps=mc.TRAIN_WARMUP)
+    rules = params.DEFAULT_RULES
+    for arch in mc.TRAIN_ARCHS:
+        cfg = mc.train_config(arch, configs)
+        lm = LM(cfg)
+        metas = lm.abstract_params()
+        tree, batch = mc.train_weights(arch), mc.train_batch(arch)
+        shard = lm_params_from_arrays(cfg, tree, "cpu", mesh=mesh,
+                                      rules=rules)
+        lm.check_params(shard, mesh, mode="train")
+        res[f"{arch}/serve_layout_refused"] = _raises(
+            lambda: lm.check_params(shard, mesh), ValueError)
+        mesh.counts.clear()
+        loss, met, grads = loss_and_grads(lm, shard, batch, mesh=mesh)
+        grads = sync_grads(grads, params.spec_tree(metas, mesh, rules), mesh,
+                           ("data",))
+        for k in ("psum", "all_gather", "psum_scatter", "moe_shard_map"):
+            res[f"{arch}/counts/{k}"] = mesh.counts[k]
+        res[f"{arch}/loss"] = loss.numpy()
+        for k, v in met.items():
+            res[f"{arch}/metric/{k}"] = v.numpy()
+        for i, (n, m) in enumerate(zip(
+                params.leaves(params.sharding_tree(metas, mesh, rules)),
+                params.leaves(metas))):
+            res[f"{arch}/box/{i}"] = _box(n, m.shape)
+        for i, g in enumerate(params.leaves(grads)):
+            res[f"{arch}/grad/{i}"] = g.numpy()
+        step = make_train_step(lm, opt_cfg=opt_cfg, mesh=mesh)
+        opt = opt_state_from_arrays(cfg, mc.train_opt_state(arch), "cpu",
+                                    mesh=mesh, rules=rules)
+        p, o, sm = step(shard, opt, batch)
+        for k in ("loss", "grad_norm"):
+            res[f"{arch}/step/{k}"] = sm[k].numpy()
+        for part, t in (("params", p), ("m", o["m"]), ("v", o["v"])):
+            for i, leaf in enumerate(params.leaves(t)):
+                res[f"{arch}/step/{part}/{i}"] = leaf.numpy()
+
+    # int8 error feedback over data, one gradient a data rank
+    g = torch.from_numpy(mc.compressed_input(mesh.coord["data"]))
+    r = {"w": torch.zeros_like(g)}
+    for i in range(mc.COMPRESSED_STEPS):
+        out, r = compressed_grad_sync({"w": g}, "data", r, mesh=mesh)
+        res[f"compressed/mean/{i}"] = out["w"].numpy()
+        res[f"compressed/residual/{i}"] = r["w"].numpy()
+
+    # microbatches: 2 of the global batch's rows against 1
+    arch = "olmo-1b"
+    cfg = configs.get_smoke_config(arch)
+    lm = LM(cfg)
+    tree, batch = mc.train_weights(arch), mc.train_batch(arch)
+    for n in (1, 2):
+        p = lm_params_from_arrays(cfg, tree, "cpu", mesh=mesh, rules=rules)
+        p, o, sm = make_train_step(lm, opt_cfg=opt_cfg, microbatches=n,
+                                   mesh=mesh)(p, adamw_init(p), batch)
+        res[f"micro{n}/grad_norm"] = sm["grad_norm"].numpy()
+        for part, t in (("params", p), ("m", o["m"]), ("v", o["v"])):
+            for i, leaf in enumerate(params.leaves(t)):
+                res[f"micro{n}/{part}/{i}"] = leaf.numpy()
+
+    # a bfloat16 state after one step, saved from this (2, 2) mesh and
+    # restored on (4, 1), on (1, 1) and without a mesh
+    lm = LM(cfg.scaled(param_dtype="bfloat16", activ_dtype="bfloat16"))
+    metas = lm.abstract_params()
+    step = make_train_step(lm, opt_cfg=opt_cfg, mesh=mesh)
+    shard = params.init_tree(metas, torch.Generator().manual_seed(5), "cpu",
+                             mesh=mesh, rules=rules)
+    opt = adamw_init(shard)
+    step(shard, opt, batch)
+    state = {"params": shard, "opt": opt}
+    specs = {"params": step.param_specs, "opt": step.opt_specs}
+    whole = params.map_tree(lambda t, sp: coll.unshard(t, sp, mesh), state,
+                            specs)
+    ck = Checkpointer(os.path.join(out_dir, "elastic"), async_write=False)
+    ck.save(1, state, mesh=mesh, specs=specs)
+    res["elastic/bf16"] = any(t.dtype == torch.bfloat16
+                              for t in params.leaves(shard))
+    for name, other in (("4x1", make_rank_mesh((4, 1), mc.MESH_AXES,
+                                               device="cpu")),
+                        ("2x2", mesh),
+                        ("1x1", make_mesh((1, 1), mc.MESH_AXES,
+                                          device="cpu"))):
+        s2 = params.spec_tree(metas, other, rules)
+        s2 = {"params": s2, "opt": {"m": s2, "v": s2, "step": ()}}
+        got, at, _ = ck.restore(state, 1, mesh=other, specs=s2)
+        want = params.map_tree(
+            lambda t, sp: t[NamedSharding(other, sp).index(t.shape)],
+            whole, s2)
+        res[f"elastic/{name}"] = at == 1 and _leaves_equal(got, want)
+    got, _, _ = ck.restore(state, 1)
+    res["elastic/no_mesh"] = _leaves_equal(got, whole)
+
+    # TrainLoop on the mesh: 4 steps straight against 2, save, restore, 2
+    lm = LM(cfg)
+    metas = lm.abstract_params()
+    loader = TokenLoader(vocab=cfg.vocab, batch=mc.TRAIN_B,
+                         seq_len=mc.TRAIN_S, seed=3)
+    step = make_train_step(lm, opt_cfg=AdamWConfig(lr=1e-3, warmup_steps=2),
+                           mesh=mesh)
+
+    def fresh():
+        p = params.init_tree(metas, torch.Generator().manual_seed(6), "cpu",
+                             mesh=mesh, rules=rules)
+        return p, adamw_init(p)
+
+    p4, o4, h4 = TrainLoop(lm, loader, step).run(*fresh(), 0, 4,
+                                                  log_every=0)
+    ck = Checkpointer(os.path.join(out_dir, "loop"), async_write=False)
+    _, _, ha = TrainLoop(lm, loader, step, ck, ckpt_every=2).run(
+        *fresh(), 0, 2, log_every=0)
+    ex_p, ex_o = fresh()
+    st, at, _ = ck.restore({"params": ex_p, "opt": ex_o}, mesh=mesh,
+                           specs={"params": step.param_specs,
+                                  "opt": step.opt_specs})
+    pb, ob, hb = TrainLoop(lm, loader, step, ck, ckpt_every=2).run(
+        st["params"], st["opt"], at, 2, log_every=0)
+    res["resume/at"] = at
+    res["resume/losses"] = h4 == ha + hb
+    res["resume/state"] = _leaves_equal({"p": p4, "o": o4},
+                                        {"p": pb, "o": ob})
+    return res
+
+
+GROUPS = {"moe": _group_moe, "serve": _group_serve, "train": _group_train}

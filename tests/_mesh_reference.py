@@ -1,7 +1,7 @@
 """The reference's side of the mesh tests, run as its own process:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
-        python tests/_mesh_reference.py OUT.npz moe|serve
+        python tests/_mesh_reference.py OUT.npz moe|serve|train
 
 on a (data 2, model 2) mesh of four forced host devices. ``moe``: the MoE
 cases of ``_mesh_common.MOE_CASES`` through ``repro.models.moe.moe_apply``
@@ -13,7 +13,14 @@ in the full-EP branch (``mode="decode"``, experts placed by
 each under ``jax.jit`` (eager
 ``shard_map`` takes ~10x longer here). ``serve``: ``ServeEngine(lm,
 params, mesh=mesh).generate`` for each of ``_mesh_common.SERVE_ARCHS``,
-the parameters placed by ``SERVE_RULES``. The outputs go to ``OUT.npz``.
+the parameters placed by ``SERVE_RULES``. ``train``: for each of
+``_mesh_common.TRAIN_ARCHS``, ``jax.value_and_grad(lm.train_loss)`` on the
+mesh and one step of ``make_train_step(lm, mesh=mesh)`` (its ``jit`` with
+the parameter, optimizer and batch shardings) from
+``_mesh_common.train_opt_state``, the parameters placed by
+``DEFAULT_RULES`` and the batch by ``batch_spec``; and
+``compressed_grad_sync`` over ``data`` inside ``shard_map``, one
+gradient a data rank. The outputs go to ``OUT.npz``.
 The flag must be set before jax is imported; jax's ``shard_map``
 deprecation warning is ignored in this process.
 """
@@ -96,9 +103,70 @@ def main(out: str, what: str) -> None:
                 batch, n_new=mc.SERVE_NEW, max_len=mc.SERVE_MAX_LEN)
             res[f"{arch}/tokens"] = np.asarray(g.tokens)
             res[f"{arch}/logits"] = np.asarray(g.logits_last)
+    elif what == "train":
+        train(mesh, res)
     else:
         raise SystemExit(f"unknown case group {what!r}")
     np.savez(out, **res)
+
+
+def train(mesh, res: dict) -> None:
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from repro import configs
+    from repro.distributed.sharding import batch_spec
+    from repro.models.params import DEFAULT_RULES, sharding_tree
+    from repro.models.transformer import LM
+    from repro.training import AdamWConfig, make_train_step
+    from repro.training.grad_compression import compressed_grad_sync
+    from jax.experimental.shard_map import shard_map
+
+    bspec = batch_spec(mesh, 1 << 30, axes=("data",))
+    for arch in mc.TRAIN_ARCHS:
+        lm = LM(mc.train_config(arch, configs))
+        params = jax.device_put(
+            jax.tree.map(jnp.asarray, mc.train_weights(arch)),
+            sharding_tree(lm.abstract_params(), mesh, DEFAULT_RULES))
+        batch = {k: jax.device_put(v, NamedSharding(
+            mesh, P(*(bspec + (None,) * (v.ndim - 1)))))
+            for k, v in mc.train_batch(arch).items()}
+        (loss, met), grads = jax.jit(jax.value_and_grad(functools.partial(
+            lm.train_loss, mesh=mesh, batch_axes=("data",)),
+            has_aux=True))(params, batch)
+        res[f"{arch}/loss"] = np.asarray(loss)
+        for k, v in met.items():
+            res[f"{arch}/metric/{k}"] = np.asarray(v)
+        for i, g in enumerate(jax.tree.leaves(grads)):
+            res[f"{arch}/grad/{i}"] = np.asarray(g)
+        step = make_train_step(lm, mesh=mesh, batch_axes=("data",),
+                               opt_cfg=AdamWConfig(
+                                   lr=mc.TRAIN_LR,
+                                   warmup_steps=mc.TRAIN_WARMUP))
+        opt = jax.device_put(jax.tree.map(jnp.asarray,
+                                          mc.train_opt_state(arch)),
+                             step.opt_shardings)
+        new_p, new_o, sm = step(batch)(params, opt, batch)
+        for k in ("loss", "grad_norm"):
+            res[f"{arch}/step/{k}"] = np.asarray(sm[k])
+        for part, tree in (("params", new_p), ("m", new_o["m"]),
+                           ("v", new_o["v"])):
+            for i, t in enumerate(jax.tree.leaves(tree)):
+                res[f"{arch}/step/{part}/{i}"] = np.asarray(t)
+
+    def sync(g, r):
+        out, nr = compressed_grad_sync({"w": g[0]}, "data", {"w": r[0]})
+        return out["w"][None], nr["w"][None]
+
+    f = jax.jit(shard_map(sync, mesh=mesh, in_specs=(P("data"), P("data")),
+                          out_specs=(P("data"), P("data")),
+                          check_rep=False))
+    g = jnp.asarray(np.stack([mc.compressed_input(d) for d in range(2)]))
+    r = jnp.zeros_like(g)
+    for i in range(mc.COMPRESSED_STEPS):
+        out, r = f(g, r)
+        res[f"compressed/mean/{i}"] = np.asarray(out)
+        res[f"compressed/residual/{i}"] = np.asarray(r)
 
 
 if __name__ == "__main__":

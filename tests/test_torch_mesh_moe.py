@@ -13,7 +13,9 @@ Cases:
 * ``moe_apply`` on the same weights (carried by ``convert``) and input:
   in full expert parallelism (``mode="decode"``, experts placed by
   ``SERVE_RULES``) and in the ``shard_map`` branch (``mode="train"``,
-  ``DEFAULT_RULES``: experts over model, D over data), every rank's output
+  ``DEFAULT_RULES``: experts over model, D over data; each rank given its
+  rows of the batch, as in training, its output rows gathered whole for
+  the comparison), every rank's output
   within rtol 1e-5 / atol 1e-6 of the scale of the reference's, and the
   aux equal to the last bit of float32 (the router's mean sums in another
   order, as on the local path). The ``shard_map`` branch reckons capacity
@@ -25,8 +27,9 @@ Cases:
   to the reference in the same way.
 * what the mesh must refuse: a world size the mesh does not match, the
   production mesh on four ranks, a collective on a device the backend
-  cannot carry, a sharded init without its rules, and training on more
-  than one rank.
+  cannot carry, a sharded init without its rules, and a training batch
+  (``train_loss``) or microbatch (the train step) that the data axis does
+  not divide.
 """
 import os
 

@@ -185,15 +185,33 @@ def test_compressed_sync_single_rank_equals_reference_shard_map():
     np.testing.assert_allclose((acc / 16).numpy(), g, atol=0.02)
 
 
-def test_compressed_mean_refuses_more_than_one_rank(monkeypatch):
-    import torch.distributed as dist
+def test_compressed_mean_refuses_more_than_one_rank():
+    """Over several ranks ``compressed_mean`` reduces over an axis of a
+    mesh of ranks (``tests/test_torch_mesh_train.py`` holds it to the
+    reference's); an axis without its mesh, or of a logical mesh of two
+    shards, which has no ranks to reduce over, raises."""
+    from repro_torch.launch import make_mesh
     x = torch.ones(4)
-    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 1)
-    m, _ = compressed_mean(x, object(), torch.zeros(4))
-    np.testing.assert_allclose(m.numpy(), 1.0, rtol=1e-6)
-    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="one rank"):
-        compressed_mean(x, object(), torch.zeros(4))
+    with pytest.raises(ValueError, match="needs its mesh"):
+        compressed_mean(x, "data", torch.zeros(4))
+    logical = make_mesh((2,), ("data",), device="cpu")
+    with pytest.raises(ValueError, match="logical mesh"):
+        compressed_mean(x, "data", torch.zeros(4), mesh=logical)
+
+
+def test_compressed_mean_over_one_rank_is_its_own_quantized_value():
+    """No axis is this rank alone: the mean is its codes times its own
+    scale, the residual what they lost; a mesh without an axis is the
+    same."""
+    from repro_torch.launch import make_mesh
+    x = torch.tensor([1.0, -0.5, 0.25, 2.0])
+    r = torch.tensor([0.0, 0.01, 0.0, -0.02])
+    q, s = quantize_int8(x + r)
+    want = dequantize_int8(q, s)
+    for mesh in (None, make_mesh((2,), ("data",), device="cpu")):
+        m, nr = compressed_mean(x, None, r, mesh=mesh)
+        assert torch.equal(m, want)
+        assert torch.equal(nr, x + r - want)
 
 
 def _tiny(arch="olmo-1b", **kw):
