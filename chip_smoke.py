@@ -27,6 +27,11 @@
                                      # training alone
     python3 chip_smoke.py --phases env,train_mesh
                                      # olmo-1b trained over two ranks
+    python3 chip_smoke.py --phases env,flat,tools
+                                     # the launch tools: the blocked scan,
+                                     # FLOPs counted on the card and on
+                                     # fake tensors, the dry-run on fake
+                                     # ranks
 
 Phases, each printing one JSON object per line:
 
@@ -258,12 +263,31 @@ Phases, each printing one JSON object per line:
    events, ``TRAIN_MESH_TIMED`` steps after the first), the collectives'
    calls and staged bytes a step, each rank's peak bytes and the world-2
    wall time.
+19. ``tools``: the launch tools (pulls in ``flat``). ``tools_blocked``:
+   ``repro_torch.core.flat.flat_search_blocked`` on the flat route's scan
+   arguments (the 1M corpus already on the card, Q = 256, 10%
+   selectivity, k = 10) in blocks of 4,096 rows: one ``pairwise_l2_masked``
+   launch a block, distances bit-equal to the flat route's, ids equal
+   wherever a row's distances are distinct, within 1e-4 of the float64
+   brute force; its ms beside ``flat_search``'s. ``tools_flops`` (inside
+   ``lm``, on its olmo-1b at full width, or on one made from the same
+   seed): one decode step (B = 8 at position 128 of 256) counted by
+   ``FlopCounterMode`` on the card and by the dry-run's ``count_step`` on
+   fake tensors of the same shapes, held equal, with ``model_flops``
+   beside. ``tools_dryrun``: ``python -m repro_torch.launch.dryrun --arch
+   olmo-1b --shape decode_32k --mesh single_pod``, the roofline of that
+   cell and ``repro_torch.launch.dryrun_mstg``'s six cells, run as
+   subprocesses one after another from the run's start, in the background
+   as the graph build (no card shown to them, each within its time
+   limit, records under ``build/tools/``): each exits with 0, every
+   status is ``ok``, 256 and 512 ranks; each cell's per-rank bytes,
+   FLOPs, collective bytes and terms against the card's peaks reported.
 
 Launch counts are set to 0 just before each main-path run (flat, graph,
 each tier's flat and graph run, the ``trace`` phase's kernel calls, the
 path of ``gathered_l2_dot`` and ``fused_topk_l2``, which no route calls,
 each streaming and sharded request, each serving run, the baselines' card
-search and each ``launch.serve`` mode) and read just
+search, each ``launch.serve`` mode and the blocked scan) and read just
 after. The kernel
 checks at the main path's shapes use the inputs the main path handed to
 each kernel. The last lines are a ``{"kernels": [...]}`` summary, the
@@ -298,7 +322,7 @@ T_START = time.perf_counter()
 ALL_PHASES = ("env", "kernels", "scan_sweep", "gathered_sweep", "flat",
               "quant_flat", "graph", "quant_graph", "routes", "quant_routes",
               "trace", "streaming", "sharded", "serving", "baselines", "lm",
-              "lm_mesh", "train", "train_mesh")
+              "lm_mesh", "train", "train_mesh", "tools")
 # the card's published peaks (repro_torch.obs.profile.PEAKS), set in main
 PEAKS = None
 
@@ -2789,7 +2813,8 @@ def olmo_held_checks(dev, cfg, params, rng, seed: int) -> None:
                                       / exact.abs().max())})
 
 
-def lm_phase(dev, seed: int, with_mesh: bool = False) -> None:
+def lm_phase(dev, seed: int, with_mesh: bool = False,
+             with_tools: bool = False) -> None:
     """The LM and ``ServeEngine`` on the card: smoke-size parity with the
     CPU (every ported family, front ends included), olmo-1b at full width
     in bfloat16 (init, prefill, decode per token against its byte bound,
@@ -2799,7 +2824,8 @@ def lm_phase(dev, seed: int, with_mesh: bool = False) -> None:
     and llava-next-mistral-7b the same way (:func:`lm_full_phase`), and
     ``launch.serve.main`` in its four modes and, with the MoE, the
     encoder-decoder and the vision front end, on the graph and flat
-    routes."""
+    routes. ``with_tools``: the ``tools_flops`` line on olmo-1b's decode
+    step (:func:`tools_flops`)."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -2852,6 +2878,8 @@ def lm_phase(dev, seed: int, with_mesh: bool = False) -> None:
     read = decode_read_bytes(lm, B, max_len, 0)
     report, _, _, _ = lm_timed_run(dev, lm, rng, B, P, n_new, max_len)
     peak = torch.cuda.max_memory_allocated()
+    if with_tools:
+        tools_flops(dev, lm, B, P, max_len)
     # the attention yardstick: the port's flash_attention against torch's
     # scaled_dot_product_attention at the prefill's shapes (not on the path)
     H, Dh = cfg.n_heads, cfg.head_dim
@@ -4211,19 +4239,207 @@ def train_mesh_phase(dev, seed: int) -> None:
           f"(mesh {first}, one rank {one})")
 
 
-def graph_index_build(args, Qn: int):
-    """graph-50k's dataset and MSTG index, built on the host (numpy, in
-    ``args.workers`` spawn workers): (dataset, index, wall seconds). Run
-    on a thread of its own beside the card's phases, it moves that thread,
-    and so the workers it spawns, off two of the CPUs and to the lowest
-    priority (Linux keeps both per thread): the phases it runs beside,
-    whose host dispatch is timed, keep CPUs of their own."""
-    from repro_torch.core import IndexSpec, MSTGIndex, Overlaps
-    from repro_torch.data import make_range_dataset
+# ---- the launch tools ----------------------------------------------------------
+
+TOOLS_DIR = os.path.join(ROOT, "build", "tools")
+# the blocked scan's block (flat_search_blocked's default)
+TOOLS_BLOCK = 4096
+# the dry-run tools, run one after another in the background (the
+# roofline reads the dry-run's record): (name, module and arguments, time
+# limit in seconds). They need no card and are not shown one.
+TOOLS_RUNS = (
+    ("dryrun", ["repro_torch.launch.dryrun", "--arch", "olmo-1b",
+                "--shape", "decode_32k", "--mesh", "single_pod",
+                "--force"], 300),
+    ("roofline", ["repro_torch.launch.roofline", "--arch", "olmo-1b",
+                  "--shape", "decode_32k", "--force"], 120),
+    ("dryrun_mstg", ["repro_torch.launch.dryrun_mstg", "--force"], 300),
+)
+
+
+def keep_in_background() -> None:
+    """Move the calling thread, and so the processes it starts, off two of
+    the CPUs (where there are four or more) and to the lowest priority
+    (Linux keeps both per thread): the phases it runs beside, whose host
+    dispatch is timed, keep CPUs of their own."""
     cpus = sorted(os.sched_getaffinity(0))
     if len(cpus) >= 4:
         os.sched_setaffinity(0, cpus[2:])
     os.nice(19)
+
+
+def tools_dryrun_job() -> list:
+    """Run :data:`TOOLS_RUNS` as subprocesses from a background thread,
+    each within its time limit (killed past it), writing under
+    ``build/tools/``: [{run, rc ("timeout" past the limit), seconds,
+    the output's tail}]."""
+    keep_in_background()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="",
+               DRYRUN_TORCH_ARTIFACTS=os.path.join(TOOLS_DIR, "dryrun"),
+               ROOFLINE_TORCH_ARTIFACTS=os.path.join(TOOLS_DIR, "roofline"))
+    runs = []
+    for name, argv, limit in TOOLS_RUNS:
+        t0 = time.perf_counter()
+        try:
+            r = subprocess.run([sys.executable, "-m"] + argv, cwd=ROOT,
+                               env=env, capture_output=True, text=True,
+                               timeout=limit)
+            rc, out = r.returncode, r.stdout + r.stderr
+        except subprocess.TimeoutExpired as e:
+            rc, out = "timeout", str(e.output or "")
+        runs.append({"run": name, "rc": rc,
+                     "seconds": time.perf_counter() - t0,
+                     "tail": out[-1500:]})
+    return runs
+
+
+def tools_blocked(args, flat_ids, flat_d, Qn: int, k: int, bf_d,
+                  check_rows, flat_ms: float) -> None:
+    """The ``tools_blocked`` line: ``flat_search_blocked`` on the flat
+    route's scan arguments (``args``, captured from its
+    ``pairwise_l2_masked`` call) with blocks of :data:`TOOLS_BLOCK` rows.
+    Held: one kernel-5 launch a block, distances bit-equal to the flat
+    route's, ids equal wherever a row's distances are distinct, and within
+    1e-4 of the float64 brute force on its check rows."""
+    import numpy as np
+    import torch
+    from repro_torch.core.flat import flat_search, flat_search_blocked
+    from repro_torch.kernels import ops
+    q, c, lo, hi, ql, qh, mask = args
+    N = c.shape[0]
+
+    def run():
+        return flat_search_blocked(c, lo, hi, q, ql, qh, mask=mask, k=k,
+                                   block=TOOLS_BLOCK)
+
+    ops.reset_launches()
+    ids, d = run()
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["pairwise_l2_masked"]
+    ids = ids[:Qn].cpu().numpy()
+    d = d[:Qn].cpu().numpy()
+    blocked_ms = time_ms(run, reps=5)
+    flat_search_ms = time_ms(lambda: flat_search(c, lo, hi, q, ql, qh,
+                                                 mask=mask, k=k), reps=5)
+    bit_equal = bool(np.array_equal(d, flat_d))
+    # a position whose distance no other position of its row shares and
+    # which lies below the row's k-th (which may tie past the list)
+    same = (d[:, :, None] == d[:, None, :]).sum(2) == 1
+    distinct = same & (d < d[:, -1:]) & np.isfinite(d)
+    ids_equal = bool(np.array_equal(ids[distinct], flat_ids[distinct]))
+    fin = np.isfinite(bf_d)
+    got = d[check_rows]
+    rel = float((np.abs(got[fin] - bf_d[fin])
+                 / np.maximum(bf_d[fin], 1e-30)).max())
+    want_launches = -(-N // TOOLS_BLOCK)
+    emit({"phase": "tools_blocked", "N": N, "Q": Qn, "k": k,
+          "block": TOOLS_BLOCK, "launches": launches,
+          "launches_expected": want_launches,
+          "dists_bit_equal_vs_flat": bit_equal,
+          "ids_equal_where_distinct": ids_equal,
+          "distinct_positions": int(distinct.sum()),
+          "max_rel_err_vs_f64": rel, "blocked_ms": blocked_ms,
+          "flat_search_ms": flat_search_ms, "flat_request_ms": flat_ms,
+          "nvidia_smi": nvidia_smi_line()})
+    check(launches == want_launches, f"flat_search_blocked launched "
+          f"pairwise_l2_masked {launches} times, not {want_launches}")
+    check(bit_equal, "flat_search_blocked: distances differ from the flat "
+                     "route's")
+    check(ids_equal, "flat_search_blocked: ids differ from the flat route's "
+                     "at distinct distances")
+    check(rel <= 1e-4, f"flat_search_blocked: dists off by {rel}")
+
+
+def tools_flops(dev, lm, B: int, P: int, max_len: int) -> None:
+    """The ``tools_flops`` line: one decode step of ``lm`` (B sequences,
+    at position P of caches of ``max_len``) counted by ``FlopCounterMode``
+    on the card and by the dry-run's ``count_step`` on fake tensors of
+    the same shapes; held equal. ``model_flops`` (2·N_active·B) beside."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.launch.roofline import model_flops
+    from repro_torch.models.params import map_tree
+    from repro_torch.models.transformer import ShapeDtype, zeros_like_meta
+    meta = lm.decode_cache_meta(B, max_len)
+    caches = zeros_like_meta(meta, dev)
+    tokens = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    with FlopCounterMode(display=False) as fc:
+        lm.decode_step(None, caches, tokens, P)
+    torch.cuda.synchronize()
+    card = fc.get_total_flops()
+    del caches
+    t0 = time.perf_counter()
+    params = map_tree(lambda m: ShapeDtype(m.shape, m.dtype),
+                      lm.abstract_params())
+    fake = count_step(lambda p, c, t: lm.decode_step(p, c, t, P),
+                      (params, meta, ShapeDtype((B, 1), torch.int32)))
+    fake_s = time.perf_counter() - t0
+    mf = model_flops(lm.cfg, lm, ShapeConfig("decode", max_len, B,
+                                             "decode"), 1)
+    emit({"phase": "tools_flops", "arch": lm.cfg.name, "batch": B,
+          "position": P, "max_len": max_len, "flops_card": card,
+          "flops_fake": fake["flops"], "model_flops": mf,
+          "fake_bytes": fake["bytes"], "fake_count_s": fake_s})
+    check(card == fake["flops"], f"tools_flops: the card counted {card} "
+          f"FLOPs, the fake tensors {fake['flops']}")
+
+
+def tools_dryrun(job) -> None:
+    """The ``tools_dryrun`` line from :func:`tools_dryrun_job`'s runs and
+    records: each run exits with 0, every status is ``ok``, the cells
+    have 256 (single pod) and 512 (multi pod) ranks. Reported: each
+    cell's per-rank bytes, FLOPs, collective bytes and roofline terms
+    against the card's peaks."""
+    t0 = time.perf_counter()
+    runs = job.result()
+    waited = time.perf_counter() - t0
+
+    def load(*parts):
+        with open(os.path.join(TOOLS_DIR, *parts)) as f:
+            return json.load(f)
+
+    cells = {}
+    for name in (["dryrun", "olmo-1b__decode_32k__single_pod.json"],
+                 ["roofline", "olmo-1b__decode_32k.json"],
+                 *[["dryrun", f"mstg-flat-serve__{m}__{mk}.json"]
+                   for mk in ("single_pod", "multi_pod")
+                   for m in ("all_gather", "tournament", "fullmesh_v2")]):
+        path = os.path.join(TOOLS_DIR, *name)
+        rec = load(*name) if os.path.exists(path) else {"status": "missing"}
+        rec.pop("traceback", None)
+        cells["/".join(name)] = {
+            k: rec.get(k) for k in (
+                "status", "error", "devices", "memory", "flops_per_device",
+                "bytes_per_device", "collective_bytes", "collective_counts",
+                "cache_bytes_reference_layout", "terms", "dominant",
+                "model_flops_per_device", "flops_equal_model", "run_s",
+                "card") if k in rec}
+    emit({"phase": "tools_dryrun", "waited_s": waited,
+          "runs": [{k: r[k] for k in ("run", "rc", "seconds")}
+                   for r in runs], "cells": cells})
+    for r in runs:
+        check(r["rc"] == 0, f"tools_dryrun: {r['run']} exited {r['rc']}: "
+                            f"{r['tail']}")
+    for name, rec in cells.items():
+        check(rec.get("status") == "ok", f"tools_dryrun: {name} is "
+              f"{rec.get('status')}: {rec.get('error')}")
+        if "devices" in rec or "multi_pod" in name:
+            want = 512 if "multi_pod" in name else 256
+            check(rec.get("devices") == want, f"tools_dryrun: {name} has "
+                  f"{rec.get('devices')} ranks, not {want}")
+
+
+def graph_index_build(args, Qn: int):
+    """graph-50k's dataset and MSTG index, built on the host (numpy, in
+    ``args.workers`` spawn workers): (dataset, index, wall seconds). It
+    runs on a thread of its own beside the card's phases
+    (:func:`keep_in_background`)."""
+    from repro_torch.core import IndexSpec, MSTGIndex, Overlaps
+    from repro_torch.data import make_range_dataset
+    keep_in_background()
     t0 = time.perf_counter()
     ds = make_range_dataset(n=args.graph_n, d=128, n_queries=Qn,
                             quantize=1024, seed=args.seed)
@@ -4306,6 +4522,8 @@ def main() -> int:
         phases.update(("graph", "sharded"))        # the sharded deployment
     if "sharded" in phases:          # the flat corpus, the streaming index
         phases.update(("flat", "streaming"))
+    if "tools" in phases:            # the blocked scan on the flat corpus
+        phases.add("flat")
     k = 10
     Qn = 256
     # graph-50k's index is the run's longest host step and shares nothing
@@ -4316,6 +4534,12 @@ def main() -> int:
         graph_pool = concurrent.futures.ThreadPoolExecutor(1)
         graph_job = graph_pool.submit(graph_index_build, args, Qn)
         graph_pool.shutdown(wait=False)
+    # the dry-run tools need no card: they run in the background too
+    tools_job = None
+    if "tools" in phases:
+        tools_pool = concurrent.futures.ThreadPoolExecutor(1)
+        tools_job = tools_pool.submit(tools_dryrun_job)
+        tools_pool.shutdown(wait=False)
 
     rows = {}
     if "kernels" in phases:
@@ -4330,7 +4554,8 @@ def main() -> int:
     if "baselines" in phases:
         baselines_phase(dev, args.baselines_n, Qn, k, args.seed)
     if "lm" in phases:
-        lm_phase(dev, args.seed, with_mesh="lm_mesh" in phases)
+        lm_phase(dev, args.seed, with_mesh="lm_mesh" in phases,
+                 with_tools="tools" in phases)
     elif "lm_mesh" in phases:
         lm_mesh_phase(dev, args.seed)
     if "train" in phases:
@@ -4431,6 +4656,9 @@ def main() -> int:
                                                0)
         rows["fused_topk_l2_f16"] = measure_kernel("fused_topk_l2_f16",
                                                    fused16_args, 0)
+        if "tools" in phases:
+            tools_blocked(cap.best, res.ids, res.dists, Qn, k, bf_d,
+                          check_rows, f32_ms)
         del eng, cap
         torch.cuda.empty_cache()
 
@@ -4707,6 +4935,19 @@ def main() -> int:
     if "trace" in phases:
         trace_phase(eng, ds, qlo, qhi, k, fused_args, fused16_args, dot_args,
                     f32_steps, rows)
+
+    if "tools" in phases:
+        if "lm" not in phases:
+            from repro_torch import configs
+            from repro_torch.models import LM
+            free_device()
+            lm = LM(configs.get_config("olmo-1b"))
+            lm.init(torch.Generator(device=dev).manual_seed(args.seed),
+                    device=dev)
+            tools_flops(dev, lm, 8, 128, 256)
+            del lm
+            free_device()
+        tools_dryrun(tools_job)
 
     name = torch.cuda.get_device_name(0)
     if rows:

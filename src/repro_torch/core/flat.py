@@ -2,6 +2,9 @@
 
 * ``flat_search`` — the fused predicate + pairwise squared L2 kernel over
   the whole corpus, then a top-k (the ground truth of the other routes).
+* ``flat_search_blocked`` — the same answer with a running (Q, k) top-k
+  over blocks of the corpus, so the (Q, N) matrix never exists: one scan
+  kernel a block.
 * ``_pruned_search_variant`` — uses the MSTG segment-tree decomposition to
   touch only qualifying *member slices*: every decomposition node stores its
   members grouped contiguously in insertion (= version) order, so the valid
@@ -33,6 +36,36 @@ def flat_search(corpus, lo, hi, queries, ql, qh, *, mask: int, k: int):
     vals, idx = torch.topk(d, k, dim=1, largest=False, sorted=True)
     ids = torch.where(torch.isfinite(vals), idx, NO_EDGE).to(torch.int32)
     return ids, vals
+
+
+def flat_search_blocked(corpus, lo, hi, queries, ql, qh, *, mask: int,
+                        k: int, block: int = 4096):
+    """:func:`flat_search` without the (Q, N) matrix: the corpus in blocks
+    of ``min(block, N)`` rows (the last one ragged), each scored by the
+    scan kernel over that block alone, merged into a running (Q, k) top-k.
+    The merge keeps the reference's ``lax.top_k`` order over ``[winners,
+    block]``: a stable sort, so among equal distances the earlier winner,
+    then the lower column, stays. Returns (Q, k) int32 ids (the block's
+    offset plus the column; NO_EDGE where the distance is not finite) and
+    float32 squared distances."""
+    N = corpus.shape[0]
+    Q = queries.shape[0]
+    dev = queries.device
+    block = max(1, min(block, N))
+    top_d = torch.full((Q, k), INF, dtype=torch.float32, device=dev)
+    top_i = torch.full((Q, k), NO_EDGE, dtype=torch.int32, device=dev)
+    for n0 in range(0, N, block):
+        n1 = min(N, n0 + block)
+        d = ops.pairwise_l2_masked(queries, corpus[n0:n1], lo[n0:n1],
+                                   hi[n0:n1], ql, qh, mask)
+        ids = torch.arange(n0, n1, dtype=torch.int32, device=dev)
+        cat_d = torch.cat([top_d, d], dim=1)
+        cat_i = torch.cat([top_i, ids.expand(Q, -1)], dim=1)
+        order = torch.sort(cat_d, dim=1, stable=True).indices[:, :k]
+        top_d = cat_d.gather(1, order)
+        top_i = cat_i.gather(1, order)
+    top_i = torch.where(torch.isfinite(top_d), top_i, NO_EDGE)
+    return top_i, top_d
 
 
 def _prefix_len(member_ver, lvl, off, cnt, ver, iters: int):

@@ -112,6 +112,17 @@ def node_ranges(levels: torch.Tensor, idxs: torch.Tensor, Kpad: int):
     return start, start + w - 1
 
 
+def vertex_levels_for_cover(tkeys, levels, idxs, valid, Kpad: int):
+    """For each vertex key in ``tkeys`` (any leading dims), the level of
+    the covering decomposition node among the (P,) ``levels`` / ``idxs``
+    / ``valid`` nodes, or -1 where none covers it; int32."""
+    start, end = node_ranges(levels, idxs, Kpad)            # (P,)
+    t = tkeys[..., None]
+    inside = valid & (t >= start) & (t <= end)              # (..., P)
+    lvl = torch.where(inside, levels.to(torch.int32), -1).amax(dim=-1)
+    return lvl.to(torch.int32)
+
+
 def leaf_path_nodes(key_rank: int, Kpad: int) -> List[Tuple[int, int]]:
     """All (level, idx) ancestors of the leaf for ``key_rank`` — the O(log|A|)
     nodes an insertion touches (paper Algorithm 1)."""

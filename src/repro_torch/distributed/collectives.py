@@ -9,7 +9,10 @@ A tuple of axes is one axis of their product with the last axis varying
 fastest, as in an entry of a ``PartitionSpec``. A collective runs over the
 axes one after another, each on ``DeviceMesh.get_group(axis)``, whose group
 ranks follow the coordinate on that axis. Each call adds one to
-``mesh.counts[name]`` (``psum``, ``all_gather``, ``psum_scatter``).
+``mesh.counts[name]`` (``psum``, ``all_gather``, ``psum_scatter``), and
+each axis it runs over adds one to ``mesh.records[(op, result bytes,
+group size)]``, op the collective that axis ran (``all-gather``, or
+``all-reduce`` for ``psum`` and ``psum_scatter``), named as in XLA's HLO.
 
 Transport (:meth:`repro_torch.launch.mesh.Mesh.transport`): NCCL with CUDA
 tensors and gloo with CPU tensors run on the tensor's own device. Gloo with
@@ -95,13 +98,17 @@ def _run(mesh, name: str, x: torch.Tensor, fn, axes) -> torch.Tensor:
     return out.to(x.device)
 
 
+def _all_reduce(t, mesh, axes):
+    """``t`` summed in place over each of ``axes``, one after another."""
+    for a in _axes(axes):
+        dist.all_reduce(t, group=mesh.device_mesh.get_group(a))
+        mesh.records["all-reduce", _nbytes(t), mesh.shape[a]] += 1
+    return t
+
+
 def _psum(x, mesh, axes):
-    def run(t):
-        t = t.clone()
-        for a in _axes(axes):
-            dist.all_reduce(t, group=mesh.device_mesh.get_group(a))
-        return t
-    return _run(mesh, "psum", x, run, axes)
+    return _run(mesh, "psum", x,
+                lambda t: _all_reduce(t.clone(), mesh, axes), axes)
 
 
 def _all_gather(x, mesh, axes, dim):
@@ -110,6 +117,7 @@ def _all_gather(x, mesh, axes, dim):
             parts = [torch.empty_like(t) for _ in range(mesh.shape[a])]
             dist.all_gather(parts, t, group=mesh.device_mesh.get_group(a))
             t = torch.cat(parts, dim)
+            mesh.records["all-gather", _nbytes(t), mesh.shape[a]] += 1
         return t
     return _run(mesh, "all_gather", x, run, axes)
 
@@ -118,9 +126,7 @@ def _psum_scatter(x, mesh, axes, dim):
     # an all-reduce, then this rank's block: gloo has no reduce-scatter,
     # and one path serves every backend
     def run(t):
-        t = t.clone()
-        for a in _axes(axes):
-            dist.all_reduce(t, group=mesh.device_mesh.get_group(a))
+        t = _all_reduce(t.clone(), mesh, axes)
         return _block(t, mesh, axes, dim).contiguous()
     return _run(mesh, "psum_scatter", x, run, axes)
 

@@ -11,6 +11,8 @@ to the lowest position) these use a stable ascending sort.
 :func:`quantize_query_weights_ref` is no kernel's plain version: it is the
 int8 scan's query-side prologue, which runs in plain torch on every device
 (the reference, too, calls it outside its ``pallas_call``).
+:func:`topk_mask_ref` is no kernel's either: the reference's top-k mask
+oracle, kept beside its other oracles.
 """
 from __future__ import annotations
 
@@ -160,3 +162,11 @@ def gathered_topk_quant_ref(queries, codes, scale, offset, ids, avail, b, e,
            + offset.to(torch.float32)[None, :])
     return gathered_topk_ref(queries, deq, ids, avail, b, e, version,
                              pool_ids, pool_d, pool_exp)
+
+
+def topk_mask_ref(dists, k: int):
+    """(Q, N) -> bool mask of the k smallest per row, ties to the lowest
+    index (a stable sort, as the reference's ``argsort``)."""
+    idx = torch.sort(dists, dim=1, stable=True).indices[:, :k]
+    out = torch.zeros_like(dists, dtype=torch.bool)
+    return out.scatter_(1, idx, True)

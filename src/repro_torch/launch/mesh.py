@@ -23,8 +23,11 @@ refuses) is taken only where the caller made that group: each collective
 then copies its tensor to the host, runs there and copies the result back
 (gloo's CUDA collectives are only ``all_reduce`` and ``broadcast``), and
 the bytes copied each way are counted in ``mesh.counts["staged_bytes"]``.
-Any other pairing raises (:meth:`Mesh.transport`): no backend or device is
-swapped silently.
+The ``fake`` backend (``torch.distributed``'s ``FakeProcessGroup``, which
+moves nothing) carries CPU tensors: the dry-run tools
+(:mod:`repro_torch.launch.dryrun`) join it to lay the production meshes out
+over 256 or 512 ranks in one process, on fake tensors. Any other pairing
+raises (:meth:`Mesh.transport`): no backend or device is swapped silently.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ from ..core.engine import resolve_device
 
 # (backend, device type) -> how a collective moves a tensor of that device
 TRANSPORT = {("nccl", "cuda"): "direct", ("gloo", "cpu"): "direct",
-             ("gloo", "cuda"): "host"}
+             ("gloo", "cuda"): "host", ("fake", "cpu"): "direct"}
 
 
 def transport(backend: str, device) -> str:
@@ -61,7 +64,10 @@ class Mesh:
     ``coord`` (axis name -> this rank's index on it) and ``backend`` (the
     process group's); a logical mesh has ``None`` there. ``counts``
     tallies what ran on the mesh: each collective's calls, the bytes staged
-    through the host and the MoE path each call took."""
+    through the host and the MoE path each call took. ``records`` counts
+    the calls of each (op, result bytes, group size) that a collective ran
+    over one axis (:mod:`repro_torch.distributed.collectives`), what
+    :func:`repro_torch.launch.dryrun.collective_bytes` reads."""
 
     shape: Dict[str, int]
     device: torch.device
@@ -69,6 +75,8 @@ class Mesh:
     coord: Optional[Dict[str, int]] = None
     backend: Optional[str] = None
     counts: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter, compare=False)
+    records: collections.Counter = dataclasses.field(
         default_factory=collections.Counter, compare=False)
 
     @property

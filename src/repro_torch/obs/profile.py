@@ -10,8 +10,9 @@ annotation against the card's published peaks.
 
 * :data:`PEAKS` and :func:`device_peaks` — the published peaks of each
   card this repository measures on, keyed by ``torch.cuda.get_device_name``.
-  Kernel spans (:mod:`repro_torch.kernels.ops`) and ``chip_smoke.py``'s
-  bounds read the same numbers. A card not in the table, and the CPU, have
+  Kernel spans (:mod:`repro_torch.kernels.ops`), ``chip_smoke.py``'s
+  bounds and the roofline (:mod:`repro_torch.launch.roofline`, in place
+  of the reference's TPU constants) read the same numbers. A card not in the table, and the CPU, have
   no peaks: :func:`bandwidth_annotation` then reports ``frac_of_peak`` as
   None rather than a fraction of a guessed peak.
 """
@@ -32,14 +33,17 @@ class DevicePeaks(NamedTuple):
     int8_op_per_s: float       # tensor cores, dense
     tf32_flop_per_s: float     # tensor cores, dense
     bf16_flop_per_s: float     # tensor cores, dense
+    link_bytes_per_s: float    # one card's NVLink, each way
 
 
 # NVIDIA's data sheet, H100 SXM at its 700 W limit: HBM3, float32 on the
 # CUDA cores, int8, TF32 and bfloat16 on the tensor cores without
-# sparsity.
+# sparsity, and NVLink 4: 900 GB/s in total, 450 GB/s each way. The
+# roofline's collective term (repro_torch.launch.roofline) divides a
+# rank's collective bytes by the 450 GB/s a card sends each way.
 PEAKS: Dict[str, DevicePeaks] = {
     "NVIDIA H100 80GB HBM3": DevicePeaks(3.35e12, 67e12, 1979e12, 495e12,
-                                         989e12),
+                                         989e12, 450e9),
 }
 
 
