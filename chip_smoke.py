@@ -88,7 +88,9 @@ Phases, each printing one JSON object per line:
 11. ``streaming``: ``repro_torch.streaming.SegmentedIndex`` on the card at
    ``--stream-n`` rows (70,000: segments of 20k, 10k and 10k rows built by
    the graph phase's spec, a 16k-row delta, 1,000 tombstones in the first
-   segment, 500 rows of the second upserted into the delta), every route
+   segment, 500 rows of the second upserted into the delta; that op
+   sequence runs on the host in the background once the LM phases are
+   done, beside training), every route
    served: flat against a float64 brute force over the live rows by
    external id, pruned recall 1.0 against flat, graph agreement ≥ 0.99
    with the port's CPU run of the same index on 32 queries; kernels 1 and
@@ -104,6 +106,23 @@ Phases, each printing one JSON object per line:
    rows, three launches); ``per_shard_k = 5``; and ``from_segmented`` over
    the streaming phase's index on D = 2, equal to the index's own pruned
    answer. Asking for it pulls in ``flat`` and ``streaming``.
+   ``sharded_ranks`` (pulls in ``sharded``): the same corpus one shard a
+   rank. (a) ``ShardedDeployment.flat`` on a one-rank NCCL mesh: ids and
+   dists bit-equal to the flat route's, one ``pairwise_l2_masked``
+   launch. (b) Four gloo ranks on the card (NCCL refuses two ranks on one
+   GPU), a (data 4) mesh started with the ``spawn`` method, the corpus
+   passed as ``.npy`` memmaps: under each merge each rank's ids and dists
+   equal the ``sharded`` phase's answer and the flat route's, one kernel-5
+   launch a rank, 130,000,000 staged corpus bytes a rank (a fourth of the
+   float32 rows and ranges), shard 3 failed giving ``(3,)`` on every rank
+   and the answer over the other rows; ``per_shard_k=5`` (recall
+   reported); the build layout at 4 x 4,000 rows, each rank building its
+   own slice, on the graph route (kernels 1 and 3 on every rank, ids equal
+   a logical D = 4 build of the same rows on rank 0 under ``tournament``
+   and on every rank under ``all_gather``); ``launch.serve.main(["--shards",
+   "4", "--n", "1200", "--requests", "24"])`` on every rank, 24 served, 24
+   non-empty. Reported: request ms by schedule beside the logical
+   deployment's, the collectives' calls and staged bytes a request.
 13. ``serving``: the serving front ends (``repro_torch.serving``) on the
    backends the phases above built (it pulls in ``graph`` and ``sharded``;
    it builds no index). After ``sharded``: ``RetrievalServer`` on the
@@ -119,7 +138,7 @@ Phases, each printing one JSON object per line:
    bit-equal to the batched request and 16 of them to solo ``execute``,
    kernels 1 and 3 launched and held against their plain versions at the
    shapes the stream handed them; the same queries on the flat route
-   (dists bit-equal to the batched flat route, ids up to exact ties;
+   (ids and dists equal to the batched flat route's, ties included;
    kernel 5 held at its micro-batch shape); and ``RetrievalServer`` over
    two masks on an engine whose config routes graph (each mask group
    equal to ``execute``, kernels 1 and 3 launched). Each line has the wall
@@ -153,13 +172,15 @@ Phases, each printing one JSON object per line:
    float32's teacher forcing and end-to-end logits are reported, not held,
    beside the CPU logits' move under a 1e-7 relative change of the
    weights. Then, each after freeing the device memory of what ran
-   before, qwen3-moe-30b-a3b (``lm_moe_full``: 48 x 2048, 128 experts
-   top-8, 61.1 GB), recurrentgemma-2b and rwkv6-7b (``lm_rec_full``),
+   before, qwen3-moe-30b-a3b (``lm_moe_full``: 24 of its 48 layers, cut
+   for the run's time limit, x 2048, 128 experts top-8, 31.2 GB),
+   recurrentgemma-2b and rwkv6-7b (``lm_rec_full``),
    seamless-m4t-large-v2 (``lm_encdec_full``: 24 encoder and 24 decoder
    layers x 1024, 4.07 GB, on 512 frames of width 1,024; the encoder
    timed alone too) and llava-next-mistral-7b (``lm_vlm_full``: 32 x
    4096, 14.49 GB, after 576 patches of width 1,024, ``max_len`` 768) at
-   their published widths and full depth in bfloat16, seeded random
+   their published widths and full depth (the MoE's cut above) in
+   bfloat16, seeded random
    weights, the same load and report, the decode bound counting what a
    step reads (the parameters but the encoder, the front end's
    projection and an untied embedding table, and every cache leaf, self
@@ -321,8 +342,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
 ALL_PHASES = ("env", "kernels", "scan_sweep", "gathered_sweep", "flat",
               "quant_flat", "graph", "quant_graph", "routes", "quant_routes",
-              "trace", "streaming", "sharded", "serving", "baselines", "lm",
-              "lm_mesh", "train", "train_mesh", "tools")
+              "trace", "streaming", "sharded", "sharded_ranks", "serving",
+              "baselines", "lm", "lm_mesh", "train", "train_mesh", "tools")
 # the card's published peaks (repro_torch.obs.profile.PEAKS), set in main
 PEAKS = None
 
@@ -1443,22 +1464,19 @@ def streaming_corpus(ds, n_rows: int, deleted, moved, new_rows):
                              queries=ds.queries, span=ds.span)
 
 
-def streaming_phase(dev, args, Qn: int, k: int) -> dict:
-    """The streaming path (``repro_torch.streaming``): segments A (20k
-    rows), B and C (10k each) and a 16k-row delta on the card, 1,000
-    tombstones in A and 500 rows of B upserted into the delta; every route
-    checked; then a size-tiered compaction. Sizes scale with
-    ``--stream-n`` (70,000 gives these). Returns the index, its pruned
-    request and that request's ids after the compaction."""
-    import gc
+def streaming_build(dev, args, Qn: int) -> dict:
+    """The streaming index's op sequence, host work only (the three
+    flushes build on the host; nothing is staged on the card until a
+    request): segments A (20k rows), B and C (10k each), a 16k-row delta,
+    1,000 tombstones in A and 500 rows of B upserted into the delta. It
+    runs on the background builder thread (:func:`keep_in_background`)
+    once the LM phases are done, beside training."""
     import numpy as np
-    import torch
-    from repro_torch.core import (ANY_OVERLAP, IndexSpec, Overlaps,
-                                  SearchRequest)
-    from repro_torch.data import make_range_dataset, recall_at_k
-    from repro_torch.kernels import ops
+    from repro_torch.core import IndexSpec, Overlaps
+    from repro_torch.data import make_range_dataset
     from repro_torch.streaming import CompactionPolicy, SegmentedIndex
 
+    t_wall = time.perf_counter()
     scale = args.stream_n / 70_000
     n_a, n_b = round(20_000 * scale), round(10_000 * scale)
     n_delta = round(16_000 * scale)
@@ -1487,13 +1505,42 @@ def streaming_phase(dev, args, Qn: int, k: int) -> dict:
     moved = rng.choice(np.arange(bounds[1], bounds[2]), n_up, replace=False)
     new_rows = np.arange(n_rows, n_rows + n_up)
     sidx.add(moved, ds.vectors[new_rows], ds.lo[new_rows], ds.hi[new_rows])
+    return {"ds": ds, "spec": spec, "index": sidx, "flush_build_s": build_s,
+            "seg_b": seg_b, "seg_c": seg_c, "n_rows": n_rows,
+            "deleted": deleted, "moved": moved, "new_rows": new_rows,
+            "wall_s": time.perf_counter() - t_wall}
+
+
+def streaming_phase(dev, args, Qn: int, k: int, job) -> dict:
+    """The streaming path (``repro_torch.streaming``) on the index that
+    :func:`streaming_build` (``job``, in the background) made: every route
+    checked; then a size-tiered compaction. Sizes scale with
+    ``--stream-n`` (70,000 gives those of :func:`streaming_build`).
+    Returns the index, its pruned request and that request's ids after the
+    compaction."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.core import ANY_OVERLAP, SearchRequest
+    from repro_torch.data import recall_at_k
+    from repro_torch.kernels import ops
+    from repro_torch.streaming import SegmentedIndex
+
+    t0 = time.perf_counter()
+    built = job.result()
+    waited = time.perf_counter() - t0
+    ds, spec, sidx = built["ds"], built["spec"], built["index"]
+    seg_b, seg_c = built["seg_b"], built["seg_c"]
+    n_rows, deleted = built["n_rows"], built["deleted"]
+    moved, new_rows = built["moved"], built["new_rows"]
     ext, live = streaming_corpus(ds, n_rows, deleted, moved, new_rows)
     emit({"phase": "streaming_build", "n_live": len(sidx),
           "segments": [{"id": s.seg_id, "n": s.n, "tombstones": len(s.tombs)}
                        for s in sidx.segments],
           "delta": len(sidx.delta), "delta_capacity": sidx.delta._cap,
-          "workers": args.workers, "flush_build_s": build_s,
-          "ops": dict(sidx.ops)})
+          "workers": args.workers, "flush_build_s": built["flush_build_s"],
+          "built_in_background": True, "build_wall_s": built["wall_s"],
+          "waited_s": waited, "ops": dict(sidx.ops)})
     check(len(sidx) == ext.size, f"streaming: {len(sidx)} live rows, the "
                                  f"op sequence leaves {ext.size}")
     qlo, qhi = subset_queries(live, ANY_OVERLAP, 0.10, seed=args.seed + 1)
@@ -1636,7 +1683,9 @@ def sharded_phase(dev, ds, qlo, qhi, k: int, flat_ids, flat_ms: float,
     flat phase's corpus as ``ShardedDeployment.flat`` over D = 4 logical
     shards under each merge schedule, a lost shard, a narrow fan-in, and
     the streaming phase's index dealt onto D = 2 shards. Returns the last
-    D = 4 deployment (the host merge), for the serving phase."""
+    D = 4 deployment (the host merge), for the serving phase, beside the
+    request ms by schedule and the answers the ``sharded_ranks`` phase is
+    held to: the all_gather answer and the one with shard 3 lost."""
     import gc
     import numpy as np
     import torch
@@ -1753,7 +1802,467 @@ def sharded_phase(dev, ds, qlo, qhi, k: int, flat_ids, flat_ms: float,
     check(shared and seg_mem1 - seg_mem0 < 64 << 20,
           f"sharded from_segmented: the views staged segments again "
           f"(engines shared: {shared}; allocated {seg_mem0} -> {seg_mem1})")
-    return dep
+    return {"dep": dep, "request_ms": ms, "ids": a.ids, "dists": a.dists,
+            "lost_ids": lost.ids, "lost_dists": lost.dists,
+            "per_shard_k5_ms": nms}
+
+
+# ---- sharded retrieval on a mesh of ranks ----------------------------------
+
+# (b): D ranks on the one card over gloo (NCCL refuses two ranks on one
+# GPU), a (data D) mesh, started with the spawn method and joined within
+# these limits
+RANKS_D = 4
+RANKS_LIMIT_S, RANKS_GRACE_S = 300, 60
+RANKS_MERGES = ("all_gather", "tournament", "host")
+# the build layout: rows a rank and queries, graph route
+RANKS_BUILD_N, RANKS_BUILD_Q = 4_000, 64
+RANKS_SERVE_ARGV = ["--shards", str(RANKS_D), "--n", "1200",
+                    "--requests", "24"]
+# host threads a rank (torch's and, through OMP_NUM_THREADS, numpy's): the
+# ranks and this process's logical build share the host's CPUs
+RANKS_THREADS = 2
+
+
+def ranks_build_spec():
+    """The build layout's index: the serving driver's m and ef_con on
+    graph-50k's predicate."""
+    from repro_torch.core import IndexSpec, Overlaps
+    return IndexSpec(predicate=Overlaps(), m=12, ef_con=64)
+
+
+def ranks_logical_build(dev, args) -> dict:
+    """The build layout's rows and queries, and the logical D = 4
+    ``ShardedDeployment.build`` of them on the card (graph route) that the
+    ranks' answers are held to. Host work but the engines' few range
+    tensors; it runs on the background builder thread after the streaming
+    build (:func:`keep_in_background`). Its shards' heartbeats never time
+    out: it serves long after it was built."""
+    from repro_torch.core import ANY_OVERLAP, EngineConfig
+    from repro_torch.data import make_range_dataset
+    from repro_torch.distributed import DeploymentSpec, ShardedDeployment
+    from repro_torch.launch import make_mesh
+    bds = make_range_dataset(n=RANKS_D * RANKS_BUILD_N, d=128,
+                             n_queries=RANKS_BUILD_Q, quantize=1024,
+                             seed=args.seed + 3)
+    bqlo, bqhi = subset_queries(bds, ANY_OVERLAP, 0.10, seed=args.seed + 4)
+    t0 = time.perf_counter()
+    dep = ShardedDeployment.build(
+        bds.vectors, bds.lo, bds.hi,
+        mesh=make_mesh((RANKS_D,), ("data",), device=dev),
+        spec=DeploymentSpec(n_shards=RANKS_D, merge="all_gather",
+                            index=ranks_build_spec(),
+                            engine=EngineConfig(route="graph"),
+                            build_workers=args.workers,
+                            shard_timeout_s=math.inf))
+    return {"ds": bds, "qlo": bqlo, "qhi": bqhi, "dep": dep,
+            "build_s": time.perf_counter() - t0}
+
+
+def _ranks_world1(dev, ds, qlo, qhi, k: int, flat_res) -> dict:
+    """(a): ``ShardedDeployment.flat`` over the whole corpus on a one-rank
+    NCCL process group (a ``file://`` store) and a (data 1) mesh. Held:
+    ids and dists bit-equal to the flat route's, one kernel-5 launch. The
+    group is destroyed after."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import ANY_OVERLAP, SearchRequest
+    from repro_torch.distributed import DeploymentSpec, ShardedDeployment
+    from repro_torch.kernels import ops
+    from repro_torch.launch import make_rank_mesh
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")       # one host
+    store_dir = tempfile.mkdtemp()
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(store_dir, 'store')}",
+        rank=0, world_size=1)
+    try:
+        mesh = make_rank_mesh((1,), ("data",), device=dev)
+        dep = ShardedDeployment.flat(ds.vectors, ds.lo, ds.hi, mesh=mesh,
+                                     spec=DeploymentSpec(n_shards=1))
+        req = SearchRequest(ds.queries, (qlo, qhi), ANY_OVERLAP, k=k)
+        dep.execute(req)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        mesh.counts.clear()
+        got = dep.execute(req)
+        launches = launched(ops.LAUNCHES)
+        counts = dict(mesh.counts)
+        _, sec = timed_execute(dep, req, reps=5)
+        del dep
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    out = {"backend": "nccl", "mesh": {"data": 1}, "request_ms": sec * 1e3,
+           "launches": launches, "counts": counts,
+           "ids_bit_equal_flat_route": bool(np.array_equal(got.ids,
+                                                           flat_res.ids)),
+           "dists_bit_equal_flat_route": bool(np.array_equal(
+               got.dists, flat_res.dists))}
+    check(out["ids_bit_equal_flat_route"]
+          and out["dists_bit_equal_flat_route"],
+          "sharded_ranks (a): the one-rank NCCL mesh's answer differs from "
+          "the flat route's")
+    check(launches == {"pairwise_l2_masked": 1},
+          f"sharded_ranks (a): expected one pairwise_l2_masked launch, got "
+          f"{launches}")
+    return out
+
+
+def _ranks_rank(rank: int, world: int, store: str, data_dir: str, k: int,
+                device: str) -> None:
+    """(b), one rank of the (data ``world``) mesh over gloo on the card:
+    the flat layout over the ``.npy`` memmaps of ``data_dir`` under each
+    merge (its staged bytes, one counted request, the timed ones, shard 3
+    failed), ``per_shard_k=5``, the build layout (its own slice built
+    here, graph route) under ``tournament`` and ``all_gather``, then
+    ``launch.serve.main`` with ``--shards``. Writes ``rank<r>.json`` and
+    ``rank<r>.npz``, or ``rank<r>.err`` with the traceback."""
+    import datetime
+    import gc
+    import traceback
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    try:
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")     # one host
+        torch.set_num_threads(RANKS_THREADS)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from repro_torch.core import ANY_OVERLAP, EngineConfig, SearchRequest
+        from repro_torch.distributed import DeploymentSpec, ShardedDeployment
+        from repro_torch.distributed.topk import local_flat_topk
+        from repro_torch.kernels import ops
+        from repro_torch.launch import make_rank_mesh, serve
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", dev.index or 0)
+            torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=300))
+        mesh = make_rank_mesh((world,), ("data",), device=dev)
+
+        def load(name, **kw):
+            return np.load(os.path.join(data_dir, name + ".npy"), **kw)
+
+        def request(prefix):
+            return SearchRequest(load(prefix + "queries"),
+                                 (load(prefix + "qlo"), load(prefix + "qhi")),
+                                 ANY_OVERLAP, k=k)
+
+        def served(dep, req, reps):
+            """One counted request after a warm one, then the timed ones:
+            (result, launches, collective counts, ms)."""
+            dep.execute(req)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            mesh.counts.clear()
+            got = dep.execute(req)
+            launches = launched(ops.LAUNCHES)
+            counts = dict(mesh.counts)
+            _, sec = timed_execute(dep, req, reps=reps)
+            return got, launches, counts, sec * 1e3
+
+        corpus, lo, hi = (load(n, mmap_mode="r") for n in ("corpus", "lo",
+                                                            "hi"))
+        req = request("")
+        res, arrays = {"rank": rank, "coord": mesh.coord["data"]}, {}
+
+        def scan_ms(dep):
+            """This rank's scan and top-k alone, as a request runs them
+            (CUDA events, median of 5)."""
+            args = (*dep._flat, *dep._query_tensors(req))
+            shard = dep.shards[dep.rank]
+            return time_ms(lambda: local_flat_topk(
+                *args, mask=req.mask, k=k, offset=shard.id_offset),
+                reps=5, warmup=1)
+
+        for merge in RANKS_MERGES:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            dep = ShardedDeployment.flat(
+                corpus, lo, hi, mesh=mesh,
+                spec=DeploymentSpec(n_shards=world, merge=merge))
+            torch.cuda.synchronize()
+            stage_s = time.perf_counter() - t0
+            alloc = torch.cuda.memory_allocated() - mem0
+            got, launches, counts, ms = served(dep, req, reps=5)
+            if merge == "all_gather":
+                res["scan_ms"] = scan_ms(dep)
+            dep.fail(world - 1)
+            lost = dep.execute(req)
+            dep.restore(world - 1)
+            res[merge] = {
+                "stage_s": stage_s, "request_ms": ms, "launches": launches,
+                "counts": counts, "merge": got.report.merge,
+                "staged_corpus_bytes": sum(t.numel() * t.element_size()
+                                           for t in dep._flat),
+                "staged_allocated_bytes": alloc,
+                "lost_missing_shards": list(lost.report.missing_shards),
+                "lost_degraded": lost.degraded}
+            arrays[f"{merge}/ids"], arrays[f"{merge}/dists"] = (got.ids,
+                                                                got.dists)
+            arrays[f"{merge}/lost_ids"] = lost.ids
+            del dep
+        dep = ShardedDeployment.flat(
+            corpus, lo, hi, mesh=mesh,
+            spec=DeploymentSpec(n_shards=world, per_shard_k=5))
+        got, launches, counts, ms = served(dep, req, reps=3)
+        res["per_shard_k5"] = {"request_ms": ms, "launches": launches,
+                               "counts": counts}
+        arrays["per_shard_k5/ids"] = got.ids
+        del dep, corpus, lo, hi
+
+        # the build layout: this rank builds its own slice only
+        t0 = time.perf_counter()
+        dep = ShardedDeployment.build(
+            load("build_vectors", mmap_mode="r"), load("build_lo"),
+            load("build_hi"), mesh=mesh,
+            spec=DeploymentSpec(n_shards=world, merge="tournament",
+                                index=ranks_build_spec(),
+                                engine=EngineConfig(route="graph")))
+        res["build_s"] = time.perf_counter() - t0
+        breq = request("build_")
+        for merge in ("tournament", "all_gather"):
+            if merge != dep.spec.merge:
+                dep = ShardedDeployment(dep.shards,
+                                        dep.spec.replace(merge=merge), mesh)
+            got, launches, counts, ms = served(dep, breq, reps=3)
+            res[f"build_{merge}"] = {
+                "request_ms": ms, "launches": launches, "counts": counts,
+                "routes": [s.route for s in got.report.shards],
+                "missing_shards": list(got.report.missing_shards)}
+            arrays[f"build_{merge}/ids"] = got.ids
+        del dep
+
+        # the serving driver, one shard a rank
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        summary = serve.main(RANKS_SERVE_ARGV)
+        res["serve"] = {"main_s": time.perf_counter() - t0,
+                        "launches": launched(ops.LAUNCHES),
+                        **{key: summary[key] for key in (
+                            "mode", "served", "non_empty", "ranks",
+                            "degraded_queries", "seconds")}}
+        res["peak_allocated"] = torch.cuda.max_memory_allocated()
+        np.savez(os.path.join(data_dir, f"rank{rank}.npz"), **arrays)
+        with open(os.path.join(data_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(data_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def sharded_ranks_phase(dev, ds, qlo, qhi, k: int, flat_res,
+                        flat_ms: float, sharded: dict, job) -> None:
+    """The ``sharded_ranks`` line: sharded retrieval on a mesh of ranks,
+    one shard a rank, the merges as collectives. (a)
+    :func:`_ranks_world1`. (b) :data:`RANKS_D` gloo ranks on the card,
+    :func:`_ranks_rank`: the flat corpus passed to them as ``.npy``
+    memmaps under a temporary directory, which each rank reads only its
+    rows of; the logical D = 4 ``ShardedDeployment.build`` of the build
+    layout's rows (:func:`ranks_logical_build`, ``job``, built in the
+    background) serves first on the card. Held, on every rank: the flat
+    layout's ids and dists equal to
+    the ``sharded`` phase's logical D = 4 answer and to the flat route's
+    under each merge, one kernel-5 launch a request, the staged corpus
+    bytes a D-th of the corpus's and its float32 ranges', shard 3 failed
+    giving ``missing_shards == (3,)`` and the ``sharded`` phase's answer
+    over the other rows; the build layout launching kernels 1 and 3, its
+    ids equal to the logical build's on rank 0 under ``tournament`` and on
+    every rank under ``all_gather``; ``launch.serve.main`` serving 24
+    requests, 24 non-empty. Reported: request ms by schedule beside the
+    logical deployment's (gloo on one card stages every merge through the
+    host) and a rank's scan alone, the collectives' calls and staged
+    bytes a request, ``per_shard_k=5`` recall against the flat route.
+    The temporary directory is removed once the ranks' files are read."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from torch import multiprocessing as tmp
+    from repro_torch.core import ANY_OVERLAP, SearchRequest
+    from repro_torch.data import recall_at_k
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    world1 = _ranks_world1(dev, ds, qlo, qhi, k, flat_res)
+    free_device()
+
+    # the logical build, served here before the ranks start
+    t0 = time.perf_counter()
+    built = job.result()
+    waited = time.perf_counter() - t0
+    bds, bqlo, bqhi = built["ds"], built["qlo"], built["qhi"]
+    breq = SearchRequest(bds.queries, (bqlo, bqhi), ANY_OVERLAP, k=k)
+    logical = built.pop("dep")
+    logical.execute(breq)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    lres = logical.execute(breq)
+    logical_launches = launched(ops.LAUNCHES)
+    check(not lres.degraded, f"sharded_ranks: the logical build lost shards "
+                             f"{lres.report.missing_shards}")
+    _, lsec = timed_execute(logical, breq, reps=3)
+    del logical
+
+    data_dir = tempfile.mkdtemp()
+    try:
+        for name, a in (("corpus", ds.vectors), ("lo", ds.lo), ("hi", ds.hi),
+                        ("queries", ds.queries), ("qlo", qlo), ("qhi", qhi),
+                        ("build_vectors", bds.vectors), ("build_lo", bds.lo),
+                        ("build_hi", bds.hi), ("build_queries", bds.queries),
+                        ("build_qlo", bqlo), ("build_qhi", bqhi)):
+            np.save(os.path.join(data_dir, name + ".npy"), a)
+        t0 = time.perf_counter()
+        omp = os.environ.get("OMP_NUM_THREADS")
+        os.environ["OMP_NUM_THREADS"] = str(RANKS_THREADS)    # the ranks' own
+        try:
+            ctx = tmp.start_processes(
+                _ranks_rank, args=(RANKS_D, os.path.join(data_dir, "store"),
+                                   data_dir, k, str(dev)),
+                nprocs=RANKS_D, join=False, start_method="spawn")
+        finally:
+            if omp is None:
+                del os.environ["OMP_NUM_THREADS"]
+            else:
+                os.environ["OMP_NUM_THREADS"] = omp
+
+        ctx.processes[0].join(RANKS_LIMIT_S)
+        for p in ctx.processes[1:]:
+            p.join(RANKS_GRACE_S)
+        hung = [r for r, p in enumerate(ctx.processes) if p.is_alive()]
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        wall_s = time.perf_counter() - t0
+        errs = [open(os.path.join(data_dir, f"rank{r}.err")).read()
+                for r in range(RANKS_D)
+                if os.path.exists(os.path.join(data_dir, f"rank{r}.err"))]
+        check(not hung and not errs,
+              f"sharded_ranks: ranks {hung} passed their time limit; {errs}")
+        ranks = [json.load(open(os.path.join(data_dir, f"rank{r}.json")))
+                 for r in range(RANKS_D)]
+        arrs = []
+        for r in range(RANKS_D):
+            with np.load(os.path.join(data_dir, f"rank{r}.npz")) as f:
+                arrs.append(dict(f))
+    finally:
+        # the corpus's copy (half a GB), the ranks' files and the store
+        shutil.rmtree(data_dir, ignore_errors=True)
+    # a D-th of the float32 rows and their float32 ranges
+    want_staged = (ds.vectors.nbytes + 2 * 4 * ds.n) // RANKS_D
+    flat_equal = {m: [bool(np.array_equal(a[f"{m}/ids"], sharded["ids"])
+                           and np.array_equal(a[f"{m}/ids"], flat_res.ids)
+                           and np.array_equal(a[f"{m}/dists"],
+                                              flat_res.dists))
+                      for a in arrs] for m in RANKS_MERGES}
+    lost_equal = {m: [bool(np.array_equal(a[f"{m}/lost_ids"],
+                                          sharded["lost_ids"]))
+                      for a in arrs] for m in RANKS_MERGES}
+    build_equal = {"tournament_rank0": bool(np.array_equal(
+        arrs[0]["build_tournament/ids"], lres.ids)),
+        "all_gather_every_rank": [bool(np.array_equal(
+            a["build_all_gather/ids"], lres.ids)) for a in arrs]}
+    emit({"phase": "sharded_ranks", "nvidia_smi": nvidia_smi_line(),
+          "n": ds.n, "shards": RANKS_D, "Q": len(qlo), "k": k,
+          "world1": world1,
+          "world": {"backend": "gloo", "mesh": {"data": RANKS_D},
+                    "wall_s": wall_s},
+          "request_ms": {m: [r[m]["request_ms"] for r in ranks]
+                         for m in RANKS_MERGES},
+          "scan_ms": [r["scan_ms"] for r in ranks],
+          "logical_request_ms": sharded["request_ms"],
+          "flat_route_request_ms": flat_ms,
+          "counts_a_request": {m: ranks[0][m]["counts"]
+                               for m in RANKS_MERGES},
+          "launches": {m: [r[m]["launches"] for r in ranks]
+                       for m in RANKS_MERGES},
+          "staged_corpus_bytes": [r["all_gather"]["staged_corpus_bytes"]
+                                  for r in ranks],
+          "staged_allocated_bytes": [r["all_gather"]["staged_allocated_bytes"]
+                                     for r in ranks],
+          "expected_staged_bytes": want_staged,
+          "stage_s": [r["all_gather"]["stage_s"] for r in ranks],
+          "ids_dists_equal_logical_and_flat": flat_equal,
+          "lost_shard": {"missing_shards": {
+              m: [r[m]["lost_missing_shards"] for r in ranks]
+              for m in RANKS_MERGES},
+              "ids_equal_flat_over_rest": lost_equal},
+          "per_shard_k5": {
+              "recall_vs_flat": recall_at_k(arrs[0]["per_shard_k5/ids"],
+                                            flat_res.ids),
+              "request_ms": [r["per_shard_k5"]["request_ms"] for r in ranks],
+              "logical_request_ms": sharded["per_shard_k5_ms"]},
+          "build": {"rows_a_rank": RANKS_BUILD_N, "Q": RANKS_BUILD_Q,
+                    "build_s": [r["build_s"] for r in ranks],
+                    "logical_build_s": built["build_s"],
+                    "logical_built_in_background": True,
+                    "logical_waited_s": waited,
+                    "request_ms": {m: [r[f"build_{m}"]["request_ms"]
+                                       for r in ranks]
+                                   for m in ("tournament", "all_gather")},
+                    "logical_request_ms": lsec * 1e3,
+                    "launches": [r["build_tournament"]["launches"]
+                                 for r in ranks],
+                    "logical_launches": logical_launches,
+                    "counts_a_request": {
+                        m: ranks[0][f"build_{m}"]["counts"]
+                        for m in ("tournament", "all_gather")},
+                    "ids_equal_logical": build_equal},
+          "serve": [r["serve"] for r in ranks],
+          "peak_allocated": [r["peak_allocated"] for r in ranks],
+          "phase_s": time.perf_counter() - t_phase})
+    for r, (res, a) in enumerate(zip(ranks, arrs)):
+        for m in RANKS_MERGES:
+            check(res[m]["merge"] == m, f"sharded_ranks rank {r}: asked for "
+                  f"{m}, ran {res[m]['merge']}")
+            check(flat_equal[m][r], f"sharded_ranks rank {r} {m}: ids or "
+                  f"dists differ from the logical D = {RANKS_D} answer or "
+                  f"the flat route's")
+            check(res[m]["launches"] == {"pairwise_l2_masked": 1},
+                  f"sharded_ranks rank {r} {m}: expected one "
+                  f"pairwise_l2_masked launch, got {res[m]['launches']}")
+            check(res[m]["staged_corpus_bytes"] == want_staged
+                  and res[m]["staged_allocated_bytes"] <= want_staged
+                  + (1 << 20),
+                  f"sharded_ranks rank {r} {m}: staged "
+                  f"{res[m]['staged_corpus_bytes']} corpus bytes "
+                  f"({res[m]['staged_allocated_bytes']} allocated), a "
+                  f"{RANKS_D}-th of the corpus is {want_staged}")
+            check(res[m]["lost_missing_shards"] == [RANKS_D - 1]
+                  and res[m]["lost_degraded"] and lost_equal[m][r],
+                  f"sharded_ranks rank {r} {m}: shard {RANKS_D - 1} failed "
+                  f"gave {res[m]['lost_missing_shards']} and "
+                  f"{'the' if lost_equal[m][r] else 'not the'} flat answer "
+                  f"over the other rows")
+        launches = res["build_tournament"]["launches"]
+        check(launches.get("gathered_topk", 0) > 0
+              and launches.get("gathered_l2", 0) > 0,
+              f"sharded_ranks rank {r} build: kernels 1 and 3 not launched "
+              f"({launches})")
+        for m in ("tournament", "all_gather"):
+            check(res[f"build_{m}"]["missing_shards"] == [],
+                  f"sharded_ranks rank {r} build {m}: shards "
+                  f"{res[f'build_{m}']['missing_shards']} lost")
+        check(build_equal["all_gather_every_rank"][r],
+              f"sharded_ranks rank {r} build all_gather: ids differ from "
+              f"the logical build's")
+        check(res["serve"]["served"] == 24 and res["serve"]["non_empty"] == 24,
+              f"sharded_ranks rank {r}: launch.serve served "
+              f"{res['serve']['served']}, {res['serve']['non_empty']} "
+              f"non-empty")
+    check(build_equal["tournament_rank0"], "sharded_ranks build tournament: "
+          "rank 0's ids differ from the logical build's")
 
 
 # ---- serving front ends -------------------------------------------------------
@@ -1986,8 +2495,8 @@ def serving_front_ends(eng, idx, ds, qlo, qhi, k: int, F: int, gres,
           "ids_equal_batched": ids_equal,
           "ids_differ_only_at_ties": ties_only})
     check(d_equal, "serving flat: dists differ from the batched flat route")
-    check(ties_only, "serving flat: ids differ from the batched flat route "
-                     "beyond exact ties")
+    check(ids_equal, "serving flat: ids differ from the batched flat "
+                     "route's")
     measure_kernel("pairwise_l2_masked", cap_p.best,
                    launches.get("pairwise_l2_masked", 0),
                    phase="serving_kernel")
@@ -2599,7 +3108,8 @@ def lm_full_phase(dev, phase: str, arch: str, depth, seed: int, rng,
     from repro_torch import configs
     from repro_torch.models import LM
     from repro_torch.models.params import map_tree, tree_bytes
-    cfg = configs.get_config(arch)
+    cfg = (moe_run_config(configs) if arch == MESH_ARCH
+           else configs.get_config(arch))
     # the front-end inputs draw from their own generator, so the token
     # draws of every model are those of a run without front ends
     front_rng = np.random.default_rng(seed + 23)
@@ -2622,6 +3132,7 @@ def lm_full_phase(dev, phase: str, arch: str, depth, seed: int, rng,
         if with_mesh else None
     line = {"phase": phase, "arch": arch, "dtype": cfg.param_dtype,
             "layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+            "reduced": MOE_REDUCED if arch == MESH_ARCH else [],
             "params": lm.param_count(),
             "active_params": lm.active_param_count(),
             "param_bytes": pbytes, "allocated_before": before,
@@ -2952,6 +3463,19 @@ def lm_phase(dev, seed: int, with_mesh: bool = False,
 
 # the served model split over ranks, and its mesh-less run's shape
 MESH_ARCH = "qwen3-moe-30b-a3b"
+# MESH_ARCH runs at its published widths on its first MOE_FULL_LAYERS of
+# 48 layers (lm_moe_full, both worlds of lm_mesh): the default run's time
+# limit (PERF.md §6)
+MOE_FULL_LAYERS = 24
+MOE_REDUCED = [f"n_layers 48 -> {MOE_FULL_LAYERS} (the default run's time "
+               f"limit)"]
+
+
+def moe_run_config(configs):
+    """MESH_ARCH's config as the LM phases run it (:data:`MOE_FULL_LAYERS`),
+    from ``configs`` (the port's)."""
+    return configs.get_config(MESH_ARCH).scaled(n_layers=MOE_FULL_LAYERS)
+
 MESH_B, MESH_P, MESH_NEW, MESH_MAX_LEN = 8, 128, 32, 256
 # world 2: a (data 1, model 2) mesh, two processes on the one card over
 # gloo (NCCL refuses two ranks on one GPU), joined within these limits
@@ -3070,7 +3594,7 @@ def _mesh_rank(rank: int, world: int, store: str, out_dir: str, seed: int,
                                 rank=rank, world_size=world,
                                 timeout=datetime.timedelta(seconds=300))
         mesh = make_rank_mesh(MESH2_SHAPE, ("data", "model"), device=dev)
-        cfg = configs.get_config(MESH_ARCH)
+        cfg = moe_run_config(configs)
         lm = LM(cfg)
         metas = lm.abstract_params()
         torch.cuda.synchronize()
@@ -3257,7 +3781,7 @@ def lm_mesh_phase(dev, seed: int, world1=None, toks=None,
     from repro_torch.serving import ServeEngine
     if world1 is None:
         free_device()
-        lm = LM(configs.get_config(MESH_ARCH))
+        lm = LM(moe_run_config(configs))
         lm.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
         toks = np.random.default_rng(seed + 31).integers(
             0, lm.cfg.vocab, (MESH_B, MESH_P))
@@ -3269,7 +3793,7 @@ def lm_mesh_phase(dev, seed: int, world1=None, toks=None,
     fingerprints = world1.pop("layer0_fingerprints")
     free_device()
     world2 = mesh_world2(dev, seed, toks, want_tokens, fingerprints)
-    emit({"phase": "lm_mesh", "arch": MESH_ARCH,
+    emit({"phase": "lm_mesh", "arch": MESH_ARCH, "reduced": MOE_REDUCED,
           "batch": int(np.shape(toks)[0]), "prompt": int(np.shape(toks)[1]),
           "new_tokens": int(np.shape(want_tokens)[1]), "world1": world1,
           "world2": world2})
@@ -4273,7 +4797,6 @@ def tools_dryrun_job() -> list:
     each within its time limit (killed past it), writing under
     ``build/tools/``: [{run, rc ("timeout" past the limit), seconds,
     the output's tail}]."""
-    keep_in_background()
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                CUDA_VISIBLE_DEVICES="",
                DRYRUN_TORCH_ARTIFACTS=os.path.join(TOOLS_DIR, "dryrun"),
@@ -4435,11 +4958,10 @@ def tools_dryrun(job) -> None:
 def graph_index_build(args, Qn: int):
     """graph-50k's dataset and MSTG index, built on the host (numpy, in
     ``args.workers`` spawn workers): (dataset, index, wall seconds). It
-    runs on a thread of its own beside the card's phases
+    runs on the background builder thread beside the card's phases
     (:func:`keep_in_background`)."""
     from repro_torch.core import IndexSpec, MSTGIndex, Overlaps
     from repro_torch.data import make_range_dataset
-    keep_in_background()
     t0 = time.perf_counter()
     ds = make_range_dataset(n=args.graph_n, d=128, n_queries=Qn,
                             quantize=1024, seed=args.seed)
@@ -4520,24 +5042,43 @@ def main() -> int:
         phases.add("graph")
     if "serving" in phases:     # the graph index, the streaming index and
         phases.update(("graph", "sharded"))        # the sharded deployment
+    if "sharded_ranks" in phases:    # the logical deployment's answers
+        phases.add("sharded")
     if "sharded" in phases:          # the flat corpus, the streaming index
         phases.update(("flat", "streaming"))
     if "tools" in phases:            # the blocked scan on the flat corpus
         phases.add("flat")
     k = 10
     Qn = 256
-    # graph-50k's index is the run's longest host step and shares nothing
-    # with the phases before it, so it is built in the background while
-    # the card runs them; the graph phase waits for it
-    graph_job = None
+    # The host builds (graph-50k's index, the run's longest host step; the
+    # streaming index's three flushes; the sharded_ranks phase's logical
+    # build) share nothing with the phases before the ones that read them:
+    # one background thread, kept off two CPUs at the lowest priority, runs
+    # them in turn while the card runs those phases; each phase waits for
+    # its own. Graph-50k's starts at once, beside the baselines and the LM;
+    # the other two start once the LM phases are done, beside training:
+    # host builds slow the host-bound decode loops beside them, and a
+    # second build there cost more than it saved (PERF.md §6)
+    builder = concurrent.futures.ThreadPoolExecutor(
+        1, initializer=keep_in_background)
+    stream_job = graph_job = ranks_job = None
     if "graph" in phases or "routes" in phases:
-        graph_pool = concurrent.futures.ThreadPoolExecutor(1)
-        graph_job = graph_pool.submit(graph_index_build, args, Qn)
-        graph_pool.shutdown(wait=False)
-    # the dry-run tools need no card: they run in the background too
+        graph_job = builder.submit(graph_index_build, args, Qn)
+
+    def submit_late_builds():
+        nonlocal stream_job, ranks_job
+        if "streaming" in phases:
+            stream_job = builder.submit(streaming_build, dev, args, Qn)
+        if "sharded_ranks" in phases:
+            ranks_job = builder.submit(ranks_logical_build, dev, args)
+        builder.shutdown(wait=False)
+
+    # the dry-run tools need no card: they run in the background too, as
+    # subprocesses from a thread of their own
     tools_job = None
     if "tools" in phases:
-        tools_pool = concurrent.futures.ThreadPoolExecutor(1)
+        tools_pool = concurrent.futures.ThreadPoolExecutor(
+            1, initializer=keep_in_background)
         tools_job = tools_pool.submit(tools_dryrun_job)
         tools_pool.shutdown(wait=False)
 
@@ -4558,6 +5099,7 @@ def main() -> int:
                  with_tools="tools" in phases)
     elif "lm_mesh" in phases:
         lm_mesh_phase(dev, args.seed)
+    submit_late_builds()
     if "train" in phases:
         train_phase(dev, args.seed)
         free_device()
@@ -4565,7 +5107,7 @@ def main() -> int:
         train_mesh_phase(dev, args.seed)
         free_device()
     if "streaming" in phases:
-        stream = streaming_phase(dev, args, Qn, k)
+        stream = streaming_phase(dev, args, Qn, k, stream_job)
     if "flat" in phases:
         t0 = time.perf_counter()
         ds = make_range_dataset(n=args.flat_n, d=128, n_queries=Qn,
@@ -4710,12 +5252,17 @@ def main() -> int:
 
     serving_s = {}
     if "sharded" in phases:
-        dep = sharded_phase(dev, ds, qlo, qhi, k, res.ids, f32_ms, stream)
+        sharded = sharded_phase(dev, ds, qlo, qhi, k, res.ids, f32_ms, stream)
         if "serving" in phases:
             t0 = time.perf_counter()
-            serving_backends(stream, dep, ds, qlo, qhi, k)
+            serving_backends(stream, sharded["dep"], ds, qlo, qhi, k)
             serving_s["backends"] = time.perf_counter() - t0
-        del dep
+        del sharded["dep"]
+        if "sharded_ranks" in phases:
+            free_device()
+            sharded_ranks_phase(dev, ds, qlo, qhi, k, res, f32_ms, sharded,
+                                ranks_job)
+        del sharded
     if "streaming" in phases:
         del stream
         torch.cuda.empty_cache()

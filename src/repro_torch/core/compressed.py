@@ -23,35 +23,10 @@ from __future__ import annotations
 
 import torch
 
+from .flat import _smallest_stable
+
 NO_EDGE = -1
 INF = float("inf")
-
-
-def _smallest_stable(dists, R: int):
-    """The R smallest entries of each row, ascending, ties to the lowest
-    column (``lax.top_k(-dists, R)``'s order): (values, columns).
-
-    ``torch.topk`` picks among equal values in no promised order, so it
-    takes a wider set of W > R first and orders that set by (value,
-    column). The set holds every entry equal to the R-th value once its
-    W-th value is larger, or the R-th is +inf (then the tied entries are
-    non-qualifying rows, which come out as NO_EDGE whatever their column).
-    Rows where neither holds take a full stable sort."""
-    N = dists.shape[1]
-    W = min(N, 2 * R + 32)
-    if W == N:
-        vals, cols = torch.sort(dists, dim=1, stable=True)
-        return vals[:, :R], cols[:, :R]
-    vals, cols = torch.topk(dists, W, dim=1, largest=False, sorted=True)
-    cols, by_col = torch.sort(cols, dim=1)
-    vals, by_val = torch.sort(vals.gather(1, by_col), dim=1, stable=True)
-    cols = cols.gather(1, by_val)
-    sure = (vals[:, W - 1] > vals[:, R - 1]) | torch.isinf(vals[:, R - 1])
-    if not bool(sure.all()):
-        rows = torch.nonzero(~sure).flatten()
-        v, c = torch.sort(dists[rows], dim=1, stable=True)
-        vals[rows, :R], cols[rows, :R] = v[:, :R], c[:, :R]
-    return vals[:, :R], cols[:, :R]
 
 
 def topr_from_dists(dists, *, rerank: int):

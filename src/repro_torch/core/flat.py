@@ -26,14 +26,46 @@ from .hnsw import NO_EDGE
 INF = float("inf")
 
 
+def _smallest_stable(dists, R: int):
+    """The R smallest entries of each row, ascending, ties to the lowest
+    column (``lax.top_k(-dists, R)``'s order): (values, columns).
+
+    ``torch.topk`` picks among equal values in no promised order, so it
+    takes a wider set of W > R first and orders that set by (value,
+    column). The set holds every entry equal to the R-th value once its
+    W-th value is larger, or the R-th is +inf (then the tied entries are
+    non-qualifying rows, which come out as NO_EDGE whatever their column).
+    Rows where neither holds take a full stable sort
+    (:func:`_resort_unsure`)."""
+    N = dists.shape[1]
+    W = min(N, 2 * R + 32)
+    if W == N:
+        vals, cols = torch.sort(dists, dim=1, stable=True)
+        return vals[:, :R], cols[:, :R]
+    vals, cols = torch.topk(dists, W, dim=1, largest=False, sorted=True)
+    cols, by_col = torch.sort(cols, dim=1)
+    vals, by_val = torch.sort(vals.gather(1, by_col), dim=1, stable=True)
+    cols = cols.gather(1, by_val)
+    sure = (vals[:, W - 1] > vals[:, R - 1]) | torch.isinf(vals[:, R - 1])
+    _resort_unsure(dists, vals, cols, sure, R)
+    return vals[:, :R], cols[:, :R]
+
+
+def _resort_unsure(dists, vals, cols, sure, R: int) -> None:
+    """The first R of ``vals`` / ``cols`` (in place) from a full stable
+    sort of ``dists``'s rows where ``sure`` is false."""
+    if not bool(sure.all()):
+        rows = torch.nonzero(~sure).flatten()
+        v, c = torch.sort(dists[rows], dim=1, stable=True)
+        vals[rows, :R], cols[rows, :R] = v[:, :R], c[:, :R]
+
+
 def flat_search(corpus, lo, hi, queries, ql, qh, *, mask: int, k: int):
     """Exact filtered k-NN: (Q, k) int32 ids + float32 squared distances
-    (+inf / NO_EDGE pad when fewer than k objects qualify)."""
+    (+inf / NO_EDGE pad when fewer than k objects qualify). Among equal
+    distances the lower row comes first, as ``lax.top_k`` orders them."""
     d = ops.pairwise_l2_masked(queries, corpus, lo, hi, ql, qh, mask)
-    # torch.topk does not promise lax.top_k's lowest-index order among equal
-    # values. The +inf ties (non-qualifying rows) all become NO_EDGE, so
-    # only exact ties of finite distances could order ids differently.
-    vals, idx = torch.topk(d, k, dim=1, largest=False, sorted=True)
+    vals, idx = _smallest_stable(d, k)
     ids = torch.where(torch.isfinite(vals), idx, NO_EDGE).to(torch.int32)
     return ids, vals
 

@@ -2,17 +2,19 @@
 (:func:`repro_torch.launch.mesh.make_rank_mesh`): ``lax.psum``,
 ``lax.pmean``, ``lax.all_gather(..., tiled=True)``, ``lax.psum_scatter``
 and ``lax.axis_index``, each over one axis or a tuple of axes;
-:func:`unshard`, a whole leaf from this rank's shard of it; and
-:func:`pvary`, the identity whose gradient is summed.
+``lax.ppermute`` over one axis; :func:`unshard`, a whole leaf from this
+rank's shard of it; and :func:`pvary`, the identity whose gradient is
+summed.
 
 A tuple of axes is one axis of their product with the last axis varying
 fastest, as in an entry of a ``PartitionSpec``. A collective runs over the
 axes one after another, each on ``DeviceMesh.get_group(axis)``, whose group
 ranks follow the coordinate on that axis. Each call adds one to
-``mesh.counts[name]`` (``psum``, ``all_gather``, ``psum_scatter``), and
-each axis it runs over adds one to ``mesh.records[(op, result bytes,
-group size)]``, op the collective that axis ran (``all-gather``, or
-``all-reduce`` for ``psum`` and ``psum_scatter``), named as in XLA's HLO.
+``mesh.counts[name]`` (``psum``, ``all_gather``, ``psum_scatter``,
+``ppermute``), and each axis it runs over adds one to
+``mesh.records[(op, result bytes, group size)]``, op the collective that
+axis ran (``all-gather``, ``collective-permute``, or ``all-reduce`` for
+``psum`` and ``psum_scatter``), named as in XLA's HLO.
 
 Transport (:meth:`repro_torch.launch.mesh.Mesh.transport`): NCCL with CUDA
 tensors and gloo with CPU tensors run on the tensor's own device. Gloo with
@@ -120,6 +122,30 @@ def _all_gather(x, mesh, axes, dim):
             mesh.records["all-gather", _nbytes(t), mesh.shape[a]] += 1
         return t
     return _run(mesh, "all_gather", x, run, axes)
+
+
+def _ppermute(x, mesh, axis, perm):
+    def run(t):
+        group = mesh.device_mesh.get_group(axis)
+        me = mesh.coord[axis]
+        out = torch.zeros_like(t)
+        ops = []
+        for src, dst in perm:
+            if src == me and dst == me:
+                out.copy_(t)
+            elif src == me:
+                ops.append(dist.P2POp(dist.isend, t, dist.get_global_rank(
+                    group, dst), group))
+            elif dst == me:
+                ops.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(
+                    group, src), group))
+        # both directions posted at once: neither side waits on the other
+        for work in dist.batch_isend_irecv(ops) if ops else ():
+            work.wait()
+        mesh.records["collective-permute", _nbytes(out), mesh.shape[axis]] \
+            += 1
+        return out
+    return _run(mesh, "ppermute", x, run, axis)
 
 
 def _psum_scatter(x, mesh, axes, dim):
@@ -242,6 +268,23 @@ def psum_scatter(x: torch.Tensor, mesh, axes: Axes, dim: int = 0
     if not _axes(axes):
         return x
     return _PSumScatter.apply(x, mesh, axes, dim % x.dim())
+
+
+def ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
+    """``lax.ppermute`` over the ranks of one ``axis``: ``perm`` is (source,
+    destination) pairs of indices on ``axis``, each index at most once a
+    source and once a destination. This rank sends ``x`` to its
+    destination and returns what its source sent, zeros where none does.
+    The sends and receives of the call are posted together
+    (``batch_isend_irecv``). No gradient: nothing differentiates through
+    it."""
+    if not isinstance(axis, str):
+        raise ValueError(f"ppermute runs over one axis, got {axis!r}")
+    perm = [(int(s), int(d)) for s, d in perm]
+    for side in zip(*perm):
+        if len(set(side)) != len(side):
+            raise ValueError(f"a rank sends or receives twice in {perm}")
+    return _ppermute(x.detach(), mesh, axis, perm)
 
 
 def unshard(x: torch.Tensor, spec, mesh, *, batch_axes: Axes = ()

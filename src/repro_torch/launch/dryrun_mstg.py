@@ -15,19 +15,23 @@ on both production meshes, at N = 2^20, Q = 1,024, d = 128, k = 10:
   :func:`repro_torch.core.flat.flat_search_blocked` (no (Q, N) matrix)
   and the lists are merged over each axis, the innermost first.
 
-A merge over an axis is an ``all_gather`` of the rank's list through
-:mod:`repro_torch.distributed.collectives`, then the stacked
-``global_topk_merge`` (``all_gather``) or ``tournament_topk_merge``. The
-port has no pairwise exchange, so the tournament moves an all-gather's
-bytes, not the reference's butterfly of ``ppermute``s (ROADMAP §3 (m)).
-On the fake tensors the scans take the kernels' plain versions, whose
-counted FLOPs are the model's 2·Q_loc·N_loc·d.
+A merge over an axis is :func:`repro_torch.distributed.topk.rank_topk_merge`,
+the deployment's merge on a mesh of ranks: an ``all_gather`` of the
+rank's list (``all-gather`` records), or the tournament's butterfly of
+``ppermute`` rounds (``collective-permute`` records, two a round), as in
+the reference's HLO. On the fake tensors the scans take the kernels'
+plain versions, whose counted FLOPs are the model's 2·Q_loc·N_loc·d;
+``flat_search``'s re-sort of rows tied across its top-k window
+(:func:`repro_torch.core.flat._resort_unsure`) reads values that fake
+tensors do not have, so the count leaves it out, as the reference's
+``lax.top_k`` has no such step.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun_mstg
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -38,10 +42,11 @@ from typing import Iterable, Optional
 import torch
 
 from ..core import ANY_OVERLAP
+from ..core import flat as core_flat
 from ..core.flat import flat_search, flat_search_blocked
 from ..core.hnsw import NO_EDGE
 from ..distributed import collectives as coll
-from ..distributed.topk import global_topk_merge, tournament_topk_merge
+from ..distributed.topk import rank_topk_merge
 from ..models.params import tree_bytes
 from ..models.transformer import ShapeDtype
 from .dryrun import (ARTIFACT_DIR, MESH_WORLD, collective_bytes, count_step,
@@ -64,12 +69,16 @@ def _args(n_corpus: int, n_queries: int, dim: int):
             ShapeDtype((n_queries,), f32), ShapeDtype((n_queries,), f32))
 
 
-def _merge_over(mesh, ids, d, k: int, axis: str, merge_fn):
-    """This rank's (Q, k) list merged with those of the other ranks of
-    ``axis``: gathered into a stacked (P, Q, k) axis, then ``merge_fn``."""
-    ids = coll.all_gather(ids[None], mesh, axis, 0)
-    d = coll.all_gather(d[None], mesh, axis, 0)
-    return merge_fn(ids, d, k)
+@contextlib.contextmanager
+def _without_tie_resort():
+    """``flat_search`` without its data-dependent re-sort of tied rows, for
+    a count on fake tensors (the shapes it returns are the same)."""
+    saved = core_flat._resort_unsure
+    core_flat._resort_unsure = lambda *args: None
+    try:
+        yield
+    finally:
+        core_flat._resort_unsure = saved
 
 
 def _offset(mesh, axes, nloc: int, ids):
@@ -88,17 +97,16 @@ def build_step(mesh, merge: str, mask: int = ANY_OVERLAP, k: int = K, *,
     corpus_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
     nloc = n_corpus // coll.axis_size(mesh, corpus_axes)
     qloc = n_queries // coll.axis_size(mesh, "model")
-    merge_fn = {"all_gather": global_topk_merge,
-                "tournament": tournament_topk_merge}[merge]
-    ax = corpus_axes[-1]
 
     def run(c, l, h, q, a, b):
-        ids, d = flat_search(c, l, h, q, a, b, mask=mask, k=k)
+        with _without_tie_resort():
+            ids, d = flat_search(c, l, h, q, a, b, mask=mask, k=k)
         ids = _offset(mesh, corpus_axes, nloc, ids)
-        ids, d = _merge_over(mesh, ids, d, k, ax, merge_fn)
+        ids, d = rank_topk_merge(mesh, ids, d, k, axis=corpus_axes[-1],
+                                 merge=merge)
         if len(corpus_axes) > 1:
-            ids, d = _merge_over(mesh, ids, d, k, corpus_axes[0],
-                                 global_topk_merge)
+            ids, d = rank_topk_merge(mesh, ids, d, k, axis=corpus_axes[0],
+                                     merge="all_gather")
         return ids, d
 
     return run, _args(nloc, qloc, dim)
@@ -117,7 +125,8 @@ def build_step_v2(mesh, mask: int = ANY_OVERLAP, k: int = K, *,
         ids, d = flat_search_blocked(c, l, h, q, a, b, mask=mask, k=k)
         ids = _offset(mesh, axes, nloc, ids)
         for ax in reversed(axes):
-            ids, d = _merge_over(mesh, ids, d, k, ax, tournament_topk_merge)
+            ids, d = rank_topk_merge(mesh, ids, d, k, axis=ax,
+                                     merge="tournament")
         return ids, d
 
     return run, _args(nloc, n_queries, dim)

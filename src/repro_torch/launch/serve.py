@@ -4,6 +4,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --streaming   # live corpus
   PYTHONPATH=src python -m repro_torch.launch.serve --async       # SLO front end
   PYTHONPATH=src python -m repro_torch.launch.serve --shards 4    # sharded corpus
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.serve --shards 4 --device cpu   # one a rank
   PYTHONPATH=src python -m repro_torch.launch.serve --route graph # pin a route
 
 Builds an MSTG index over a synthetic corpus, stands up the LM endpoint
@@ -12,8 +14,14 @@ batched :class:`repro_torch.serving.RetrievalServer`, and serves RR-filtered
 ANN requests end to end (generate + retrieve). ``--streaming`` backs the
 server with a :class:`repro_torch.streaming.SegmentedIndex` and interleaves
 upserts / deletes with the query traffic. ``--shards N`` serves from a
-:class:`repro_torch.distributed.ShardedDeployment` over N logical shards of
-one device (:func:`repro_torch.launch.make_mesh`). ``--async`` routes the
+:class:`repro_torch.distributed.ShardedDeployment`: one shard a rank over
+a mesh of ranks (:func:`repro_torch.launch.make_rank_mesh`) when the
+process is one of a default ``torch.distributed`` group of world size N
+(as under ``torch.distributed.run``), else N logical shards of one device
+(:func:`repro_torch.launch.make_mesh`). On ranks every rank runs the same
+program, each builds and scans only its own shard, and rank 0 prints;
+``--async`` is refused there (the async server's lockstep across ranks is
+not ported). ``--async`` routes the
 traffic through the continuous-batching
 :class:`repro_torch.serving.AsyncRetrievalServer` and prints its metrics
 snapshot. ``--route`` pins the engine's route (``auto``, the work-model
@@ -21,12 +29,13 @@ router, by default; at the default corpus size it picks ``pruned``).
 Everything runs on ``--device`` (the card by default; ``cpu``
 runs the plain versions).
 
-:func:`main` takes an argument list and returns a summary dict, so a
-program can drive it in-process.
+:func:`main` takes an argument list and returns a summary dict (on every
+rank), so a program can drive it in-process.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import List, Optional
 
@@ -53,8 +62,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="serve from a mutable SegmentedIndex and interleave "
                          "upserts/deletes with query traffic")
     ap.add_argument("--shards", type=int, default=0, metavar="N",
-                    help="serve from an N-shard ShardedDeployment over N "
-                         "logical shards of the device")
+                    help="serve from an N-shard ShardedDeployment: one shard "
+                         "a rank of a default process group of world size "
+                         "N, else N logical shards of the device")
     ap.add_argument("--async", dest="use_async", action="store_true",
                     help="serve through the continuous-batching async front "
                          "end (SLO admission + wavefront slot refill) and "
@@ -82,6 +92,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.shards and args.streaming:
         ap.error("--shards and --streaming are mutually exclusive (shard a "
                  "SegmentedIndex via ShardedDeployment.from_segmented)")
+    ranks = _ranks()
+    if args.shards and ranks > 1:
+        if ranks != args.shards:
+            ap.error(f"--shards {args.shards} on a process group of "
+                     f"{ranks} ranks: one shard a rank needs as many")
+        if args.use_async:
+            ap.error("--shards with --async on more than one rank: the "
+                     "async server's lockstep across ranks is not ported")
     dev = resolve_device(args.device)
 
     http = None
@@ -91,14 +109,26 @@ def main(argv: Optional[List[str]] = None) -> dict:
         print(f"metrics: http://{http.server_address[0]}:"
               f"{http.server_address[1]}/metrics (+ /metrics.json)")
     try:
-        return _serve(args, dev)
+        return _serve(args, dev, ranks)
     finally:
         if http is not None:
             http.shutdown()
             http.server_close()
 
 
-def _serve(args, dev) -> dict:
+def _ranks() -> int:
+    """The default process group's world size; 1 without one."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def _serve(args, dev, ranks: int) -> dict:
+    """Serve as :func:`main` says. ``ranks`` > 1: the process is one of
+    that many ranks, ``--shards`` serves one shard a rank, and only rank 0
+    prints."""
+    say = _printer(ranks)
     # 1) corpus + index (the paper's contribution)
     ds = make_range_dataset(n=args.n, d=args.dim, n_queries=args.requests,
                             quantize=128, seed=0)
@@ -107,26 +137,31 @@ def _serve(args, dev) -> dict:
     t0 = time.time()
     if args.shards:
         from ..distributed import DeploymentSpec, ShardedDeployment
-        from .mesh import make_mesh
-        mesh = make_mesh((args.shards,), ("data",), device=dev)
+        from .mesh import make_mesh, make_rank_mesh
+        if ranks > 1:
+            mesh = make_rank_mesh((args.shards,), ("data",), device=dev)
+            where = f"ranks, one a rank, on {mesh.device}"
+        else:
+            mesh = make_mesh((args.shards,), ("data",), device=dev)
+            where = f"logical shards on {dev}"
         qengine = ShardedDeployment.build(
             ds.vectors, ds.lo, ds.hi, mesh=mesh,
             spec=DeploymentSpec(n_shards=args.shards, index=spec,
                                 engine=config))
-        print(f"sharded MSTG built: n={args.n} shards={args.shards} "
-              f"logical shards on {dev} in {time.time()-t0:.1f}s")
+        say(f"sharded MSTG built: n={args.n} shards={args.shards} "
+              f"{where} in {time.time()-t0:.1f}s")
     elif args.streaming:
         from ..streaming import SegmentedIndex
         qengine = SegmentedIndex(spec, flush_threshold=args.n,
                                  engine_config=config, device=dev)
         qengine.add(np.arange(args.n), ds.vectors, ds.lo, ds.hi)
         qengine.flush()
-        print(f"segmented MSTG built: n={args.n} "
+        say(f"segmented MSTG built: n={args.n} "
               f"segments={len(qengine.segments)} in {time.time()-t0:.1f}s")
     else:
         idx = MSTGIndex.build(spec, ds.vectors, ds.lo, ds.hi)
         qengine = QueryEngine(idx, config=config, device=dev)
-        print(f"MSTG built: n={args.n} K={idx.domain.K} "
+        say(f"MSTG built: n={args.n} K={idx.domain.K} "
               f"bytes={idx.index_bytes()/1e6:.1f}MB in {time.time()-t0:.1f}s")
 
     # 2) LM endpoint (smoke-scale) — generates for the requests
@@ -144,10 +179,10 @@ def _serve(args, dev) -> dict:
         batch["frames"] = rng.normal(
             0, 1, (4, 16, cfg.frontend_dim)).astype(np.float32)
     gen = engine.generate(batch, n_new=8, max_len=64)
-    print(f"LM generate ok: {gen.tokens.shape} tokens")
+    say(f"LM generate ok: {gen.tokens.shape} tokens")
     summary = {"arch": args.arch, "device": str(dev), "route": args.route,
                "generated": list(gen.tokens.shape),
-               "requests": args.requests}
+               "requests": args.requests, "ranks": ranks}
 
     # 3) batched retrieval serving: Predicate submits, one embed call per tick
     embed_fn = lambda items: ds.queries[np.asarray(items)]  # stub embedding
@@ -174,24 +209,24 @@ def _serve(args, dev) -> dict:
         dt = time.time() - t0
         served = {t: r for t, r in results.items() if r and r.hit is not None}
         ok = sum(1 for r in served.values() if r.hit.valid.any())
-        print(f"async served {len(served)} requests (+{n_mut} mutations) in "
+        say(f"async served {len(served)} requests (+{n_mut} mutations) in "
               f"{dt*1e3:.1f} ms ({len(served)/dt:.1f} qps); {ok} non-empty")
         snap = server.snapshot()
-        print(f"  metrics: served={snap['served']} shed={snap['shed']} "
+        say(f"  metrics: served={snap['served']} shed={snap['shed']} "
               f"deadline_missed={snap['deadline_missed']} "
               f"degraded={snap['degraded']}")
-        print(f"  queue-wait ms p50/p95/p99: "
+        say(f"  queue-wait ms p50/p95/p99: "
               f"{snap['queue_wait_ms']['p50']:.2f}/"
               f"{snap['queue_wait_ms']['p95']:.2f}/"
               f"{snap['queue_wait_ms']['p99']:.2f}")
-        print(f"  e2e ms p50/p95/p99: {snap['e2e_ms']['p50']:.2f}/"
+        say(f"  e2e ms p50/p95/p99: {snap['e2e_ms']['p50']:.2f}/"
               f"{snap['e2e_ms']['p95']:.2f}/{snap['e2e_ms']['p99']:.2f}")
         if "batch_occupancy" in snap:
-            print(f"  occupancy={snap['batch_occupancy']:.2f} "
+            say(f"  occupancy={snap['batch_occupancy']:.2f} "
                   f"refill_eff={snap['refill_efficiency']:.2f} "
                   f"refills={snap['refills']}")
         for t in list(served)[:3]:
-            print(f"  ticket {t}: top ids "
+            say(f"  ticket {t}: top ids "
                   f"{served[t].hit.ids[:5].tolist()}")
         return {**summary, "mode": "async", "served": len(served),
                 "non_empty": ok, "mutations": n_mut, "seconds": dt}
@@ -210,7 +245,7 @@ def _serve(args, dev) -> dict:
     results = server.tick()
     dt = time.time() - t0
     ok = sum(1 for hit in results.values() if hit.valid.any())
-    print(f"served {len(results)} requests (+{n_mut} mutations) in "
+    say(f"served {len(results)} requests (+{n_mut} mutations) in "
           f"{dt*1e3:.1f} ms ({len(results)/dt:.1f} qps); "
           f"embed/mutate/search s="
           f"{server.tick_stats['embed_s']:.3f}/"
@@ -219,24 +254,53 @@ def _serve(args, dev) -> dict:
     mode = "sync"
     if args.streaming:
         mode = "streaming"
-        print(f"  streaming stats: {qengine.stats()}")
+        say(f"  streaming stats: {qengine.stats()}")
         rep = qengine.compact(full=True)
-        print(f"  compacted: merged={rep['merged']} -> {rep['new_segment']} "
+        say(f"  compacted: merged={rep['merged']} -> {rep['new_segment']} "
               f"(dropped {rep['dropped']} tombstoned rows)")
     elif args.shards:
         mode = "sharded"
-        print(f"  shards={args.shards} "
+        summary["degraded_queries"] = server.tick_stats["degraded_queries"]
+        say(f"  shards={args.shards} "
               f"degraded_queries={server.tick_stats['degraded_queries']}")
     else:
         summary["routes"] = dict(qengine.route_counts)
-        print(f"  routes={qengine.route_counts}; "
+        say(f"  routes={qengine.route_counts}; "
               f"sel_cache={qengine.sel_cache_hits}h/"
               f"{qengine.sel_cache_misses}m")
     for i in list(results)[:3]:
-        print(f"  req {i}: top ids {results[i].ids[:5].tolist()}")
+        say(f"  req {i}: top ids {results[i].ids[:5].tolist()}")
     return {**summary, "mode": mode, "served": len(results),
             "non_empty": ok, "mutations": n_mut, "seconds": dt}
 
 
+def _printer(ranks: int):
+    """``print`` on rank 0 (or without ranks), a no-op on the others."""
+    import builtins
+    import torch.distributed as dist
+    if ranks > 1 and dist.get_rank() != 0:
+        return lambda *a, **k: None
+    return builtins.print
+
+
+def _launched() -> None:
+    """The ``python -m`` entry point. Under ``torch.distributed.run``
+    (``WORLD_SIZE`` > 1 in the environment) it joins the launcher's group
+    first, NCCL on the card ``LOCAL_RANK`` or gloo on the CPU, and leaves
+    it after."""
+    import torch.distributed as dist
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        main()
+        return
+    dev = resolve_device(_parser().parse_known_args()[0].device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    try:
+        main()
+    finally:
+        dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    main()
+    _launched()

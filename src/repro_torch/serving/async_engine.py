@@ -22,8 +22,9 @@ independently, and slot results merge in plan order with the same
   engine's exact float32 re-rank, so its answer is the approximate one
   (solo ``execute`` re-ranks). See :meth:`AsyncRetrievalServer._stream`.
 * **flat and pruned micro-batches** run through ``engine.execute`` on the
-  group; the flat route's top-k is ``torch.topk``, so ids may differ from
-  solo execution only where two distances tie exactly.
+  group, not through per-row stream slots; each row's answer is that of
+  solo execution, ties included (the flat route keeps ``lax.top_k``'s
+  lowest-row order).
 
 Backends other than ``QueryEngine`` (:class:`repro_torch.streaming.SegmentedIndex`,
 :class:`repro_torch.distributed.ShardedDeployment`) execute each round as a

@@ -214,3 +214,77 @@ def local_layer(seed: int = 4) -> dict:
     tree = init_tree(moe.moe_meta(cfg, torch.float32),
                      torch.Generator().manual_seed(seed), "cpu")
     return _numpy(_scaled(tree, "router", ROUTER_SCALE))
+
+
+# ---- sharded retrieval on a (data 4) mesh --------------------------------
+
+RET_SHAPE, RET_AXES = (4,), ("data",)
+RET_INDEX = dict(variants=("T", "Tp", "Tpp"), m=8, ef_con=40)
+RET_K, RET_EF, RET_FANOUT = 6, 48, 2
+RET_MERGES = ("all_gather", "tournament")
+RET_PER_SHARD_K = (0, 2)
+RET_MASKS = (15, 48)
+RET_ROUTES = ("graph", "pruned")
+NEVER_S = 1e9      # a heartbeat timeout no run reaches
+# the segmented index: five flushed segments (one or two a shard on four
+# shards), every 13th of the first 310 rows deleted, the rest in the delta
+RET_FLUSHES = ((0, 100), (100, 180), (180, 250), (250, 310), (310, 350))
+RET_ROUTE_CODES = ("lost", "error", "flat", "graph", "pruned", "segmented")
+# tie-laden (D, Q, w) shard lists for the merges alone, merged to RET_LIST_K
+RET_LIST_Q, RET_LIST_W, RET_LIST_K = 5, 3, 7
+RET_SERVE_ARGS = ["--shards", "2", "--n", "400", "--requests", "8",
+                  "--device", "cpu"]
+
+
+def retrieval_data():
+    """The corpus and queries of the retrieval cases (the port's
+    ``make_range_dataset``, as ``tests/test_torch_distributed.py``)."""
+    from repro_torch.data import make_range_dataset
+    return make_range_dataset(n=400, d=16, n_queries=8, quantize=32, seed=9)
+
+
+def retrieval_request(ds, mask: int, request_cls, route=None):
+    """A request of the retrieval cases in either package."""
+    from repro_torch.data import make_queries
+    qlo, qhi = make_queries(ds, mask, 0.2, seed=mask)
+    return request_cls(ds.queries, (qlo, qhi), mask, k=RET_K, ef=RET_EF,
+                       fanout=RET_FANOUT, route=route)
+
+
+def retrieval_segmented(index):
+    """``index`` (either package's SegmentedIndex) after the op sequence:
+    :data:`RET_FLUSHES`, the deletes, the delta."""
+    ds = retrieval_data()
+    v, lo, hi = ds.vectors, ds.lo, ds.hi
+    for a, b in RET_FLUSHES:
+        index.add(np.arange(a, b), v[a:b], lo[a:b], hi[a:b])
+        index.flush()
+    index.delete(np.arange(0, 310, 13))
+    index.add(np.arange(350, 400), v[350:400], lo[350:400], hi[350:400])
+    return index
+
+
+def report_rows(report) -> np.ndarray:
+    """A sharded report's rows as ints: (shard, n, route code, alive,
+    k_fetched, slot_count) a shard."""
+    return np.array([(r.shard, r.n, RET_ROUTE_CODES.index(r.route),
+                      int(r.alive), r.k_fetched, r.slot_count)
+                     for r in report.shards], np.int64)
+
+
+def retrieval_lists(seed: int):
+    """(D, Q, w) shard lists: integer distances (ties within and across
+    shards), sorted per row as a shard's top-k is, with NO_EDGE/inf tails
+    on some rows."""
+    D, Q, w = RET_SHAPE[0], RET_LIST_Q, RET_LIST_W
+    rng = np.random.default_rng(seed)
+    d = np.sort(rng.integers(0, 6, (D, Q, w)).astype(np.float32), axis=2)
+    ids = rng.integers(0, 1000, (D, Q, w)).astype(np.int32)
+    tail = rng.integers(0, w + 1, (D, Q))
+    empty = np.arange(w)[None, None, :] >= tail[:, :, None]
+    return (np.where(empty, -1, ids).astype(np.int32),
+            np.where(empty, np.inf, d).astype(np.float32))
+
+
+RET_LIST_ALIVE = {"all": None, "one_dead": np.array([True, False, True,
+                                                     True])}

@@ -496,4 +496,158 @@ def _group_train(mesh, out_dir: str) -> dict:
     return res
 
 
-GROUPS = {"moe": _group_moe, "serve": _group_serve, "train": _group_train}
+def _group_retrieval(mesh, out_dir: str) -> dict:
+    """``ShardedDeployment`` on a (data 4) mesh of the four ranks, one
+    shard a rank, the cases of ``_mesh_reference.retrieval``; the merges
+    alone on the same tie-laden lists; ``ppermute``; what each rank
+    stages; a rank whose search raises and one whose heartbeat is stale;
+    then ``launch.serve.main`` with ``--shards 2`` on two pairs of ranks,
+    each its own default group of two."""
+    import json
+    import time
+    import torch.distributed as dist
+    from repro_torch.core import IndexSpec, SearchRequest
+    from repro_torch.distributed import (DeploymentSpec, ShardedDeployment,
+                                         sharded_flat_topk,
+                                         sharded_topk_merge)
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch import make_rank_mesh
+    from repro_torch.launch import serve
+    from repro_torch.streaming import SegmentedIndex
+
+    mesh = make_rank_mesh(mc.RET_SHAPE, mc.RET_AXES, device="cpu")
+    D, r = mc.RET_SHAPE[0], mesh.coord["data"]
+    ds = mc.retrieval_data()
+    res = {}
+
+    def spec(merge, psk, **kw):
+        kw.setdefault("shard_timeout_s", mc.NEVER_S)
+        return DeploymentSpec(n_shards=D, merge=merge, per_shard_k=psk,
+                              index=IndexSpec(**mc.RET_INDEX), **kw)
+
+    def put(key, dep, request):
+        mesh.counts.clear()
+        out = dep.execute(request)
+        res[f"{key}/ids"] = out.ids
+        res[f"{key}/dists"] = out.dists
+        res[f"{key}/rows"] = mc.report_rows(out.report)
+        res[f"{key}/missing"] = np.asarray(out.report.missing_shards,
+                                           np.int64)
+        for c in ("all_gather", "ppermute"):
+            res[f"{key}/count/{c}"] = mesh.counts[c]
+
+    def ask(mask=15, route=None):
+        return mc.retrieval_request(ds, mask, SearchRequest, route)
+
+    seg = mc.retrieval_segmented(SegmentedIndex(IndexSpec(**mc.RET_INDEX),
+                                                device="cpu"))
+    for merge in mc.RET_MERGES:
+        for psk in mc.RET_PER_SHARD_K:
+            flat = ShardedDeployment.flat(ds.vectors, ds.lo, ds.hi,
+                                          spec=spec(merge, psk), mesh=mesh)
+            built = ShardedDeployment.build(ds.vectors, ds.lo, ds.hi,
+                                            spec=spec(merge, psk), mesh=mesh)
+            segd = ShardedDeployment.from_segmented(
+                seg, spec=spec(merge, psk), mesh=mesh)
+            for mask in mc.RET_MASKS[:None if psk == 0 else 1]:
+                put(f"flat/{merge}/{psk}/{mask}", flat, ask(mask))
+            for route in mc.RET_ROUTES[0 if psk == 0 else 1:]:
+                put(f"build/{merge}/{psk}/{route}", built, ask(route=route))
+                put(f"segmented/{merge}/{psk}/{route}", segd,
+                    ask(route=route))
+            if psk:
+                continue
+            for layout, d, route in (("flat", flat, None),
+                                     ("build", built, "pruned"),
+                                     ("segmented", segd, "pruned")):
+                d.fail(D - 1)
+                put(f"{layout}/{merge}/failed3", d, ask(route=route))
+                d.restore(D - 1)
+        # each rank holds its own shard's rows only
+        res["shape/flat"] = np.asarray(flat._flat[0].shape)
+        res["shape/flat_ranges"] = np.asarray([t.shape[0]
+                                               for t in flat._flat[1:]])
+        res["shape/build"] = np.asarray(
+            [-1 if s.engine is None else s.engine.index.vectors.shape[0]
+             for s in built.shards])
+        res["shape/segmented"] = np.asarray(
+            [-1 if s.engine is None else len(s.engine.segments)
+             for s in segd.shards])
+        res["shape/segmented_ids"] = np.asarray(
+            [seg.segments.index(x) for x in segd.shards[r].engine.segments])
+
+    # sharded_flat_topk on ranks: this rank's rows only, rebased and merged
+    nloc = ds.n // D
+    rows = slice(r * nloc, (r + 1) * nloc)
+    q = mc.retrieval_request(ds, 15, SearchRequest)
+    for merge in mc.RET_MERGES:
+        gi, gd = sharded_flat_topk(mesh, ds.vectors[rows], ds.lo[rows],
+                                   ds.hi[rows], q.vectors, q.qlo, q.qhi,
+                                   mask=15, k=mc.RET_K, merge=merge)
+        res[f"sharded_flat_topk/{merge}/ids"] = gi.numpy()
+        res[f"sharded_flat_topk/{merge}/dists"] = gd.numpy()
+
+    # a rank whose local search raises (rank 1), then one whose heartbeat
+    # is stale on its own clock (rank 2): every rank answers degraded
+    built = ShardedDeployment.build(ds.vectors, ds.lo, ds.hi,
+                                    spec=spec("all_gather", 0), mesh=mesh)
+
+    def boom(request):
+        raise RuntimeError("shard down mid-search")
+
+    if r == 1:
+        built.shards[1].engine.execute = boom
+    put("build/all_gather/raised1", built, ask(route="pruned"))
+    flat = ShardedDeployment.flat(
+        ds.vectors, ds.lo, ds.hi, mesh=mesh,
+        spec=spec("all_gather", 0, shard_timeout_s=60.0))
+    if r == 2:
+        flat.heartbeats.ping("shard-2", 0, now=time.time() - 3600.0)
+    put("flat/all_gather/stale2", flat, ask())
+    flat.restore(2)
+    res["flat/all_gather/restored_degraded"] = flat.execute(ask()).degraded
+
+    # the merges alone: this rank's list of the shared tie-laden ones
+    for seed in (0, 1):
+        ids, dists = mc.retrieval_lists(seed)
+        for name, alive in mc.RET_LIST_ALIVE.items():
+            for merge in mc.RET_MERGES:
+                gi, gd = sharded_topk_merge(mesh, ids[r], dists[r],
+                                            mc.RET_LIST_K, merge=merge,
+                                            alive=alive)
+                res[f"lists/{seed}/{name}/{merge}/ids"] = gi
+                res[f"lists/{seed}/{name}/{merge}/dists"] = gd
+
+    # ppermute: a ring, and a pair that leaves two ranks receiving nothing
+    mesh.counts.clear()
+    mesh.records.clear()
+    x = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * r
+    res["ppermute/ring"] = coll.ppermute(
+        x, mesh, "data", [(i, (i + 1) % D) for i in range(D)]).numpy()
+    res["ppermute/pair"] = coll.ppermute(x, mesh, "data",
+                                         [(0, 2), (2, 0)]).numpy()
+    res["ppermute/count"] = mesh.counts["ppermute"]
+    res["ppermute/records"] = np.asarray(
+        [[n, P, c] for (op, n, P), c in mesh.records.items()
+         if op == "collective-permute"])
+    res["ppermute/tuple_refused"] = _raises(
+        lambda: coll.ppermute(x, mesh, ("data",), [(0, 1)]), ValueError)
+    res["ppermute/twice_refused"] = _raises(
+        lambda: coll.ppermute(x, mesh, "data", [(0, 1), (0, 2)]),
+        ValueError)
+
+    # launch.serve on two pairs of ranks, each pair its own group of two
+    dist.barrier()
+    dist.destroy_process_group()
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(out_dir, f'pair{r // 2}')}",
+        rank=r % 2, world_size=2,
+        timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    res["serve/summary"] = json.dumps(serve.main(mc.RET_SERVE_ARGS))
+    res["serve/async_refused"] = _raises(
+        lambda: serve.main(mc.RET_SERVE_ARGS + ["--async"]), SystemExit)
+    return res
+
+
+GROUPS = {"moe": _group_moe, "serve": _group_serve, "train": _group_train,
+          "retrieval": _group_retrieval}

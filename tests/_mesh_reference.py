@@ -1,9 +1,10 @@
 """The reference's side of the mesh tests, run as its own process:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
-        python tests/_mesh_reference.py OUT.npz moe|serve|train
+        python tests/_mesh_reference.py OUT.npz moe|serve|train|retrieval
 
-on a (data 2, model 2) mesh of four forced host devices. ``moe``: the MoE
+on a (data 2, model 2) mesh of four forced host devices (``retrieval``:
+a (data 4) mesh). ``moe``: the MoE
 cases of ``_mesh_common.MOE_CASES`` through ``repro.models.moe.moe_apply``
 in the full-EP branch (``mode="decode"``, experts placed by
 ``SERVE_RULES``), the ``shard_map`` branch (``mode="train"``, placed by
@@ -20,7 +21,11 @@ the parameter, optimizer and batch shardings) from
 ``_mesh_common.train_opt_state``, the parameters placed by
 ``DEFAULT_RULES`` and the batch by ``batch_spec``; and
 ``compressed_grad_sync`` over ``data`` inside ``shard_map``, one
-gradient a data rank. The outputs go to ``OUT.npz``.
+gradient a data rank. ``retrieval``: the reference's
+``ShardedDeployment`` in its three layouts on the (data 4) mesh, under
+``all_gather`` and ``tournament`` with ``per_shard_k`` 0 and 2, with
+shards lost, and its merges on tie-laden lists (:func:`retrieval`). The
+outputs go to ``OUT.npz``.
 The flag must be set before jax is imported; jax's ``shard_map``
 deprecation warning is ignored in this process.
 """
@@ -105,6 +110,8 @@ def main(out: str, what: str) -> None:
             res[f"{arch}/logits"] = np.asarray(g.logits_last)
     elif what == "train":
         train(mesh, res)
+    elif what == "retrieval":
+        retrieval(res)
     else:
         raise SystemExit(f"unknown case group {what!r}")
     np.savez(out, **res)
@@ -167,6 +174,92 @@ def train(mesh, res: dict) -> None:
         out, r = f(g, r)
         res[f"compressed/mean/{i}"] = np.asarray(out)
         res[f"compressed/residual/{i}"] = np.asarray(r)
+
+
+def retrieval(res: dict) -> None:
+    """``ShardedDeployment`` (``flat``, ``build``, ``from_segmented``) on a
+    (data 4) mesh under each merge and fan-in width, with shards lost; the
+    merges alone on tie-laden lists, each vmapped lane and the mesh's."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core import IndexSpec, SearchRequest
+    from repro.distributed import deployment as dep
+    from repro.distributed import topk
+    from repro.launch.mesh import make_mesh
+    from repro.streaming import SegmentedIndex
+
+    mesh = make_mesh(mc.RET_SHAPE, mc.RET_AXES)
+    D = mc.RET_SHAPE[0]
+    ds = mc.retrieval_data()
+
+    def spec(merge, psk):
+        return dep.DeploymentSpec(
+            n_shards=D, merge=merge, per_shard_k=psk,
+            index=IndexSpec(**mc.RET_INDEX), shard_timeout_s=mc.NEVER_S)
+
+    def put(key, r):
+        res[f"{key}/ids"] = np.asarray(r.ids, np.int64)
+        res[f"{key}/dists"] = np.asarray(r.dists, np.float32)
+        res[f"{key}/rows"] = mc.report_rows(r.report)
+        res[f"{key}/missing"] = np.asarray(r.report.missing_shards, np.int64)
+
+    def ask(mask=15, route=None):
+        return mc.retrieval_request(ds, mask, SearchRequest, route)
+
+    seg = mc.retrieval_segmented(SegmentedIndex(IndexSpec(**mc.RET_INDEX)))
+    for merge in mc.RET_MERGES:
+        for psk in mc.RET_PER_SHARD_K:
+            flat = dep.ShardedDeployment.flat(
+                ds.vectors, ds.lo, ds.hi, spec=spec(merge, psk), mesh=mesh)
+            built = dep.ShardedDeployment.build(
+                ds.vectors, ds.lo, ds.hi, spec=spec(merge, psk), mesh=mesh)
+            segd = dep.ShardedDeployment.from_segmented(
+                seg, spec=spec(merge, psk), mesh=mesh)
+            for mask in mc.RET_MASKS[:None if psk == 0 else 1]:
+                put(f"flat/{merge}/{psk}/{mask}", flat.execute(ask(mask)))
+            for route in mc.RET_ROUTES[0 if psk == 0 else 1:]:
+                put(f"build/{merge}/{psk}/{route}",
+                    built.execute(ask(route=route)))
+                put(f"segmented/{merge}/{psk}/{route}",
+                    segd.execute(ask(route=route)))
+            if psk:
+                continue
+            for layout, d, route in (("flat", flat, None),
+                                     ("build", built, "pruned"),
+                                     ("segmented", segd, "pruned")):
+                d.fail(D - 1)
+                put(f"{layout}/{merge}/failed3", d.execute(ask(route=route)))
+                d.restore(D - 1)
+            if merge == "all_gather":
+                # what a rank whose search raises (shard 1) and one whose
+                # heartbeat is stale (shard 2) leave
+                built.fail(1)
+                put("build/all_gather/failed1",
+                    built.execute(ask(route="pruned")))
+                flat.fail(2)
+                put("flat/all_gather/failed2", flat.execute(ask()))
+
+    for seed in (0, 1):
+        ids, dists = mc.retrieval_lists(seed)
+        for name, alive in mc.RET_LIST_ALIVE.items():
+            live = np.ones(D, bool) if alive is None else alive
+            for merge in mc.RET_MERGES:
+                fn = topk.MERGE_SCHEDULES[merge]
+
+                def lane(i, d):
+                    ok = jnp.asarray(live)[jax.lax.axis_index("data")]
+                    return fn(jnp.where(ok, i, -1), jnp.where(ok, d, jnp.inf),
+                              mc.RET_LIST_K, "data")
+
+                gi, gd = jax.vmap(lane, axis_name="data")(ids, dists)
+                key = f"lists/{seed}/{name}/{merge}"
+                res[f"{key}/lanes/ids"] = np.asarray(gi, np.int64)
+                res[f"{key}/lanes/dists"] = np.asarray(gd, np.float32)
+                gi, gd = topk.sharded_topk_merge(
+                    mesh, ids, dists, mc.RET_LIST_K, merge=merge,
+                    alive=alive)
+                res[f"{key}/mesh/ids"] = gi
+                res[f"{key}/mesh/dists"] = gd
 
 
 if __name__ == "__main__":

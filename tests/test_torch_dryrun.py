@@ -93,9 +93,13 @@ def test_mstg_step_merges_and_counts_the_model_flops(ranks, merge):
                           [rec["q_loc"], 10]]
     assert rec["flops"] == rec["model"] == 2 * rec["q_loc"] * \
         rec["n_loc"] * 16
-    # one all_gather of ids and one of distances an axis merged over
-    axes = 3 if merge == "fullmesh_v2" else 2
-    assert rec["counts"]["all-gather"] == 2 * axes
+    # on the (2, 2, 2) mesh: one all_gather of ids and one of distances an
+    # axis merged by all_gather, and two ppermutes (ids, distances) a
+    # tournament round, one round an axis of 2, as the reference's HLO
+    gathered = {"all_gather": 2, "tournament": 1, "fullmesh_v2": 0}[merge]
+    permuted = {"all_gather": 0, "tournament": 1, "fullmesh_v2": 3}[merge]
+    assert rec["counts"]["all-gather"] == 2 * gathered
+    assert rec["counts"]["collective-permute"] == 2 * permuted
 
 
 def test_fake_group_refuses_a_second_group(ranks):
