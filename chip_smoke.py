@@ -260,11 +260,24 @@ Phases, each printing one JSON object per line:
    scale of rank 0's mesh-less run on the gathered float32 weights, and
    those gathered weights (all but the experts) equal to the mesh-less
    model's layer 0 by order-free fingerprints taken before it was freed;
+   a float32 decode step of layer 0 at position 128 over (8, 256) caches
+   whose sequence is split over model (each rank its 128 positions, the
+   softmax reduced across the ranks) within 1e-3 of the scale of rank 0's
+   mesh-less step over the whole caches; each rank's resident decode
+   cache bytes equal to the ``cache_specs`` reckoning, 50,331,648;
    ``generate`` of the first 8 new tokens (each decode step gathers every
    layer's attention leaves through the host) equal on both ranks.
    Reported: the share of those tokens equal to the mesh-less bfloat16
    run's, each rank's peak bytes, prefill and decode ms, the
    collectives' calls and staged bytes, and the world-2 run's wall time.
+   (c) olmo-1b at full width in bfloat16 on two gloo ranks of the card, a
+   (data 2, model 1) mesh, B = 8 prompts of 128 tokens and 32 new, each
+   rank serving its 4 rows over its rows' caches. Held: each rank's rows
+   of the gathered tokens bit-equal to a mesh-less ``generate`` of the
+   same 4 rows; the gathered tokens equal on both ranks; each rank's
+   resident cache bytes 134,217,728, the ``cache_specs`` reckoning.
+   Reported: the share of tokens equal to the 8-row mesh-less run, peak
+   bytes a rank, prefill and decode ms, wall time.
 18. ``train_mesh``: olmo-1b at full width in bfloat16 (remat, 2 x 4,096
    tokens a step, ``train_full``'s seed, batch and optimizer) trained on
    two gloo ranks of the one card, a (data 2, model 1) mesh: FSDP over
@@ -3461,6 +3474,40 @@ def lm_phase(dev, seed: int, with_mesh: bool = False,
 
 # ---- the LM on a mesh of ranks -----------------------------------------------
 
+
+def spawn_ranks(target, world: int, extra: tuple, rank0_limit_s: float,
+                grace_s: float, what: str):
+    """Run ``target(rank, world, store, out_dir, *extra)`` on ``world``
+    processes started with the ``spawn`` method (CUDA is initialised
+    here), each writing ``rank<r>.json`` or ``rank<r>.err``: rank 0 is
+    joined for ``rank0_limit_s``, each other rank ``grace_s`` more, and
+    what is still alive is killed. A rank past its limit or one that
+    raised fails the check ``what``. Returns (each rank's JSON, wall s)."""
+    import tempfile
+    from torch import multiprocessing as tmp
+    out_dir = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    ctx = tmp.start_processes(
+        target, args=(world, os.path.join(out_dir, "store"), out_dir)
+        + tuple(extra), nprocs=world, join=False, start_method="spawn")
+    ctx.processes[0].join(rank0_limit_s)
+    for p in ctx.processes[1:]:
+        p.join(grace_s)
+    hung = [r for r, p in enumerate(ctx.processes) if p.is_alive()]
+    for p in ctx.processes:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    wall_s = time.perf_counter() - t0
+    errs = [open(os.path.join(out_dir, f"rank{r}.err")).read()
+            for r in range(world)
+            if os.path.exists(os.path.join(out_dir, f"rank{r}.err"))]
+    check(not hung and not errs,
+          f"{what}: ranks {hung} passed their time limit; {errs}")
+    return ([json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+             for r in range(world)], wall_s)
+
+
 # the served model split over ranks, and its mesh-less run's shape
 MESH_ARCH = "qwen3-moe-30b-a3b"
 # MESH_ARCH runs at its published widths on its first MOE_FULL_LAYERS of
@@ -3487,6 +3534,10 @@ MESH2_NEW = 8
 MESH2_RANK0_LIMIT_S, MESH2_GRACE_S = 600, 60
 # each rank's parameters: at most this share of the whole model's bytes
 MESH2_MAX_PARAM_SHARE = 0.55
+# each rank's decode caches in the reference's layout: MESH_B rows and
+# half of MESH_MAX_LEN positions of the 24 layers' bfloat16 k and v (4 kv
+# heads of 128)
+MESH2_CACHE_BYTES = 50_331_648
 
 
 def layer0_fingerprints(layer0, metas0) -> list:
@@ -3584,8 +3635,10 @@ def _mesh_rank(rank: int, world: int, store: str, out_dir: str, seed: int,
                                                leaves, map_tree,
                                                shard_metas, spec_for,
                                                tree_bytes)
-        from repro_torch.models.transformer import Segment, segment_apply
-        from repro_torch.serving import ServeEngine, seed_caches
+        from repro_torch.distributed.sharding import batch_split, rank_box
+        from repro_torch.models.transformer import (Segment, cache_unit_specs,
+                                                    segment_apply)
+        from repro_torch.serving import ServeEngine
         dev = torch.device(device)
         if dev.type == "cuda":
             dev = torch.device("cuda", dev.index or 0)
@@ -3649,7 +3702,30 @@ def _mesh_rank(rank: int, world: int, store: str, out_dir: str, seed: int,
                     "attn+moe": float((l_mesh - l_one).abs().max()
                                       / l_one.abs().max()),
                     "moe_aux": float(abs(aux_mesh - aux_one))}
-        del unit, whole, moe_p, x
+            # (iii) a decode step of the layer at position P over (B,
+            # MESH_MAX_LEN) caches whose sequence is split over model:
+            # the rank holds its block of the same seeded caches
+            ba = batch_split(mesh, B, ("data",))
+            cspec = cache_unit_specs(cfg32, seg, mesh, ba, B, MESH_MAX_LEN)
+            shape = (B, MESH_MAX_LEN, cfg.n_kv_heads, cfg.head_dim)
+            kv = [torch.randn(shape, generator=g, device=dev)
+                  for _ in range(2)]
+            box = rank_box(mesh, cspec["L0"][0], shape)
+            x1 = torch.randn((B, 1, cfg.d_model), generator=g, device=dev)
+            step = dict(positions=torch.tensor([P], device=dev), cur_pos=P,
+                        mode="decode", cfg=cfg32)
+            d_mesh, _, _ = segment_apply(
+                unit, x1, seg, mesh=mesh, batch_axes=ba,
+                caches={"L0": tuple(t[box].clone() for t in kv)},
+                cache_spec=cspec,
+                unshard=lm._unit_unshard(seg, mesh, cfg32, "decode"), **step)
+            res["decode_block_positions"] = box[1].stop - box[1].start
+            if rank == 0:
+                d_one, _, _ = segment_apply(
+                    whole, x1, seg, caches={"L0": tuple(kv)}, **step)
+                res["f32_layer_rel_err"]["decode_attn+moe"] = float(
+                    (d_mesh - d_one).abs().max() / d_one.abs().max())
+        del unit, whole, moe_p, x, kv, x1
         mesh.counts.clear()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3666,20 +3742,7 @@ def _mesh_rank(rank: int, world: int, store: str, out_dir: str, seed: int,
         res["counts"] = dict(mesh.counts)
         res["tokens"] = gen.tokens.tolist()
         res["logits_finite"] = bool(np.isfinite(gen.logits_last).all())
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        with torch.inference_mode():
-            ev[0].record()
-            logits, pc = lm.prefill(shard, batch, mesh=mesh)
-            ev[1].record()
-            caches = seed_caches(lm, pc, B, MESH_MAX_LEN, P)
-            cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
-            ev[2].record()
-            lm.decode_step(shard, caches, cur, P, mesh=mesh)
-            ev[3].record()
-        torch.cuda.synchronize()
-        res.update({"prefill_ms": ev[0].elapsed_time(ev[1]),
-                    "decode_ms": ev[2].elapsed_time(ev[3]),
-                    "peak_allocated": torch.cuda.max_memory_allocated()})
+        res.update(timed_mesh_step(lm, shard, batch, mesh, MESH_MAX_LEN))
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
         dist.destroy_process_group()
@@ -3687,6 +3750,38 @@ def _mesh_rank(rank: int, world: int, store: str, out_dir: str, seed: int,
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
         raise
+
+
+def timed_mesh_step(lm, shard, batch, mesh, max_len: int) -> dict:
+    """One timed prefill of ``batch`` and one decode step on ``mesh``
+    (CUDA events), the seeded caches between: this rank's resident cache
+    bytes beside the ``cache_specs`` reckoning, and its peak bytes since
+    the caller's reset."""
+    import torch
+    from repro_torch.launch.dryrun import laid_out_bytes
+    from repro_torch.models.params import leaves
+    from repro_torch.serving import seed_caches
+    B, P = batch["tokens"].shape
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with torch.inference_mode():
+        ev[0].record()
+        logits, pc = lm.prefill(shard, batch, mesh=mesh)
+        ev[1].record()
+        caches = seed_caches(lm, pc, B, max_len, P, mesh=mesh)
+        cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        ev[2].record()
+        lm.decode_step(shard, caches, cur, P, mesh=mesh, batch=B,
+                       max_len=max_len)
+        ev[3].record()
+    torch.cuda.synchronize()
+    return {"prefill_ms": ev[0].elapsed_time(ev[1]),
+            "decode_ms": ev[2].elapsed_time(ev[3]),
+            "resident_cache_bytes": sum(t.numel() * t.element_size()
+                                        for t in leaves(caches)),
+            "reckoned_cache_bytes": laid_out_bytes(
+                lm.decode_cache_meta(B, max_len),
+                lm.decode_cache_specs(mesh, B, max_len), mesh),
+            "peak_allocated": torch.cuda.max_memory_allocated()}
 
 
 def mesh_world2(dev, seed: int, toks, want_tokens, fingerprints) -> dict:
@@ -3703,32 +3798,11 @@ def mesh_world2(dev, seed: int, toks, want_tokens, fingerprints) -> dict:
     (:func:`layer0_fingerprints`), so a gather in the wrong rank order,
     which the float32 layer checks share with their mesh-less side, fails.
     Reported: the share of tokens equal to the mesh-less bfloat16 run's."""
-    import tempfile
     import numpy as np
-    from torch import multiprocessing as tmp
-    out_dir = tempfile.mkdtemp()
     world = MESH2_SHAPE[0] * MESH2_SHAPE[1]
-    t0 = time.perf_counter()
-    ctx = tmp.start_processes(
-        _mesh_rank, args=(world, os.path.join(out_dir, "store"), out_dir,
-                          seed, np.asarray(toks), str(dev)),
-        nprocs=world, join=False, start_method="spawn")
-    ctx.processes[0].join(MESH2_RANK0_LIMIT_S)
-    for p in ctx.processes[1:]:
-        p.join(MESH2_GRACE_S)
-    hung = [r for r, p in enumerate(ctx.processes) if p.is_alive()]
-    for p in ctx.processes:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    wall_s = time.perf_counter() - t0
-    errs = [open(os.path.join(out_dir, f"rank{r}.err")).read()
-            for r in range(world)
-            if os.path.exists(os.path.join(out_dir, f"rank{r}.err"))]
-    check(not hung and not errs,
-          f"world 2: ranks {hung} passed their time limit; {errs}")
-    ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
-             for r in range(world)]
+    ranks, wall_s = spawn_ranks(_mesh_rank, world, (seed, np.asarray(toks),
+                                                    str(dev)),
+                                MESH2_RANK0_LIMIT_S, MESH2_GRACE_S, "world 2")
     toks0 = np.asarray(ranks[0]["tokens"])
     out = {"backend": "gloo", "mesh": dict(zip(("data", "model"),
                                                MESH2_SHAPE)),
@@ -3761,16 +3835,143 @@ def mesh_world2(dev, seed: int, toks, want_tokens, fingerprints) -> dict:
           f"model's: {ranks[0]['layer0_fingerprints']} against "
           f"{list(fingerprints)}")
     errs32 = ranks[0]["f32_layer_rel_err"]
-    check(errs32["attn+moe"] <= 1e-3 and errs32["moe"] <= 1e-3,
+    check(max(errs32["attn+moe"], errs32["moe"],
+              errs32["decode_attn+moe"]) <= 1e-3,
           f"world 2: float32 layers off the mesh-less run: {errs32}")
+    for r in ranks:
+        check(r["resident_cache_bytes"] == r["reckoned_cache_bytes"]
+              == MESH2_CACHE_BYTES and r["decode_block_positions"]
+              == MESH_MAX_LEN // MESH2_SHAPE[1],
+              f"world 2 rank {r['rank']}: {r['resident_cache_bytes']} "
+              f"cache bytes ({r['decode_block_positions']} positions), "
+              f"the cache_specs layout reckons "
+              f"{r['reckoned_cache_bytes']}, expected {MESH2_CACHE_BYTES}")
     check(out["tokens_equal_across_ranks"], "world 2: ranks' tokens differ")
+    return out
+
+
+# (c): olmo-1b's batch split over data, two gloo ranks of the one card, a
+# (data 2, model 1) mesh; MESH_B prompts of MESH_P tokens, MESH_NEW new
+DATA2_ARCH, DATA2_SHAPE = "olmo-1b", (2, 1)
+DATA2_RANK0_LIMIT_S, DATA2_GRACE_S = 300, 60
+# each rank's decode caches: 4 of the 8 rows, every one of the 256
+# positions of the 16 layers' bfloat16 k and v (16 kv heads of 128)
+DATA2_CACHE_BYTES = 134_217_728
+
+
+def _data2_rank(rank: int, world: int, store: str, out_dir: str, seed: int,
+                toks, device: str) -> None:
+    """(c), one rank: olmo-1b drawn by ``init_tree(..., mesh=)`` under
+    SERVE_RULES (whole on a model axis of one), ``ServeEngine(mesh=)`` on
+    the whole batch, the same engine without a mesh on this rank's rows
+    (and, on rank 0, on the whole batch), then a timed prefill and decode
+    step on the mesh with the resident cache bytes. Writes
+    ``rank<r>.json``, or ``rank<r>.err`` with the traceback."""
+    import datetime
+    import traceback
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    try:
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")   # one host
+        from repro_torch import configs
+        from repro_torch.launch import make_rank_mesh
+        from repro_torch.models import LM
+        from repro_torch.models.params import SERVE_RULES, init_tree
+        from repro_torch.serving import ServeEngine
+        dev = torch.device("cuda", torch.device(device).index or 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=300))
+        mesh = make_rank_mesh(DATA2_SHAPE, ("data", "model"), device=dev)
+        lm = LM(configs.get_config(DATA2_ARCH))
+        shard = init_tree(lm.abstract_params(),
+                          torch.Generator(device=dev).manual_seed(seed), dev,
+                          mesh=mesh, rules=SERVE_RULES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        batch = {"tokens": torch.as_tensor(toks, device=dev)}
+        t0 = time.perf_counter()
+        gen = ServeEngine(lm, shard, mesh=mesh).generate(
+            batch, n_new=MESH_NEW, max_len=MESH_MAX_LEN)
+        torch.cuda.synchronize()
+        res = {"rank": rank, "coord": mesh.coord,
+               "generate_s": time.perf_counter() - t0,
+               "counts": dict(mesh.counts), "tokens": gen.tokens.tolist(),
+               "logits_finite": bool(np.isfinite(gen.logits_last).all())}
+        n = len(toks) // DATA2_SHAPE[0]
+        rows = slice(rank * n, (rank + 1) * n)
+        solo = ServeEngine(lm, shard, device=dev).generate(
+            {"tokens": batch["tokens"][rows]}, n_new=MESH_NEW,
+            max_len=MESH_MAX_LEN)
+        res["rows_bit_equal_meshless"] = bool(np.array_equal(
+            gen.tokens[rows], solo.tokens))
+        if rank == 0:
+            whole = ServeEngine(lm, shard, device=dev).generate(
+                batch, n_new=MESH_NEW, max_len=MESH_MAX_LEN)
+            res["tokens_agree_with_meshless_share"] = float(
+                (gen.tokens == whole.tokens).mean())
+        res.update(timed_mesh_step(lm, shard, batch, mesh, MESH_MAX_LEN))
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def mesh_data2(dev, seed: int) -> dict:
+    """(c): olmo-1b at full width in bfloat16 on two gloo ranks of the one
+    card, a (data 2, model 1) mesh: each rank serves 4 of the 8 prompts
+    over its rows' caches. Held: each rank's rows of the gathered tokens
+    bit-equal to a mesh-less ``generate`` of the same 4 rows; the gathered
+    tokens equal on both ranks; each rank's resident cache bytes
+    DATA2_CACHE_BYTES, the ``cache_specs`` reckoning; finite logits.
+    Reported: the share of tokens equal to the 8-row mesh-less run, peak
+    bytes a rank, prefill and decode ms, wall time."""
+    import numpy as np
+    from repro_torch import configs
+    free_device()
+    toks = np.random.default_rng(seed + 43).integers(
+        0, configs.get_config(DATA2_ARCH).vocab, (MESH_B, MESH_P))
+    world = DATA2_SHAPE[0] * DATA2_SHAPE[1]
+    ranks, wall_s = spawn_ranks(_data2_rank, world, (seed, toks, str(dev)),
+                                DATA2_RANK0_LIMIT_S, DATA2_GRACE_S,
+                                "lm_mesh (c)")
+    toks0 = ranks[0]["tokens"]
+    out = {"arch": DATA2_ARCH, "backend": "gloo",
+           "mesh": dict(zip(("data", "model"), DATA2_SHAPE)),
+           "batch": MESH_B, "prompt": MESH_P, "new_tokens": MESH_NEW,
+           "wall_s": wall_s,
+           "tokens_equal_across_ranks": all(r["tokens"] == toks0
+                                            for r in ranks),
+           "tokens_agree_with_meshless_share":
+               ranks[0]["tokens_agree_with_meshless_share"],
+           "ranks": [{k: v for k, v in r.items() if k != "tokens"}
+                     for r in ranks]}
+    for r in ranks:
+        check(r["rows_bit_equal_meshless"],
+              f"lm_mesh (c) rank {r['rank']}: its rows' tokens differ from "
+              f"a mesh-less generate of the same rows")
+        check(r["resident_cache_bytes"] == r["reckoned_cache_bytes"]
+              == DATA2_CACHE_BYTES,
+              f"lm_mesh (c) rank {r['rank']}: {r['resident_cache_bytes']} "
+              f"cache bytes, the cache_specs layout reckons "
+              f"{r['reckoned_cache_bytes']}, expected {DATA2_CACHE_BYTES}")
+        check(r["logits_finite"], f"lm_mesh (c) rank {r['rank']}: "
+                                  f"non-finite logits")
+    check(out["tokens_equal_across_ranks"],
+          "lm_mesh (c): the ranks' gathered tokens differ")
     return out
 
 
 def lm_mesh_phase(dev, seed: int, world1=None, toks=None,
                   want_tokens=None) -> None:
     """The ``lm_mesh`` line: (a) :func:`mesh_world1` and (b)
-    :func:`mesh_world2` on MESH_ARCH at full width. Inside the ``lm``
+    :func:`mesh_world2` on MESH_ARCH at full width, then (c)
+    :func:`mesh_data2` on olmo-1b. Inside the ``lm``
     phase, (a) ran in ``lm_moe_full`` on its model (``world1``, ``toks``,
     ``want_tokens``); alone, this makes the model from the same seed,
     generates mesh-less, runs (a) and frees the model first."""
@@ -3793,10 +3994,11 @@ def lm_mesh_phase(dev, seed: int, world1=None, toks=None,
     fingerprints = world1.pop("layer0_fingerprints")
     free_device()
     world2 = mesh_world2(dev, seed, toks, want_tokens, fingerprints)
+    data2 = mesh_data2(dev, seed)
     emit({"phase": "lm_mesh", "arch": MESH_ARCH, "reduced": MOE_REDUCED,
           "batch": int(np.shape(toks)[0]), "prompt": int(np.shape(toks)[1]),
           "new_tokens": int(np.shape(want_tokens)[1]), "world1": world1,
-          "world2": world2})
+          "world2": world2, "data2": data2})
 
 
 # ---- training ----------------------------------------------------------------
@@ -4671,9 +4873,7 @@ def train_mesh_phase(dev, seed: int) -> None:
     finite losses. Reported: step ms (CUDA events, each timed step after
     the first), the collectives' calls and staged bytes a step, each
     rank's peak bytes and the world-2 wall time."""
-    import tempfile
     import torch
-    from torch import multiprocessing as tmp
     from repro_torch import configs
     from repro_torch.data import TokenLoader
     from repro_torch.models import LM
@@ -4694,29 +4894,10 @@ def train_mesh_phase(dev, seed: int) -> None:
     del lm, params, batch, m
     free_device()
 
-    out_dir = tempfile.mkdtemp()
     world = TRAIN_MESH_SHAPE[0] * TRAIN_MESH_SHAPE[1]
-    t0 = time.perf_counter()
-    ctx = tmp.start_processes(
-        _train_mesh_rank, args=(world, os.path.join(out_dir, "store"),
-                                out_dir, seed, str(dev)),
-        nprocs=world, join=False, start_method="spawn")
-    ctx.processes[0].join(TRAIN_MESH_RANK0_LIMIT_S)
-    for p in ctx.processes[1:]:
-        p.join(TRAIN_MESH_GRACE_S)
-    hung = [r for r, p in enumerate(ctx.processes) if p.is_alive()]
-    for p in ctx.processes:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    wall_s = time.perf_counter() - t0
-    errs = [open(os.path.join(out_dir, f"rank{r}.err")).read()
-            for r in range(world)
-            if os.path.exists(os.path.join(out_dir, f"rank{r}.err"))]
-    check(not hung and not errs,
-          f"train_mesh: ranks {hung} passed their time limit; {errs}")
-    ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
-             for r in range(world)]
+    ranks, wall_s = spawn_ranks(_train_mesh_rank, world, (seed, str(dev)),
+                                TRAIN_MESH_RANK0_LIMIT_S, TRAIN_MESH_GRACE_S,
+                                "train_mesh")
     first = ranks[0]["first"]
     rel = {k: abs(first[k] - one[k]) / abs(one[k])
            for k in ("loss", "grad_norm")}

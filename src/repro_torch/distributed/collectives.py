@@ -1,7 +1,8 @@
 """The reference's named-axis collectives over a mesh of ranks
 (:func:`repro_torch.launch.mesh.make_rank_mesh`): ``lax.psum``,
-``lax.pmean``, ``lax.all_gather(..., tiled=True)``, ``lax.psum_scatter``
-and ``lax.axis_index``, each over one axis or a tuple of axes;
+``lax.pmean``, ``lax.pmax``, ``lax.all_gather(..., tiled=True)``,
+``lax.psum_scatter`` and ``lax.axis_index``, each over one axis or a tuple
+of axes;
 ``lax.ppermute`` over one axis; :func:`unshard`, a whole leaf from this
 rank's shard of it; and :func:`pvary`, the identity whose gradient is
 summed.
@@ -10,11 +11,11 @@ A tuple of axes is one axis of their product with the last axis varying
 fastest, as in an entry of a ``PartitionSpec``. A collective runs over the
 axes one after another, each on ``DeviceMesh.get_group(axis)``, whose group
 ranks follow the coordinate on that axis. Each call adds one to
-``mesh.counts[name]`` (``psum``, ``all_gather``, ``psum_scatter``,
-``ppermute``), and each axis it runs over adds one to
+``mesh.counts[name]`` (``psum``, ``pmax``, ``all_gather``,
+``psum_scatter``, ``ppermute``), and each axis it runs over adds one to
 ``mesh.records[(op, result bytes, group size)]``, op the collective that
 axis ran (``all-gather``, ``collective-permute``, or ``all-reduce`` for
-``psum`` and ``psum_scatter``), named as in XLA's HLO.
+``psum``, ``pmax`` and ``psum_scatter``), named as in XLA's HLO.
 
 Transport (:meth:`repro_torch.launch.mesh.Mesh.transport`): NCCL with CUDA
 tensors and gloo with CPU tensors run on the tensor's own device. Gloo with
@@ -38,7 +39,9 @@ same global loss, so the backward of each collective is:
 * :func:`pvary`: a replicated input that feeds a partial result later
   summed over ``axes`` (the MoE's tokens and router ahead of the experts'
   ``psum`` over ``model``) gets its cotangent summed over ``axes``;
-* :func:`psum_scatter`: the :func:`all_gather` of the cotangent.
+* :func:`psum_scatter`: the :func:`all_gather` of the cotangent;
+* :func:`pmax` has none: serving alone takes it (under
+  ``inference_mode``), and a backward through it raises.
 
 These are the transposes ``shard_map`` gives the reference with
 ``check_rep=False``. A leaf that no collective gathers and that is
@@ -100,10 +103,11 @@ def _run(mesh, name: str, x: torch.Tensor, fn, axes) -> torch.Tensor:
     return out.to(x.device)
 
 
-def _all_reduce(t, mesh, axes):
-    """``t`` summed in place over each of ``axes``, one after another."""
+def _all_reduce(t, mesh, axes, op=dist.ReduceOp.SUM):
+    """``t`` reduced by ``op`` in place over each of ``axes``, one after
+    another."""
     for a in _axes(axes):
-        dist.all_reduce(t, group=mesh.device_mesh.get_group(a))
+        dist.all_reduce(t, op=op, group=mesh.device_mesh.get_group(a))
         mesh.records["all-reduce", _nbytes(t), mesh.shape[a]] += 1
     return t
 
@@ -111,6 +115,11 @@ def _all_reduce(t, mesh, axes):
 def _psum(x, mesh, axes):
     return _run(mesh, "psum", x,
                 lambda t: _all_reduce(t.clone(), mesh, axes), axes)
+
+
+def _pmax(x, mesh, axes):
+    return _run(mesh, "pmax", x, lambda t: _all_reduce(
+        t.clone(), mesh, axes, dist.ReduceOp.MAX), axes)
 
 
 def _all_gather(x, mesh, axes, dim):
@@ -157,10 +166,18 @@ def _psum_scatter(x, mesh, axes, dim):
     return _run(mesh, "psum_scatter", x, run, axes)
 
 
+def block_slice(n: int, mesh, axes: Axes) -> slice:
+    """This rank's block of ``n`` entries split over ``axes`` (all of
+    them over no axes)."""
+    w = n // axis_size(mesh, axes)
+    i = axis_index(mesh, axes)
+    return slice(i * w, (i + 1) * w)
+
+
 def _block(x, mesh, axes, dim):
     """This rank's block of ``x`` along ``dim`` split over ``axes``."""
-    n = x.shape[dim] // axis_size(mesh, axes)
-    return x.narrow(dim, axis_index(mesh, axes) * n, n)
+    b = block_slice(x.shape[dim], mesh, axes)
+    return x.narrow(dim, b.start, b.stop - b.start)
 
 
 def _gather_grad(g, mesh, axes, dim, batch_axes):
@@ -192,6 +209,17 @@ class _PSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class _PMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _pmax(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError("pmax has no backward: it serves the decode "
+                           "step's softmax, which runs under inference_mode")
 
 
 class _PVary(torch.autograd.Function):
@@ -238,6 +266,16 @@ def psum(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
 def pmean(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     """:func:`psum` over the number of ranks of ``axes`` (``lax.pmean``)."""
     return psum(x, mesh, axes) / axis_size(mesh, axes)
+
+
+def pmax(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the ranks of ``axes``
+    (``lax.pmax``), the same on every one of them. Forward only: it serves
+    the decode step's softmax under ``inference_mode``, and a backward
+    through it raises ``RuntimeError``."""
+    if not _axes(axes):
+        return x
+    return _PMax.apply(x, mesh, axes)
 
 
 def pvary(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:

@@ -48,6 +48,17 @@ def batch_spec(mesh, batch: int, axes=("pod", "data")) -> Spec:
     return (present[0] if len(present) == 1 else present,)
 
 
+def batch_split(mesh, batch: int, axes=("data",)) -> Tuple[str, ...]:
+    """The axes a serving batch of ``batch`` rows is split over: the
+    present ``axes`` that divide it, the leading ones dropped until they do
+    (:func:`batch_spec`), as a tuple, less the axes of one rank (a split
+    over one rank is no split); () where the batch is replicated."""
+    entry = batch_spec(mesh, batch, axes)[0]
+    entry = () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+    return tuple(a for a in entry if mesh.shape[a] > 1)
+
+
 def spec_axes(spec) -> Tuple[str, ...]:
     """The mesh axes that ``spec`` shards a leaf over, sorted."""
     return tuple(sorted({a for e in spec if e is not None
@@ -99,6 +110,15 @@ class NamedSharding:
             i = axis_index(self.mesh, self._entry(d))
             out.append(slice(i * n, (i + 1) * n))
         return tuple(out)
+
+
+def rank_box(mesh, spec, shape: Sequence[int], whole=()) -> Tuple[slice, ...]:
+    """This rank's box of a leaf of ``shape`` laid out by ``spec``
+    (:meth:`NamedSharding.index`), a slice a dim, with the dims in
+    ``whole`` taken whole: a cache leaf that holds this rank's rows
+    already keeps its batch dim."""
+    box = NamedSharding(mesh, tuple(spec)).index(shape)
+    return tuple(slice(None) if d in whole else b for d, b in enumerate(box))
 
 
 def replicated(mesh) -> NamedSharding:

@@ -16,7 +16,9 @@ compiled program. Here nothing is compiled and no card is needed:
   ``kernels.ops`` takes its plain versions, so no kernel is handed a fake
   pointer) and the step run once;
 * ``memory``: ``argument_bytes`` exactly, from the shard metas, the batch
-  and the caches; ``temp_bytes`` and ``output_bytes`` from
+  (a serving step's rows of it) and a decode step's blocks of the caches
+  (the reference's ``cache_specs`` layout, whose bytes a decode record
+  also keeps as ``cache_bytes_reference_layout``); ``temp_bytes`` and ``output_bytes`` from
   :class:`Account`, a dispatch mode that tracks the storages the step
   makes (the peak of their live bytes, less the outputs';
   ``alias_bytes``: outputs that are arguments updated in place);
@@ -268,17 +270,16 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, artifact_dir: str,
             c = roofline_chunk(shape.seq_len)
             cfg = dataclasses.replace(cfg, q_chunk=c, kv_chunk=c)
             rec.update(q_chunk=c, kv_chunk=c)
-        bundle = ArchRunner(cfg, mesh).bundle_for(shape)
+        runner = ArchRunner(cfg, mesh)
+        bundle = runner.bundle_for(shape)
         arg_bytes = {str(i): 0 if isinstance(a, int) else pr.tree_bytes(a)
                      for i, a in enumerate(bundle.args)}
         counted = count_step(bundle.fn, bundle.args)
         devices = mesh.size
         colls, cwire, ccounts = collective_bytes(mesh.records, devices)
         if shape.kind == "decode":
-            # the port's caches are whole on every rank; the reference
-            # splits them by cache_specs
             rec["cache_bytes_reference_layout"] = laid_out_bytes(
-                bundle.args[1], bundle.in_specs[1], mesh)
+                *runner.decode_cache_layout(shape), mesh)
         rec.update(
             status="ok", step=bundle.name, devices=devices,
             mesh_shape=dict(mesh.shape), run_s=round(time.time() - t0, 2),

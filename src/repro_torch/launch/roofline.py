@@ -102,7 +102,7 @@ def analytic_memory_bytes(cfg, lm: LM, shape, mesh_shape) -> float:
 
 def _cache_bytes(lm: LM, shape, devices: int) -> float:
     """The decode caches' bytes over ``devices`` (the reference's layout
-    splits them; the port holds them whole on every rank)."""
+    splits them, and so does the port's serving on a mesh)."""
     n_front = (lm.cfg.n_frontend_tokens
                if lm.cfg.frontend == "vision_stub" else 0)
     enc_len = shape.seq_len if lm.cfg.n_enc_layers else 0

@@ -7,8 +7,10 @@ The port of the reference's ``repro.launch.steps``. Where the reference
 holds ``jax.ShapeDtypeStruct`` trees of global arrays and
 ``NamedSharding``s for ``jax.jit(...).lower``, a bundle here holds
 :class:`repro_torch.models.transformer.ShapeDtype` trees of what one rank
-is handed (its parameter shards, ``params.shard_metas``; the batch and
-the caches whole, as the port runs them, ROADMAP §3 (an)) and spec tuples
+is handed (its parameter shards, ``params.shard_metas``; in serving its
+rows of the batch and its blocks of the caches under :func:`cache_specs`,
+the reference's layout; in training the whole batch, of which the step
+scores its rows) and spec tuples
 (:mod:`repro_torch.distributed.sharding`) for the reference's layout of
 each argument. Nothing is allocated: :func:`materialize` makes tensors of
 a shape tree (fake ones under ``FakeTensorMode``). ``[audio]`` / ``[vlm]``
@@ -25,8 +27,8 @@ import torch
 
 from ..configs import ModelConfig, ShapeConfig
 from ..models import params as pr
-from ..models.transformer import (LM, Segment, ShapeDtype,
-                                  cache_meta_for_desc)
+from ..models.transformer import LM, Segment, ShapeDtype, cache_specs
+from ..distributed.sharding import NamedSharding
 from ..training import AdamWConfig, make_train_step
 
 
@@ -54,53 +56,14 @@ def _entry(axes) -> Any:
     return axes[0] if len(axes) == 1 else axes
 
 
-def _seq_axis(mesh, M: int) -> Optional[str]:
-    return "model" if ("model" in mesh.shape
-                       and _divides(M, mesh.shape["model"])) else None
-
-
-def cache_specs(lm: LM, mesh, batch_axes, batch: int, max_len: int,
-                enc_len: int = 0) -> Any:
-    """The reference's layout of the decode caches, a spec tree shaped as
-    ``lm.decode_cache_meta``: the batch over (pod, data), a cache's
-    sequence axis over ``model`` (distributed-LSE decode), recurrent
-    state heads / channels over ``model``; a stacked segment's leaves get
-    a leading ``None`` for the stack. The port holds its caches whole on
-    every rank (ROADMAP §3 (an)); these specs say how the reference splits
-    them."""
-    B_axes = _entry(batch_axes)
-
-    def leaf_spec(sds):
-        shp = sds.shape
-        if len(shp) == 4:       # (B, M, Hkv, Dh) kv / (B, H, Dk, Dv) rwkv state
-            return (B_axes, _seq_axis(mesh, shp[1]), None, None)
-        if len(shp) == 3:       # (B, M, r) latent / (B, ck-1, W) conv
-            ax = _seq_axis(mesh, shp[1])
-            if ax:
-                return (B_axes, ax, None)
-            return (B_axes, None, _seq_axis(mesh, shp[2]))
-        if len(shp) == 2:       # (B, W) state / (B, D) shift
-            return (B_axes, _seq_axis(mesh, shp[1]))
-        return (None,) * len(shp)
-
-    out = []
-    for seg in lm.layout:
-        stack = (None,) if seg.repeats > 1 else ()
-        out.append({f"L{j}": pr.map_tree(
-                        lambda s: stack + leaf_spec(s), cache_meta_for_desc(
-                            lm.cfg, d, batch, max_len, enc_len))
-                    for j, d in enumerate(seg.pattern)})
-    return out
-
-
 @dataclasses.dataclass
 class StepBundle:
     """One step to run on a rank: ``fn(*args)``, ``args`` as shape trees
     (:func:`materialize` makes them tensors; a Python int stays one).
     ``in_specs`` / ``out_specs`` are the reference's layouts as spec
-    trees: the parameters (and ``m`` / ``v``) are this rank's shards under
-    them; the batch and the caches are whole on every rank in the port,
-    and their specs say how the reference splits them. ``donate`` names
+    trees of the global arguments: the parameters (and ``m`` / ``v``),
+    a serving step's batch and its caches are this rank's shards under
+    them; a training step is handed the whole batch. ``donate`` names
     the arguments the reference donates; the port updates those in place
     instead (ROADMAP §3 (u), (ak))."""
     name: str
@@ -109,6 +72,12 @@ class StepBundle:
     in_specs: Tuple
     out_specs: Any = None
     donate: Tuple[int, ...] = ()
+
+
+def _shard(s: ShapeDtype, spec, mesh) -> ShapeDtype:
+    """``s`` as this rank's shard of it under ``spec``."""
+    return dataclasses.replace(
+        s, shape=NamedSharding(mesh, tuple(spec)).shard_shape(s.shape))
 
 
 def _shape_tree(metas) -> Any:
@@ -191,40 +160,59 @@ class ArchRunner:
                           out_specs=(psp, osp, None), donate=(0, 1))
 
     def prefill_bundle(self, shape: ShapeConfig) -> StepBundle:
+        """The prefill of this rank's rows of the batch."""
         mesh, lm = self.mesh, self.lm
-        ba = batch_axes_for(mesh, shape.global_batch)
-        params, psp = self._param_args(pr.SERVE_RULES)
-        batch = self._batch_sds(shape, with_labels=False)
-
-        def prefill(params, batch):
-            return lm.prefill(params, batch, mesh=mesh, batch_axes=ba)
-
-        return StepBundle(name="prefill", fn=prefill, args=(params, batch),
-                          in_specs=(psp, self._batch_specs(batch, ba)))
-
-    def decode_bundle(self, shape: ShapeConfig) -> StepBundle:
-        """The decode step at the cache's last position (a Python int:
-        the port's ``decode_step`` takes the position as one; it reads the
-        whole cache at any position)."""
-        mesh, lm, cfg = self.mesh, self.lm, self.cfg
         B = shape.global_batch
         ba = batch_axes_for(mesh, B)
         params, psp = self._param_args(pr.SERVE_RULES)
-        enc_len = shape.seq_len if cfg.n_enc_layers else 0
+        batch = self._batch_sds(shape, with_labels=False)
+        bsp = self._batch_specs(batch, ba)
+        rows = {k: _shard(s, bsp[k], mesh) for k, s in batch.items()}
+
+        def prefill(params, rows):
+            return lm.prefill(params, rows, mesh=mesh, batch_axes=ba,
+                              global_batch=B)
+
+        return StepBundle(name="prefill", fn=prefill, args=(params, rows),
+                          in_specs=(psp, bsp))
+
+    def _decode_dims(self, shape: ShapeConfig) -> Tuple[int, int, int]:
+        """(batch, max_len, enc_len) of a decode cell's caches."""
+        cfg = self.cfg
         n_front = cfg.n_frontend_tokens if cfg.frontend == "vision_stub" else 0
-        max_len = shape.seq_len + n_front
-        caches = lm.decode_cache_meta(B, max_len, enc_len)
-        csp = cache_specs(lm, mesh, ba, B, max_len, enc_len)
+        return (shape.global_batch, shape.seq_len + n_front,
+                shape.seq_len if cfg.n_enc_layers else 0)
+
+    def decode_cache_layout(self, shape: ShapeConfig):
+        """(the decode caches' whole shape tree, their specs) on the mesh:
+        the reference's ``cache_specs`` layout."""
+        B, max_len, enc_len = self._decode_dims(shape)
+        return (self.lm.decode_cache_meta(B, max_len, enc_len),
+                cache_specs(self.lm, self.mesh, batch_axes_for(self.mesh, B),
+                            B, max_len, enc_len))
+
+    def decode_bundle(self, shape: ShapeConfig) -> StepBundle:
+        """The decode step at the cache's last position (a Python int:
+        the port's ``decode_step`` takes the position as one), handed this
+        rank's blocks of the caches and its rows' tokens."""
+        mesh, lm = self.mesh, self.lm
+        B, max_len, enc_len = self._decode_dims(shape)
+        ba = batch_axes_for(mesh, B)
+        params, psp = self._param_args(pr.SERVE_RULES)
+        caches, csp = self.decode_cache_layout(shape)
+        tsp = (_entry(ba), None)
 
         def decode(params, caches, tokens, pos):
             return lm.decode_step(params, caches, tokens, pos, mesh=mesh,
-                                  batch_axes=ba)
+                                  batch_axes=ba, batch=B, max_len=max_len,
+                                  enc_len=enc_len)
 
+        blocks = pr.map_tree(lambda s, sp: _shard(s, sp, mesh), caches, csp)
         return StepBundle(name="serve_step", fn=decode,
-                          args=(params, caches,
-                                ShapeDtype((B, 1), torch.int32), max_len - 1),
-                          in_specs=(psp, csp, (_entry(ba), None), ()),
-                          donate=(1,))
+                          args=(params, blocks,
+                                _shard(ShapeDtype((B, 1), torch.int32), tsp,
+                                       mesh), max_len - 1),
+                          in_specs=(psp, csp, tsp, ()), donate=(1,))
 
     def bundle_for(self, shape: ShapeConfig) -> StepBundle:
         return {"train": self.train_bundle, "prefill": self.prefill_bundle,

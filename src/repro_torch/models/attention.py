@@ -15,6 +15,15 @@ Cross-attention (``is_cross`` / ``cross_memory``, the encoder-decoder
 configs) takes its keys and values from the encoder's output at prefill
 and from their cached projections at decode, with no rope and no mask.
 
+Decode on a mesh of ranks may hold a cache's sequence split over a mesh
+axis (``seq_axis``, ``model`` in the reference's layout): each rank scores
+its block of positions and the softmax's reductions run locally, then
+across the axis (:func:`_softmax`: a ``pmax`` of each row's maximum, a
+``psum`` of its sum of exp), and so does the product with the values (a
+``psum`` of the partial p·v): the reference's distributed LSE combine,
+which its XLA partitioner derives from the same masked softmax. The
+rank that holds a token's slot writes it.
+
 ``mode="train"`` is the prefill's arithmetic under autograd, with no
 cache. Training skips the kv blocks a causal or windowed q chunk cannot
 see, as the prefill does; the reference visits and masks every block in
@@ -28,6 +37,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed import collectives as coll
 from .common import acc_dtype, apply_rope, rmsnorm
 from .params import meta
 
@@ -136,11 +146,45 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return out[:, :Sq_full].to(v.dtype)
 
 
+def _softmax(s, mesh=None, axis=None):
+    """Softmax over the last dim of ``s``, whose entries are split over
+    the mesh ``axis`` (``None``: whole here, ``torch.softmax``): each
+    row's maximum by a ``pmax`` and its sum of exp by a ``psum`` of the
+    local ones, then normalised by the global sum."""
+    if axis is None:
+        return torch.softmax(s, dim=-1)
+    m = coll.pmax(s.amax(dim=-1, keepdim=True), mesh, axis)
+    e = torch.exp(s - m)
+    return e / coll.psum(e.sum(dim=-1, keepdim=True), mesh, axis)
+
+
+def _seq_block(M_loc: int, mesh, axis):
+    """(the whole sequence's length, this rank's first position) of a
+    cache whose ``M_loc`` positions are its block over ``axis``."""
+    return (M_loc * coll.axis_size(mesh, axis),
+            coll.axis_index(mesh, axis) * M_loc)
+
+
+def _write(cache, new, slot: int, lo: int):
+    """Write ``new`` (B, S, ...) at global positions slot .. slot + S into
+    ``cache``, this rank's block of positions from ``lo``: only the part
+    that falls inside the block."""
+    a = max(slot, lo)
+    b = min(slot + new.shape[1], lo + cache.shape[1])
+    if a < b:
+        cache[:, a - lo:b - lo] = new[:, a - slot:b - slot].to(cache.dtype)
+
+
 def decode_attention(q, k_cache, v_cache, key_valid, *,
-                     softcap: Optional[float] = None):
+                     softcap: Optional[float] = None, mesh=None,
+                     seq_axis=None):
     """Single-token attention over a cache. q: (B, 1, H, Dk); caches:
     (B, M, Hkv, D*); ``key_valid``: (M,) bool mask of live entries (linear
-    and ring caches alike)."""
+    and ring caches alike). With ``seq_axis`` the caches and
+    ``key_valid`` are this rank's block of the sequence over that axis of
+    ``mesh``: the softmax reduces across it (:func:`_softmax`) and so does
+    the product with the values, so every rank returns the whole
+    attention."""
     B, _, H, Dk = q.shape
     Hkv = k_cache.shape[2]
     G = H // Hkv
@@ -150,9 +194,10 @@ def decode_attention(q, k_cache, v_cache, key_valid, *,
     if softcap:
         s = softcap * torch.tanh(s / softcap)
     s = torch.where(key_valid[None, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = _softmax(s, mesh, seq_axis)
     out = torch.einsum("bhgm,bmhd->bhgd", p.to(v_cache.dtype).to(acc_t),
                        v_cache.to(acc_t))
+    out = coll.psum(out, mesh, seq_axis)
     return out.reshape(B, 1, H, -1).to(v_cache.dtype)
 
 
@@ -205,13 +250,14 @@ def _qk_normalize(p, q, k):
     return q, k
 
 
-def _cross_apply(p, x, *, cfg, mode: str, cache, cross_memory, kv_len):
+def _cross_apply(p, x, *, cfg, mode: str, cache, cross_memory, kv_len,
+                 mesh=None, seq_axis=None):
     """Cross-attention: keys and values are projected from
     ``cross_memory`` (the encoder's output, (B, enc_len, D)) at prefill,
     and returned as the cache, and in training (no cache); decode reads
-    them from ``cache`` and leaves it as it is. No rope, no causal mask;
-    ``q_norm`` applies to the queries only, and decode attends over every
-    cached entry."""
+    them from ``cache`` (this rank's block of enc_len with ``seq_axis``)
+    and leaves it as it is. No rope, no causal mask; ``q_norm`` applies to
+    the queries only, and decode attends over every cached entry."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
@@ -226,7 +272,8 @@ def _cross_apply(p, x, *, cfg, mode: str, cache, cross_memory, kv_len):
         q = rmsnorm({"scale": p["q_norm"]}, q)
     if mode == "decode":
         every = torch.ones(k.shape[1], dtype=torch.bool, device=x.device)
-        out = decode_attention(q, k, v, every, softcap=cfg.attn_logit_softcap)
+        out = decode_attention(q, k, v, every, softcap=cfg.attn_logit_softcap,
+                               mesh=mesh, seq_axis=seq_axis)
     else:
         out = flash_attention(q, k, v, causal=False, window=None,
                               softcap=cfg.attn_logit_softcap,
@@ -239,18 +286,21 @@ def _cross_apply(p, x, *, cfg, mode: str, cache, cross_memory, kv_len):
 def attn_apply(p, x, *, cfg, rope_theta: float, window: Optional[int],
                positions, mode: str, cache=None, cur_pos=None,
                kv_len=None, cross_memory=None, causal: bool = True,
-               is_cross: bool = False):
+               is_cross: bool = False, mesh=None, seq_axis=None):
     """Self-attention in ``mode`` ``"train"`` (no cache: returns None),
     ``"prefill"`` (returns the prompt's (k, v) as the new cache) or
     ``"decode"`` (writes this token's k and v into the cache **in place**,
     at the slot :func:`cache_slot_and_mask` gives, and returns the same
     cache tensors). With ``is_cross`` or a ``cross_memory``,
-    cross-attention (:func:`_cross_apply`). Returns (out, new_cache)."""
+    cross-attention (:func:`_cross_apply`). ``seq_axis`` (decode): the
+    axis of ``mesh`` the cache's sequence is split over, the cache this
+    rank's block of it (module docstring). Returns (out, new_cache)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"attn_apply mode {mode!r}")
     if is_cross or cross_memory is not None:
         return _cross_apply(p, x, cfg=cfg, mode=mode, cache=cache,
-                            cross_memory=cross_memory, kv_len=kv_len)
+                            cross_memory=cross_memory, kv_len=kv_len,
+                            mesh=mesh, seq_axis=seq_axis)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
@@ -263,15 +313,17 @@ def attn_apply(p, x, *, cfg, rope_theta: float, window: Optional[int],
 
     if mode == "decode":
         k_cache, v_cache = cache
-        M, S = k_cache.shape[1], k.shape[1]
+        M_loc, S = k_cache.shape[1], k.shape[1]
+        M, lo = _seq_block(M_loc, mesh, seq_axis)
         slot, valid = cache_slot_and_mask(cur_pos, M, window, x.device)
         # the reference's dynamic_update_slice clamps the start so the
         # update fits; so does this
         slot = min(max(int(slot), 0), M - S)
-        k_cache[:, slot:slot + S] = k.to(k_cache.dtype)
-        v_cache[:, slot:slot + S] = v.to(v_cache.dtype)
-        out = decode_attention(q, k_cache, v_cache, valid,
-                               softcap=cfg.attn_logit_softcap)
+        _write(k_cache, k, slot, lo)
+        _write(v_cache, v, slot, lo)
+        out = decode_attention(q, k_cache, v_cache, valid[lo:lo + M_loc],
+                               softcap=cfg.attn_logit_softcap, mesh=mesh,
+                               seq_axis=seq_axis)
         new_cache = (k_cache, v_cache)
     else:
         out = flash_attention(q, k, v, causal=causal, window=window,
@@ -301,7 +353,8 @@ def mla_meta(cfg, dtype):
     }
 
 
-def mla_apply(p, x, *, cfg, positions, mode: str, cache=None, cur_pos=None):
+def mla_apply(p, x, *, cfg, positions, mode: str, cache=None, cur_pos=None,
+              mesh=None, seq_axis=None, rank_axis=None, rope_axis=None):
     """Latent attention. ``prefill`` and ``train`` expand the latent into
     per-head keys (nope part from the latent, one shared rope part) and
     values and run :func:`flash_attention` with Dk = dn + dr against Dv; a
@@ -309,8 +362,14 @@ def mla_apply(p, x, *, cfg, positions, mode: str, cache=None, cur_pos=None):
     S, qk_rope_dim)) as the cache, training None. ``decode`` writes this
     token's latent and rope key into the caches **in place** at
     ``cur_pos`` and attends in the latent space (the absorbed form: the
-    query is taken through ``w_uk``, the context back through ``w_uv``).
-    Returns (y, new_cache)."""
+    query is taken through ``w_uk``, the context back through ``w_uv``);
+    with ``seq_axis`` the caches are this rank's block of the sequence over
+    that axis of ``mesh``, the softmax reduces across it and the context
+    is a ``psum`` of the local att·latent. Where ``model`` does not divide
+    the sequence, the reference's layout splits the latent's rank
+    (``rank_axis``) and the rope key's dims (``rope_axis``) instead: each
+    rank's scores and output are partial sums over its block of them,
+    completed by a ``psum``. Returns (y, new_cache)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mla_apply mode {mode!r}")
     B, S, D = x.shape
@@ -332,24 +391,31 @@ def mla_apply(p, x, *, cfg, positions, mode: str, cache=None, cur_pos=None):
 
     if mode == "decode":
         lat_cache, rope_cache = cache
-        M = lat_cache.shape[1]
+        M_loc = lat_cache.shape[1]
+        M, lo = _seq_block(M_loc, mesh, seq_axis)
+        rb = coll.block_slice(kvr, mesh, rank_axis)
+        db = coll.block_slice(dr, mesh, rope_axis)
         # dynamic_update_slice clamps the start so the update fits
         slot = min(max(int(cur_pos), 0), M - S)
-        lat_cache[:, slot:slot + S] = latent.to(lat_cache.dtype)
-        rope_cache[:, slot:slot + S] = k_rope[:, :, 0, :].to(rope_cache.dtype)
+        _write(lat_cache, latent[..., rb], slot, lo)
+        _write(rope_cache, k_rope[:, :, 0, db], slot, lo)
         q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
-        s = (torch.einsum("bshr,bmr->bhsm", q_abs.to(acc_t),
-                          lat_cache.to(acc_t)) +
-             torch.einsum("bshk,bmk->bhsm", q_rope.to(acc_t),
-                          rope_cache.to(acc_t)))
+        # over a split feature dim each rank's score is a partial sum
+        s_lat = torch.einsum("bshr,bmr->bhsm", q_abs[..., rb].to(acc_t),
+                             lat_cache.to(acc_t))
+        s_rope = torch.einsum("bshk,bmk->bhsm", q_rope[..., db].to(acc_t),
+                              rope_cache.to(acc_t))
+        s = (coll.psum(s_lat, mesh, rank_axis)
+             + coll.psum(s_rope, mesh, rope_axis))
         s = s / torch.sqrt(torch.tensor(float(dn + dr), dtype=acc_t))
-        ok = torch.arange(M, device=x.device) <= int(cur_pos)
+        ok = lo + torch.arange(M_loc, device=x.device) <= int(cur_pos)
         s = torch.where(ok, s, NEG_INF)
-        att = torch.softmax(s, dim=-1)
-        ctx = torch.einsum("bhsm,bmr->bshr",
-                           att.to(lat_cache.dtype).to(acc_t),
-                           lat_cache.to(acc_t))
-        out = torch.einsum("bshr,rhv->bshv", ctx.to(x.dtype), p["w_uv"])
+        att = _softmax(s, mesh, seq_axis)
+        ctx = coll.psum(torch.einsum("bhsm,bmr->bshr",
+                                     att.to(lat_cache.dtype).to(acc_t),
+                                     lat_cache.to(acc_t)), mesh, seq_axis)
+        out = coll.psum(torch.einsum("bshr,rhv->bshv", ctx.to(x.dtype),
+                                     p["w_uv"][rb]), mesh, rank_axis)
         new_cache = (lat_cache, rope_cache)
     else:
         k_nope = torch.einsum("bsr,rhk->bshk", latent, p["w_uk"])

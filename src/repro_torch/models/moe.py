@@ -9,17 +9,19 @@ the local experts, and the gather back, weighted by the gates.
 :func:`moe_apply` picks the reference's path:
 
 * no mesh: the local path, every expert on the one device;
-* ``_moe_full_ep`` (serving, ``mode != "train"``, at most 16,384 tokens,
-  more than one expert-parallel axis dividing E): tokens replicated, each
-  rank runs its E / ep experts of the whole mesh (the experts' layout under
-  ``SERVE_RULES``), one ``psum`` over the EP axes combines;
+On a mesh of ranks x is this rank's rows of the batch, split over
+``batch_axes`` before the model ran, in every mode, and so is the output.
+
+* ``_moe_full_ep`` (serving, ``mode != "train"``, at most 16,384 tokens
+  in the whole batch, more than one expert-parallel axis dividing E):
+  tokens replicated (the rows all-gathered over the batch axes), each
+  rank runs its E / ep experts of the whole mesh (the experts' layout
+  under ``SERVE_RULES``), one ``psum`` over the EP axes combines, and the
+  rank keeps its rows;
 * otherwise the reference's ``shard_map`` branch: experts over ``model``,
-  the batch split over ``batch_axes``, capacity reckoned per batch shard
-  from ``T_loc = (B / dp) * S``, one ``psum`` over ``model``, the aux
-  ``pmean``'d over the batch axes and ``model``. In serving every rank
-  holds the whole batch: the branch takes its batch shard and gathers the
-  shards' outputs back. In training (``mode="train"``) the batch was split
-  before the model ran: x is this rank's rows, and so is the output. The
+  the rows as they come, capacity reckoned per batch shard from ``T_loc =
+  (B / dp) * S``, one ``psum`` over ``model``, the aux ``pmean``'d over
+  the batch axes and ``model``. The
   tokens and the router enter through ``pvary`` over ``model``, so their
   gradients sum the experts' partial results (the reference's
   ``shard_map`` transpose). Under ``DEFAULT_RULES`` (training) the expert weights are
@@ -32,10 +34,10 @@ the local experts, and the gather back, weighted by the gates.
   exactly one model rank, so the sum differs only in its order);
 * on a mesh without a ``model`` axis that divides E: the local path on the
   whole batch, its expert weights gathered whole, with the capacity of
-  ``T_loc`` (the reference's local branch on a mesh). In training the
-  ranks' rows are gathered first and each keeps its own rows of the
-  output; the aux, the same on every rank, is ``pmean``'d over the batch
-  axes, so that its gradient is counted once.
+  ``T_loc`` (the reference's local branch on a mesh): the ranks' rows
+  are gathered first and each keeps its own rows of the output; the aux,
+  the same on every rank, is ``pmean``'d over the batch axes, so that its
+  gradient is counted once.
 
 ``mesh.counts`` records the path each call took (``moe_full_ep``,
 ``moe_shard_map``, ``moe_local``).
@@ -246,9 +248,12 @@ def moe_apply(p, x, *, cfg, mesh=None, batch_axes=("data",),
     path (module docstring). Without a mesh every mode runs the local
     path. On a mesh of ranks the parameters are this rank's shards under
     ``rules_for(mode)`` (the shared experts and the router whole, as the
-    model's per-unit gather leaves them); in serving every rank holds the
-    whole x and gets the whole y, in training (``mode="train"``) its rows
-    of the batch split over ``batch_axes``, B of them."""
+    model's per-unit gather leaves them), and x and y are this rank's rows
+    of the batch, split over the present ``batch_axes``, in every mode.
+    Where the reference holds the tokens replicated (full expert
+    parallelism in serving, the local path on a mesh) the rows are
+    all-gathered over the batch axes, the path runs on the whole batch,
+    and the rank keeps its rows of the output."""
     B, S, D = x.shape
     E = cfg.n_experts
     if mesh is None:
@@ -258,41 +263,42 @@ def moe_apply(p, x, *, cfg, mesh=None, batch_axes=("data",),
                               capacity=capacity, act=cfg.act)
         return _shared(p, x, out.reshape(B, S, D), cfg), aux
 
-    if mode != "train" and B * S <= 16384:
+    data_axes = tuple(a for a in (batch_axes or ()) if a in mesh.shape)
+    dp = coll.axis_size(mesh, data_axes)
+
+    def rows(y):
+        """This rank's rows of the whole batch's ``y``."""
+        return y.view(-1, S, D)[coll.block_slice(B * dp, mesh, data_axes)]
+
+    if mode != "train" and B * dp * S <= 16384:
         ep_axes = tuple(a for a in ("pod", "data", "model")
                         if a in mesh.shape)
         while ep_axes and E % coll.axis_size(mesh, ep_axes) != 0:
             ep_axes = ep_axes[1:]
         if len(ep_axes) > 1:
-            return _moe_full_ep(p, x, cfg=cfg, mesh=mesh, ep_axes=ep_axes,
-                                capacity_factor=capacity_factor)
+            # the reference's tokens are replicated and its capacity
+            # counts the whole batch's
+            y, aux = _moe_full_ep(p, coll.all_gather(x, mesh, data_axes, 0),
+                                  cfg=cfg, mesh=mesh, ep_axes=ep_axes,
+                                  capacity_factor=capacity_factor)
+            return rows(y), aux
 
     model_ok = ("model" in mesh.shape and mesh.shape["model"] > 1
                 and E % mesh.shape["model"] == 0)
-    data_axes = tuple(a for a in (batch_axes or ()) if a in mesh.shape)
-    dp = coll.axis_size(mesh, data_axes)
-    train = mode == "train"
-    if not train and B % dp:
-        raise ValueError(f"batch {B} does not split over {data_axes} "
-                         f"({dp})")
-    Bl = B if train else B // dp          # the rows of one batch shard
-    capacity = capacity_for(Bl * S, cfg, capacity_factor)
+    capacity = capacity_for(B * S, cfg, capacity_factor)
     specs = _expert_specs(p, cfg, mesh, mode)
     if not model_ok:
         mesh.counts["moe_local"] += 1
         wg, wu, wd = (coll.unshard(p[n], sp, mesh, batch_axes=data_axes)
                       for n, sp in zip(("w_gate", "w_up", "w_down"), specs))
-        # in training each rank holds its rows: the whole batch is gathered
-        xg = coll.all_gather(x, mesh, data_axes if train else (), 0,
-                             batch_axes=data_axes)
+        # the reference's local path runs the whole batch at the capacity
+        # of a batch shard's tokens
+        xg = coll.all_gather(x, mesh, data_axes, 0, batch_axes=data_axes)
         out, aux = _local_moe(xg.reshape(-1, D), p["router"], p["bias"],
                               wg, wu, wd, cfg=cfg, capacity=capacity,
                               act=cfg.act)
-        if train:
-            b = coll.axis_index(mesh, data_axes)
-            out = out.view(-1, S, D)[b * B:(b + 1) * B]
-            aux = coll.pmean(aux, mesh, data_axes)
-        return _shared(p, x, out.reshape(B, S, D), cfg), aux
+        aux = coll.pmean(aux, mesh, data_axes)
+        return _shared(p, x, rows(out), cfg), aux
 
     # the shard_map branch: experts over model, the batch over data_axes
     mesh.counts["moe_shard_map"] += 1
@@ -328,22 +334,14 @@ def moe_apply(p, x, *, cfg, mesh=None, batch_axes=("data",),
     wd = coll.unshard(wd, (None, specs[2][1], None), mesh,
                       batch_axes=data_axes)
 
-    if train:
-        x_blk = x
-    else:
-        b = coll.axis_index(mesh, data_axes)
-        x_blk = x[b * Bl:(b + 1) * Bl]
     router, bias, x_in = (coll.pvary(t, mesh, "model")
-                          for t in (p["router"], p["bias"], x_blk))
-    out, aux = _local_moe(x_in.reshape(Bl * S, D), router, bias, wg, wu, wd,
+                          for t in (p["router"], p["bias"], x))
+    out, aux = _local_moe(x_in.reshape(B * S, D), router, bias, wg, wu, wd,
                           cfg=cfg, capacity=capacity, act=cfg.act,
                           experts=experts, mesh=mesh, fsdp_axis=fsdp_axis,
                           model_axis="model", batch_axes=data_axes)
     aux = coll.pmean(aux, mesh, data_axes + ("model",))
-    y = out.reshape(Bl, S, D)
-    if not train:
-        y = coll.all_gather(y, mesh, data_axes, 0)
-    return _shared(p, x, y, cfg), aux
+    return _shared(p, x, out.reshape(B, S, D), cfg), aux
 
 
 def _moe_full_ep(p, x, *, cfg, mesh, ep_axes, capacity_factor):

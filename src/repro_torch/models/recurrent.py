@@ -21,11 +21,22 @@ from the first token on (no sequence axis).
 A decode step writes the new states **into the cache tensors it was
 given** (``copy_``) and returns them, as the attention caches are updated
 (ROADMAP §3 (u)).
+
+On a mesh of ranks, decode takes the reference's layout of the states
+(``cache_specs``): RG-LRU's conv window and h split over their channels
+(``channel_axis``), RWKV-6's token shift over its channels
+(``shift_axis``) and its state over its heads (``head_axis``). Each rank
+runs the block's channels or heads alone, on the matching columns of the
+whole weights, and a ``psum`` over the axis completes the output
+projection; RWKV-6's data-dependent mix reads the whole token shift (the
+previous input), so that one is all-gathered, and each rank keeps its
+block of the new one. No other state crosses ranks.
 """
 from __future__ import annotations
 
 import torch
 
+from ..distributed import collectives as coll
 from .common import acc_dtype, act_fn, rmsnorm
 from .params import meta
 
@@ -92,12 +103,19 @@ def _rglru_scan(x, r_gate, i_gate, a_param, h0):
     return b[:, 1:].to(x.dtype), b[:, -1]
 
 
-def rglru_apply(p, x, *, cfg, mode: str, cache=None):
+def rglru_apply(p, x, *, cfg, mode: str, cache=None, mesh=None,
+                channel_axis=None):
     """Griffin recurrent block. cache: (conv_state (B, ck-1, W), h (B, W));
     ``None`` starts from zeros. Returns (out, new_cache); in ``decode`` the
-    new states are written into ``cache``'s tensors."""
+    new states are written into ``cache``'s tensors. With ``channel_axis``
+    the states are this rank's block of the W channels over that axis of
+    ``mesh``: the rank runs those channels and ``psum``s its part of the
+    output projection."""
+    if channel_axis is not None:
+        c = coll.block_slice(p["w_x"].shape[1], mesh, channel_axis)
+        p = {k: v[c] if k == "w_out" else v[..., c] for k, v in p.items()}
     B, S, D = x.shape
-    W = cfg.lru_width
+    W = p["w_x"].shape[1]
     ck = cfg.conv_width
     acc = acc_dtype(x.dtype)
     given = cache
@@ -116,7 +134,7 @@ def rglru_apply(p, x, *, cfg, mode: str, cache=None):
         y = h[:, None].to(x.dtype)
     else:
         y, h = _rglru_scan(u, r, i, p["lru_a"], h0)
-    out = (y * gate) @ p["w_out"]
+    out = coll.psum((y * gate) @ p["w_out"], mesh, channel_axis)
     if mode == "decode" and given is not None:
         new_cache = (given[0].copy_(conv_state), given[1].copy_(h))
     else:
@@ -203,10 +221,21 @@ def _rwkv_chunk_scan(r, k, v, lw, u, S0, chunk: int):
     return torch.cat(outs, dim=2), S_prev
 
 
-def rwkv6_apply(p, x, *, cfg, mode: str, cache=None, chunk: int = 64):
+# RWKV-6 leaves whose last dim is D (a head block takes its channels) and
+# whose first is H (its heads); w_o's first dim is D
+_HEAD_COLS = ("w_r", "w_k", "w_v", "w_g", "w_lora_b", "w0")
+_HEAD_ROWS = ("bonus", "ln_scale")
+
+
+def rwkv6_apply(p, x, *, cfg, mode: str, cache=None, chunk: int = 64,
+                mesh=None, shift_axis=None, head_axis=None):
     """RWKV-6 time-mix block. cache: (shift (B, D), state (B, H, Dh, Dh));
     ``None`` starts from zeros. Returns (y, new_cache); in ``decode`` the
-    new states are written into ``cache``'s tensors."""
+    new states are written into ``cache``'s tensors. On ``mesh``, the
+    shift may be this rank's block of D over ``shift_axis`` (gathered
+    whole for the mix; the rank keeps its block of the new one) and the
+    state its block of the heads over ``head_axis``: the rank runs those
+    heads and ``psum``s its part of the output projection."""
     B, S, D = x.shape
     H = cfg.n_heads
     Dh = D // H
@@ -216,6 +245,14 @@ def rwkv6_apply(p, x, *, cfg, mode: str, cache=None, chunk: int = 64):
         cache = (torch.zeros((B, D), dtype=x.dtype, device=x.device),
                  torch.zeros((B, H, Dh, Dh), dtype=acc, device=x.device))
     shift_in, S0 = cache
+    shift_in = coll.all_gather(shift_in, mesh, shift_axis, 1)
+    if head_axis is not None:
+        hb = coll.block_slice(H, mesh, head_axis)
+        db = coll.block_slice(D, mesh, head_axis)
+        p = dict(p, **{k: p[k][..., db] for k in _HEAD_COLS},
+                 **{k: p[k][hb] for k in _HEAD_ROWS},
+                 w_o=p["w_o"][db])
+        H = hb.stop - hb.start
     shifted = torch.cat([shift_in[:, None].to(x.dtype), x[:, :-1]], dim=1)
     mixed = _rwkv_mix(p, x, shifted)                       # (B, S, 5, D)
     xw, xk, xv, xr, xg = [mixed[:, :, i] for i in range(5)]
@@ -244,9 +281,12 @@ def rwkv6_apply(p, x, *, cfg, mode: str, cache=None, chunk: int = 64):
         out, S_new = _rwkv_chunk_scan(r, k, v, lwh, u, S0, chunk)
 
     out = rmsnorm({"scale": p["ln_scale"]},
-                  out.transpose(1, 2)).reshape(B, S, D)
-    y = ((out.to(x.dtype) * g) @ p["w_o"]).to(x.dtype)
+                  out.transpose(1, 2)).reshape(B, S, H * Dh)
+    y = coll.psum(((out.to(x.dtype) * g) @ p["w_o"]).to(x.dtype), mesh,
+                  head_axis)
     shift = x[:, -1]
+    if shift_axis is not None:
+        shift = shift[:, coll.block_slice(D, mesh, shift_axis)]
     if mode == "decode" and given is not None:
         new_cache = (given[0].copy_(shift), given[1].copy_(S_new))
     else:

@@ -29,9 +29,25 @@ caches are dropped, training in ``train`` mode (the reference's mode for
 it; the two differ only in the caches).
 
 On a mesh of ranks (:func:`repro_torch.launch.mesh.make_rank_mesh`),
-:meth:`LM.prefill` and :meth:`LM.decode_step` serve one model from its
-parameters sharded under ``SERVE_RULES``: every rank is given the whole
-batch, and its activations, caches and logits are whole.
+serving takes the reference's layout (its ``launch.steps.cache_specs``).
+:meth:`LM.prefill` is given the whole batch and runs this rank's rows of
+it, split over the present ``batch_axes`` that divide the batch (the
+leading ones dropped until they do, :func:`repro_torch.distributed.
+sharding.batch_split`; none: the batch is replicated); it returns those
+rows' logits and prompt caches. :func:`repro_torch.serving.seed_caches`
+keeps this rank's block of every decode cache leaf under
+:func:`cache_specs`: its rows; a kv, latent or cross-attention cache's
+sequence over ``model``; a recurrent state's channels or heads over
+``model``. :meth:`LM.decode_step` takes those blocks and its rows'
+tokens. Decode attention over a sequence-split cache reduces each of
+softmax's reductions locally and then across ``model`` (a ``pmax`` of the
+rows' maxima, a ``psum`` of their sums of exp and of the partial p·v: the
+reference's distributed LSE combine); only the rank that holds a token's
+slot writes it. RG-LRU runs the rank's channels and RWKV-6 the rank's
+heads (its token shift, the previous input, is all-gathered whole), each
+completing its output projection by a ``psum`` over ``model``. A leaf
+that ``model`` does not divide stays whole. Parameters are sharded under
+``SERVE_RULES``.
 :meth:`LM.train_loss` trains from parameters sharded under
 ``DEFAULT_RULES`` (FSDP over ``data``, tensor-parallel over ``model``):
 every rank is given the whole batch and scores its rows of it, split over
@@ -60,7 +76,7 @@ from ..distributed import collectives as coll
 from . import attention as attn
 from . import moe as moe_mod
 from . import recurrent as rec
-from ..distributed.sharding import batch_rows
+from ..distributed.sharding import batch_rows, batch_split
 from .common import (acc_dtype, chunked_softmax_xent, embed, embed_meta,
                      logits_fn, make_norm, mlp, mlp_meta, unembed_meta)
 from .params import (ParamMeta, count_params, init_tree, map_tree, meta,
@@ -164,20 +180,38 @@ def _theta_window(cfg: ModelConfig, desc: LayerDesc):
     return theta, None
 
 
+def _split_axis(mesh, spec, leaf: int, dim: int):
+    """The mesh axis over which ``spec`` (a layer's tree of cache specs,
+    :func:`cache_specs`) splits dim ``dim`` of cache leaf ``leaf``, or
+    ``None``: no spec, a whole dim, or an axis of one rank."""
+    if mesh is None or spec is None:
+        return None
+    entry = spec[leaf][dim]
+    return entry if entry is not None and coll.axis_size(mesh, entry) > 1 \
+        else None
+
+
 def layer_apply(lp, x, desc: LayerDesc, *, cfg: ModelConfig, mode: str,
                 cache, positions, cur_pos, mesh=None, batch_axes=("data",),
-                cross_memory=None, kv_len=None):
+                cross_memory=None, kv_len=None, cache_spec=None):
     """One pre-norm block: mixer, then (in a ``cross`` layer)
     cross-attention over ``cross_memory``, then MLP (dense or MoE), each
     added to the residual. A cross layer's cache is ``{"self": mixer
     cache, "cross": (k, v)}``. Returns (x, new_cache, aux): the MoE's
     load-balance loss, a float32 scalar (0.0 for a dense MLP). On a mesh,
-    every leaf but the MoE's experts is whole (:meth:`LM._unit_unshard`)
-    and the MoE takes ``mesh`` / ``batch_axes``."""
+    every leaf but the MoE's experts is whole (:meth:`LM._unit_unshard`),
+    ``x`` holds this rank's rows of the batch (split over ``batch_axes``
+    in serving) and the MoE takes ``mesh`` / ``batch_axes``; in decode,
+    ``cache`` is this rank's block of the layer's caches, laid out by
+    ``cache_spec`` (the layer's subtree of :func:`cache_specs`, without a
+    stack entry), whose split dims the mixers read."""
     _, norm = make_norm(cfg)
     aux = 0.0
+    cross_spec = None
     if desc.cross and isinstance(cache, dict):
         cache, cross_cache = cache["self"], cache["cross"]
+        if cache_spec is not None:
+            cache_spec, cross_spec = cache_spec["self"], cache_spec["cross"]
     else:
         cross_cache = None
     h = norm(lp["norm1"], x)
@@ -186,17 +220,29 @@ def layer_apply(lp, x, desc: LayerDesc, *, cfg: ModelConfig, mode: str,
         h, new_cache = attn.attn_apply(
             lp["mixer"], h, cfg=cfg, rope_theta=theta, window=window,
             positions=positions, mode=mode, cache=cache, cur_pos=cur_pos,
-            kv_len=kv_len, causal=cfg.causal)
+            kv_len=kv_len, causal=cfg.causal, mesh=mesh,
+            seq_axis=_split_axis(mesh, cache_spec, 0, 1))
     elif desc.mixer == "mla":
-        h, new_cache = attn.mla_apply(lp["mixer"], h, cfg=cfg,
-                                      positions=positions, mode=mode,
-                                      cache=cache, cur_pos=cur_pos)
+        h, new_cache = attn.mla_apply(
+            lp["mixer"], h, cfg=cfg, positions=positions, mode=mode,
+            cache=cache, cur_pos=cur_pos, mesh=mesh,
+            seq_axis=_split_axis(mesh, cache_spec, 0, 1),
+            rank_axis=_split_axis(mesh, cache_spec, 0, 2),
+            rope_axis=_split_axis(mesh, cache_spec, 1, 2))
     elif desc.mixer == "rg":
-        h, new_cache = rec.rglru_apply(lp["mixer"], h, cfg=cfg, mode=mode,
-                                       cache=cache)
+        if _split_axis(mesh, cache_spec, 0, 1) is not None:
+            raise ValueError(f"RG-LRU's conv state split over its window "
+                             f"({cache_spec[0]}): the model axis divides "
+                             f"conv_width - 1")
+        h, new_cache = rec.rglru_apply(
+            lp["mixer"], h, cfg=cfg, mode=mode, cache=cache, mesh=mesh,
+            channel_axis=_split_axis(mesh, cache_spec, 1, 1))
     elif desc.mixer == "rwkv":
-        h, new_cache = rec.rwkv6_apply(lp["mixer"], h, cfg=cfg, mode=mode,
-                                       cache=cache, chunk=cfg.rwkv_chunk)
+        h, new_cache = rec.rwkv6_apply(
+            lp["mixer"], h, cfg=cfg, mode=mode, cache=cache,
+            chunk=cfg.rwkv_chunk, mesh=mesh,
+            shift_axis=_split_axis(mesh, cache_spec, 0, 1),
+            head_axis=_split_axis(mesh, cache_spec, 1, 1))
     else:
         raise ValueError(desc.mixer)
     x = x + h
@@ -205,7 +251,8 @@ def layer_apply(lp, x, desc: LayerDesc, *, cfg: ModelConfig, mode: str,
         h, new_cross = attn.attn_apply(
             lp["cross"], h, cfg=cfg, rope_theta=cfg.rope_theta, window=None,
             positions=positions, mode=mode, cache=cross_cache,
-            cur_pos=cur_pos, cross_memory=cross_memory, is_cross=True)
+            cur_pos=cur_pos, cross_memory=cross_memory, is_cross=True,
+            mesh=mesh, seq_axis=_split_axis(mesh, cross_spec, 0, 1))
         x = x + h
         new_cache = {"self": new_cache, "cross": new_cross}
     h = norm(lp["norm2"], x)
@@ -268,16 +315,79 @@ def cache_meta_for_desc(cfg: ModelConfig, desc: LayerDesc, batch: int,
     return base
 
 
+def _unit_cache_meta(cfg: ModelConfig, seg: Segment, batch: int,
+                     max_len: int, enc_len: int = 0):
+    """One unit of ``seg``'s cache shape tree, unstacked."""
+    return {f"L{j}": cache_meta_for_desc(cfg, d, batch, max_len, enc_len)
+            for j, d in enumerate(seg.pattern)}
+
+
 def cache_meta(cfg: ModelConfig, segments: Sequence[Segment], batch: int,
                max_len: int, enc_len: int = 0):
     out = []
     for seg in segments:
-        unit = {f"L{j}": cache_meta_for_desc(cfg, d, batch, max_len, enc_len)
-                for j, d in enumerate(seg.pattern)}
+        unit = _unit_cache_meta(cfg, seg, batch, max_len, enc_len)
         if seg.repeats > 1:
             unit = map_tree(lambda s: dataclasses.replace(
                 s, shape=(seg.repeats,) + s.shape), unit)
         out.append(unit)
+    return out
+
+
+def _seq_axis(mesh, n: int) -> Optional[str]:
+    """``model`` where the mesh has it and it divides ``n``, else
+    ``None`` (reads ``mesh.shape``)."""
+    size = mesh.shape.get("model", 0)
+    return "model" if size > 0 and n % size == 0 else None
+
+
+def _leaf_spec(mesh, b_axes, shape) -> tuple:
+    """A decode cache leaf's spec (the reference's ``leaf_spec``)."""
+    if len(shape) == 4:     # (B, M, Hkv, Dh) kv / (B, H, Dk, Dv) rwkv state
+        return (b_axes, _seq_axis(mesh, shape[1]), None, None)
+    if len(shape) == 3:     # (B, M, r) latent / (B, ck-1, W) conv
+        ax = _seq_axis(mesh, shape[1])
+        if ax:
+            return (b_axes, ax, None)
+        return (b_axes, None, _seq_axis(mesh, shape[2]))
+    if len(shape) == 2:     # (B, W) state / (B, D) shift
+        return (b_axes, _seq_axis(mesh, shape[1]))
+    return (None,) * len(shape)
+
+
+def cache_unit_specs(cfg: ModelConfig, seg: Segment, mesh, batch_axes,
+                     batch: int, max_len: int, enc_len: int = 0):
+    """:func:`cache_specs` of one unit of ``seg``, without the stack
+    entry: ``{"L<j>": the layer's tree of specs}``."""
+    b_axes = tuple(batch_axes)
+    b_axes = None if not b_axes else (b_axes[0] if len(b_axes) == 1
+                                      else b_axes)
+    return map_tree(lambda sd: _leaf_spec(mesh, b_axes, sd.shape),
+                    _unit_cache_meta(cfg, seg, batch, max_len, enc_len))
+
+
+def cache_specs(lm, mesh, batch_axes, batch: int, max_len: int,
+                enc_len: int = 0):
+    """The reference's layout of the decode caches
+    (``repro.launch.steps.cache_specs``), a spec tree shaped as
+    ``lm.decode_cache_meta``: the batch over ``batch_axes`` (a single axis
+    by its name, several as a tuple, none as ``None``), a kv, latent or
+    cross-attention cache's sequence axis over ``model``, a recurrent
+    state's heads or channels over ``model`` (an RG-LRU conv window over
+    ``model`` where ``model`` divides ``conv_width - 1``), each only where
+    ``model`` divides the dim; a stacked segment's leaves get a leading
+    ``None``. Reads ``mesh.shape`` only. Serving on a mesh of ranks holds
+    each rank's block of every leaf under these specs
+    (:func:`repro_torch.distributed.sharding.rank_box`; module
+    docstring)."""
+    out = []
+    for seg in lm.layout:
+        stack = (None,) if seg.repeats > 1 else ()
+        unit = cache_unit_specs(lm.cfg, seg, mesh, batch_axes, batch,
+                                max_len, enc_len)
+        out.append(map_tree(lambda sd, sp: stack + sp,
+                            _unit_cache_meta(lm.cfg, seg, batch, max_len,
+                                             enc_len), unit))
     return out
 
 
@@ -290,7 +400,7 @@ def zeros_like_meta(tree, device):
 def segment_apply(seg_p, x, seg: Segment, *, cfg: ModelConfig, mode: str,
                   caches, positions, cur_pos, mesh=None,
                   batch_axes=("data",), cross_memory=None, kv_len=None,
-                  unshard=None):
+                  unshard=None, cache_spec=None):
     """Run one segment: its pattern once, or for each of its repeats the
     repeat's slice of the stacked parameters and caches. Returns (x, new
     caches, the summed load-balance aux).
@@ -305,7 +415,9 @@ def segment_apply(seg_p, x, seg: Segment, *, cfg: ModelConfig, mode: str,
     ``unshard``: on ``mesh``, one unit's (unstacked) tree of the specs its
     leaves are held under (:meth:`LM._unit_unshard`), ``None`` for a leaf
     used as it is; each unit all-gathers those leaves whole before it
-    runs (in training, their gradients are summed over ``batch_axes``)."""
+    runs (in training, their gradients are summed over ``batch_axes``).
+    ``cache_spec``: in decode on ``mesh``, one unit's tree of the specs
+    its caches are laid out by (:func:`cache_unit_specs`)."""
 
     def unit(lp, xx, cache_unit):
         if unshard is not None:
@@ -320,7 +432,8 @@ def segment_apply(seg_p, x, seg: Segment, *, cfg: ModelConfig, mode: str,
                 lp[f"L{j}"], xx, d, cfg=cfg, mode=mode, cache=c,
                 positions=positions, cur_pos=cur_pos, mesh=mesh,
                 batch_axes=batch_axes, cross_memory=cross_memory,
-                kv_len=kv_len)
+                kv_len=kv_len, cache_spec=None if cache_spec is None
+                else cache_spec[f"L{j}"])
             aux = aux + a
         return xx, new_c, aux
 
@@ -423,7 +536,8 @@ class LM(nn.Module):
     :meth:`prefill` and :meth:`decode_step` run under
     ``torch.inference_mode()`` on the parameters' device; with ``mesh``
     (a mesh of ranks) they take this rank's shards (:meth:`check_params`)
-    and return whole logits and caches on every rank.
+    and run this rank's rows of the batch over its blocks of the caches
+    (module docstring).
     """
 
     def __init__(self, cfg: ModelConfig):
@@ -813,7 +927,7 @@ class LM(nn.Module):
     # ----- prefill -----
     @torch.inference_mode()
     def prefill(self, params, batch: Dict[str, Any], *, mesh=None,
-                batch_axes=("data",)):
+                batch_axes=("data",), global_batch: Optional[int] = None):
         """Full-prompt forward; returns (last_logits (B, 1, V), caches).
 
         Prefill caches are emitted at prompt length (the patches count
@@ -821,16 +935,31 @@ class LM(nn.Module):
         decode cache layout (:meth:`decode_cache_meta`) is seeded from them
         by :func:`repro_torch.serving.seed_caches`. On ``mesh`` (a mesh of
         ranks) ``params`` are this rank's shards and ``batch`` the whole
-        batch (module docstring)."""
+        batch, of which this rank runs its rows, split over the present
+        ``batch_axes`` that divide it
+        (:func:`repro_torch.distributed.sharding.batch_split`): the logits
+        and caches returned are those rows', whole along ``model``. With
+        ``global_batch`` (the whole batch's row count), ``batch`` holds this
+        rank's rows of it already (a dry-run step's argument)."""
         cfg = self.cfg
         mesh = self._ranks(mesh)
         params = self.params if params is None else params
+        ba = ()
+        if mesh is not None:
+            B = len(batch["tokens"]) if global_batch is None else global_batch
+            ba = batch_split(mesh, B, batch_axes)
+            if global_batch is None:
+                batch = batch_rows(batch, mesh, ba)
+            elif len(batch["tokens"]) * coll.axis_size(mesh, ba) != B:
+                raise ValueError(f"{len(batch['tokens'])} rows: this rank "
+                                 f"holds {B // coll.axis_size(mesh, ba)} of "
+                                 f"{B} (split over {ba})")
         tokens = self._on_device(params, batch["tokens"])
         x = self._embed_tokens(params, tokens, mesh, "prefill")
         cross_memory = None
         if self.enc_cfg is not None:
             cross_memory = self._encode(params, batch["frames"], "prefill",
-                                        mesh, batch_axes)
+                                        mesh, ba)
         if cfg.frontend == "vision_stub":
             x = self._frontend(params, batch, x)
         positions = torch.arange(x.shape[1], device=x.device)
@@ -839,7 +968,7 @@ class LM(nn.Module):
             x, nc, _ = segment_apply(
                 sp, x, seg, cfg=cfg, mode="prefill", caches=None,
                 positions=positions, cur_pos=None, mesh=mesh,
-                batch_axes=batch_axes, cross_memory=cross_memory,
+                batch_axes=ba, cross_memory=cross_memory,
                 unshard=self._unit_unshard(seg, mesh, cfg, "prefill"))
             caches.append(nc)
         _, norm = make_norm(cfg)
@@ -849,27 +978,55 @@ class LM(nn.Module):
     # ----- decode -----
     @torch.inference_mode()
     def decode_step(self, params, caches, tokens, cur_pos: int,
-                    cross_memory=None, *, mesh=None, batch_axes=("data",)):
+                    cross_memory=None, *, mesh=None, batch_axes=("data",),
+                    batch: Optional[int] = None,
+                    max_len: Optional[int] = None, enc_len: int = 0):
         """One token for every sequence. tokens: (B, 1); cur_pos: the
         position of that token (past the patches, in a front-end model).
         ``caches`` are updated in place and returned; cross-attention reads
         its cached projections, so ``cross_memory`` is taken for the
-        reference's signature and not read. ``mesh`` as in
-        :meth:`prefill`."""
+        reference's signature and not read.
+
+        On ``mesh`` (a mesh of ranks) the step serves a batch of ``batch``
+        rows whose caches have the layout of ``decode_cache_meta(batch,
+        max_len, enc_len)`` (both required): ``caches`` are this rank's
+        blocks of them under :meth:`decode_cache_specs`, as
+        :func:`repro_torch.serving.seed_caches` leaves them, and
+        ``tokens`` its rows' (split over ``batch_axes`` as
+        :meth:`prefill` splits them); the logits returned are those rows'.
+        No collective of the step carries a cache leaf: attention over a
+        sequence-split cache sums softmax statistics and partial outputs
+        over ``model`` (module docstring)."""
         cfg = self.cfg
         mesh = self._ranks(mesh)
         params = self.params if params is None else params
         tokens = self._on_device(params, tokens)
+        ba, unit_specs = (), [None] * len(self.layout)
+        if mesh is not None:
+            if batch is None or max_len is None:
+                raise ValueError("decode_step on a mesh needs the batch's "
+                                 "rows (batch=) and the caches' max_len")
+            ba = batch_split(mesh, batch, batch_axes)
+            want = batch // coll.axis_size(mesh, ba)
+            if tokens.shape[0] != want:
+                raise ValueError(f"{tokens.shape[0]} token rows: this rank "
+                                 f"holds {want} of {batch} (split over "
+                                 f"{ba})")
+            unit_specs = [cache_unit_specs(cfg, seg, mesh, ba, batch,
+                                           max_len, enc_len)
+                          for seg in self.layout]
         x = self._embed_tokens(params, tokens, mesh, "decode")
         cur_pos = int(cur_pos)
         positions = torch.tensor([cur_pos], device=x.device)
         new_caches = []
-        for sp, seg, cu in zip(params["segments"], self.layout, caches):
+        for sp, seg, cu, us in zip(params["segments"], self.layout, caches,
+                                   unit_specs):
             x, nc, _ = segment_apply(
                 sp, x, seg, cfg=cfg, mode="decode", caches=cu,
                 positions=positions, cur_pos=cur_pos, mesh=mesh,
-                batch_axes=batch_axes, cross_memory=cross_memory,
-                unshard=self._unit_unshard(seg, mesh, cfg, "decode"))
+                batch_axes=ba, cross_memory=cross_memory,
+                unshard=self._unit_unshard(seg, mesh, cfg, "decode"),
+                cache_spec=us)
             new_caches.append(nc)
         _, norm = make_norm(cfg)
         x = norm(params["final_norm"], x)
@@ -878,3 +1035,11 @@ class LM(nn.Module):
     # ----- shapes -----
     def decode_cache_meta(self, batch: int, max_len: int, enc_len: int = 0):
         return cache_meta(self.cfg, self.layout, batch, max_len, enc_len)
+
+    def decode_cache_specs(self, mesh, batch: int, max_len: int,
+                           enc_len: int = 0, batch_axes=("data",)):
+        """:func:`cache_specs` of :meth:`decode_cache_meta` on ``mesh``,
+        the batch split over ``batch_split(mesh, batch, batch_axes)``: the
+        layout serving holds its caches in."""
+        return cache_specs(self, mesh, batch_split(mesh, batch, batch_axes),
+                           batch, max_len, enc_len)

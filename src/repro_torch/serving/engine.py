@@ -26,6 +26,8 @@ import torch
 
 from .. import obs
 from ..core import QueryEngine, QueryHit, SearchRequest, as_mask
+from ..distributed import collectives as coll
+from ..distributed.sharding import batch_split, rank_box
 from ..launch.mesh import pick_device
 from .ops import DeleteOp, QueryOp, UpsertOp
 from .scheduler import ServerMetrics
@@ -63,14 +65,38 @@ def _seed_leaf(prefill_leaf, target, prompt_len: int):
 
 
 def seed_caches(lm, prefill_caches, batch: int, max_len: int,
-                prompt_len: int, enc_len: int = 0):
+                prompt_len: int, enc_len: int = 0, *, mesh=None,
+                batch_axes=("data",)):
     """Convert prefill caches (prompt-length kv and latents, recurrent
     states) into the decode cache layout of ``lm.decode_cache_meta``, on
-    the prefill caches' device."""
+    the prefill caches' device.
+
+    On ``mesh`` (a mesh of ranks) ``prefill_caches`` are this rank's rows'
+    (:meth:`LM.prefill` on the mesh) and each leaf keeps this rank's block
+    under ``lm.decode_cache_specs(mesh, batch, max_len, enc_len,
+    batch_axes)``: its rows, and its block of the sequence of a kv, latent
+    or cross-attention leaf, or of a recurrent state's channels or heads,
+    where ``model`` divides them (ring slots placed first, as without a
+    mesh). ``batch`` is the whole batch's row count."""
     metas = lm.decode_cache_meta(batch, max_len, enc_len)
-    return [_map_tree(lambda m, leaf: _seed_leaf(leaf, m, prompt_len),
-                      seg_meta, seg_cache)
-            for seg_meta, seg_cache in zip(metas, prefill_caches)]
+    if mesh is None:
+        return [_map_tree(lambda m, leaf: _seed_leaf(leaf, m, prompt_len),
+                          seg_meta, seg_cache)
+                for seg_meta, seg_cache in zip(metas, prefill_caches)]
+    specs = lm.decode_cache_specs(mesh, batch, max_len, enc_len, batch_axes)
+    out = []
+    for seg, seg_meta, seg_cache, seg_spec in zip(lm.layout, metas,
+                                                  prefill_caches, specs):
+        bd = 1 if seg.repeats > 1 else 0          # the leaves' batch dim
+
+        def block(m, leaf, spec):
+            rows = dataclasses.replace(m, shape=m.shape[:bd] + (
+                leaf.shape[bd],) + m.shape[bd + 1:])
+            z = _seed_leaf(leaf, rows, prompt_len)
+            return z[rank_box(mesh, spec, m.shape, whole=(bd,))].contiguous()
+
+        out.append(_map_tree(block, seg_meta, seg_cache, seg_spec))
+    return out
 
 
 def _map_tree(fn, tree, *rest):
@@ -106,15 +132,20 @@ class ServeEngine:
     at P + n_patches.
 
     With ``mesh`` (a mesh of ranks, :func:`repro_torch.launch.mesh.
-    make_rank_mesh`) every rank runs the engine on the same whole batch:
-    ``params`` are this rank's shards under ``SERVE_RULES`` (checked by
-    ``lm.check_params``; :func:`repro_torch.models.params.init_tree` or
+    make_rank_mesh`) every rank is given the same whole batch and serves
+    its rows of it in the reference's layout: ``params`` are this rank's
+    shards under ``SERVE_RULES`` (checked by ``lm.check_params``;
+    :func:`repro_torch.models.params.init_tree` or
     :func:`repro_torch.convert.lm_params_from_arrays` with ``mesh=`` and
-    ``rules=SERVE_RULES`` make them), ``device`` defaults to the mesh's and must be it, and
-    ``batch_axes`` are the axes the MoE's ``shard_map`` branch splits the
-    batch over. Tokens and ``logits_last`` come back whole on every rank,
-    and the caches, which :func:`seed_caches` seeds on each rank, are
-    whole too.
+    ``rules=SERVE_RULES`` make them), ``device`` defaults to the mesh's
+    and must be it, and the batch is split over the present
+    ``batch_axes`` that divide it (:func:`repro_torch.distributed.sharding.
+    batch_split`; none: replicated). :meth:`generate` prefills and
+    decodes the rank's rows over its blocks of the caches
+    (:func:`seed_caches` with ``mesh=``), and all-gathers the tokens and
+    ``logits_last`` over the batch axes once, at the end: they come back
+    whole on every rank. No collective of a decode step carries a cache
+    leaf or the whole batch's logits.
     """
 
     def __init__(self, lm, params=None, *, device=None, mesh=None,
@@ -133,27 +164,32 @@ class ServeEngine:
     @torch.inference_mode()
     def generate(self, batch: Dict[str, Any], n_new: int,
                  max_len: int) -> GenerationResult:
-        lm = self.lm
+        lm, mesh = self.lm, self.mesh
         inputs = {k: torch.as_tensor(batch[k], device=self.device)
                   for k in ("tokens", "frames", "patches") if k in batch}
         B, P = inputs["tokens"].shape
-        on_mesh = {"mesh": self.mesh, "batch_axes": self.batch_axes}
+        on_mesh = {"mesh": mesh, "batch_axes": self.batch_axes}
         logits, prefill_caches = lm.prefill(self.params, inputs, **on_mesh)
         enc_len = inputs["frames"].shape[1] if "frames" in inputs else 0
         prompt_len = P + (inputs["patches"].shape[1] if "patches" in inputs
                           else 0)
         caches = seed_caches(lm, prefill_caches, B, max_len, prompt_len,
-                             enc_len)
+                             enc_len, **on_mesh)
         out = []
         cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
         for i in range(n_new):
             out.append(cur)
-            logits, caches = lm.decode_step(self.params, caches, cur,
-                                            prompt_len + i, **on_mesh)
+            logits, caches = lm.decode_step(
+                self.params, caches, cur, prompt_len + i, batch=B,
+                max_len=max_len, enc_len=enc_len, **on_mesh)
             cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        return GenerationResult(
-            tokens=torch.cat(out, 1).to(torch.int32).cpu().numpy(),
-            logits_last=logits.float().cpu().numpy())
+        tokens = torch.cat(out, 1).to(torch.int32)
+        if mesh is not None:
+            ba = batch_split(mesh, B, self.batch_axes)
+            tokens = coll.all_gather(tokens, mesh, ba, 0)
+            logits = coll.all_gather(logits, mesh, ba, 0)
+        return GenerationResult(tokens=tokens.cpu().numpy(),
+                                logits_last=logits.float().cpu().numpy())
 
 
 class _Embedder:

@@ -6,7 +6,8 @@ process (the fake process group is a process-wide default group):
 On a fake (pod 2, data 2, model 2) group of 8 ranks
 (``repro_torch.launch.dryrun.fake_group``): olmo-1b smoke's train and
 decode bundles counted on fake tensors (``count_step``), with their
-argument bytes beside the metas' reckoning; each segment's repeat count
+argument bytes beside the metas' reckoning and, in decode, the caches'
+reckoning in the reference's layout; each segment's repeat count
 bumped in turn for recurrentgemma-2b and deepseek-v3-671b smoke; the MSTG
 serving step's three layouts at a small size; and a second
 ``fake_group`` inside the first. Then, on a fake group of 256 ranks,
@@ -57,6 +58,9 @@ def main(out: str) -> None:
                     shard_bytes=pr.tree_bytes(pr.shard_metas(
                         runner.metas, mesh, rules)),
                     whole_bytes=pr.tree_bytes(runner.metas))
+                if kind == "decode":
+                    res[kind]["cache_reckoned"] = dryrun.laid_out_bytes(
+                        *runner.decode_cache_layout(shape), mesh)
             except Exception:  # noqa: BLE001 — the test reads the status
                 res[kind] = dict(status="error",
                                  traceback=traceback.format_exc())

@@ -28,6 +28,16 @@ SERVE_ARCHS = ("qwen3-moe-30b-a3b", "olmo-1b", "gemma3-1b", "qwen3-32b",
                "qwen1.5-110b", "deepseek-v3-671b", "recurrentgemma-2b",
                "rwkv6-7b", "seamless-m4t-large-v2", "llava-next-mistral-7b")
 SERVE_B, SERVE_P, SERVE_NEW, SERVE_MAX_LEN = 4, 8, 4, 32
+# serving edge cases, (batch, max_len): a batch of 3, which the data axis
+# does not divide (it is replicated), and a max_len of 31, which the model
+# axis does not divide (kv sequences stay whole; a ring of 16 and MLA's
+# latent rank still split)
+SERVE_EDGE_CASES = {"batch3": (3, SERVE_MAX_LEN), "len31": (SERVE_B, 31)}
+SERVE_EDGE_ARCHS = ("olmo-1b", "qwen3-moe-30b-a3b", "deepseek-v3-671b",
+                    "gemma3-1b")
+# a second max_len for the decode step's collectives, which must not grow
+# with the caches
+SERVE_LONG_MAX_LEN = 64
 # The smoke models' attention scores under the init as drawn are wide
 # enough that float32 rounding in another summation order alone moves the
 # front-end configs' logits past the tolerance (tests/test_torch_frontends.py):
@@ -159,19 +169,20 @@ def weights(arch: str, seed: int = 0):
     return _numpy(tree)
 
 
-def serve_inputs(arch: str, seed: int = 1) -> dict:
-    """The prompt (and frames or patches) of ``arch``'s serving case."""
+def serve_inputs(arch: str, seed: int = 1, B: int = SERVE_B) -> dict:
+    """The prompt (and frames or patches) of ``arch``'s serving case, B
+    rows."""
     from repro_torch import configs
     cfg = configs.get_smoke_config(arch)
     rng = np.random.default_rng(seed)
-    batch = {"tokens": rng.integers(0, cfg.vocab, (SERVE_B, SERVE_P)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, SERVE_P)
                                     ).astype(np.int32)}
     if cfg.n_enc_layers:
         batch["frames"] = rng.normal(
-            0, 1, (SERVE_B, 16, cfg.frontend_dim)).astype(np.float32)
+            0, 1, (B, 16, cfg.frontend_dim)).astype(np.float32)
     if cfg.frontend == "vision_stub":
         batch["patches"] = rng.normal(
-            0, 1, (SERVE_B, cfg.n_frontend_tokens, cfg.frontend_dim)
+            0, 1, (B, cfg.n_frontend_tokens, cfg.frontend_dim)
         ).astype(np.float32)
     return batch
 

@@ -10,7 +10,9 @@ Every process has its own time limit: :func:`run_ranks` joins rank 0 for
 still alive and raises; the process group itself times out a collective
 after ``PG_TIMEOUT_S``, so a rank whose peer died fails instead of waiting.
 """
+import contextlib
 import datetime
+import math
 import os
 import subprocess
 import sys
@@ -22,6 +24,8 @@ import torch
 import _mesh_common as mc
 
 RANK_LIMIT_S = 300
+# the collectives by name, as the serve group's logs code them
+COLLECTIVES = ("psum", "pmax", "all_gather", "psum_scatter", "ppermute")
 GRACE_S = 60
 PG_TIMEOUT_S = 120
 REFERENCE_LIMIT_S = 300
@@ -177,18 +181,15 @@ def _group_moe(mesh, out_dir: str) -> dict:
     def run(key, cfg, layer, x, mode, cf):
         """``moe_apply`` on the mesh; ``layer`` as the model's per-unit
         gather leaves it: the experts this rank's shards, the rest whole.
-        In training the rank takes its rows of x (the batch split over
+        In every mode the rank takes its rows of x (the batch split over
         data) and gives its rows of y, gathered here to the whole."""
         mesh.counts.clear()
-        x = torch.from_numpy(x)
-        if mode == "train":
-            x = batch_rows({"x": x}, mesh, ("data",))["x"]
+        x = batch_rows({"x": torch.from_numpy(x)}, mesh, ("data",))["x"]
         with torch.no_grad():
             y, aux = moe.moe_apply(layer, x, cfg=cfg,
                                    mesh=mesh, batch_axes=("data",),
                                    capacity_factor=cf, mode=mode)
-            if mode == "train":
-                y = coll.all_gather(y, mesh, "data", 0)
+            y = coll.all_gather(y, mesh, "data", 0)
         res[f"{key}/{mode}/y"] = y.numpy()
         res[f"{key}/{mode}/aux"] = aux.numpy()
         for path in ("moe_full_ep", "moe_shard_map", "moe_local"):
@@ -264,32 +265,158 @@ def _group_moe(mesh, out_dir: str) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def _collectives_log(coll):
+    """Log (name, input shape, output shape) of every collective that runs
+    outside ``coll.unshard`` (the per-unit weight gathers) in the block."""
+    log, depth = [], [0]
+    run, unshard = coll._run, coll.unshard
+
+    def logged_run(mesh, name, x, fn, axes):
+        out = run(mesh, name, x, fn, axes)
+        if depth[0] == 0 and coll._axes(axes):
+            log.append((name, tuple(x.shape), tuple(out.shape)))
+        return out
+
+    def counted_unshard(*args, **kwargs):
+        depth[0] += 1
+        try:
+            return unshard(*args, **kwargs)
+        finally:
+            depth[0] -= 1
+
+    coll._run, coll.unshard = logged_run, counted_unshard
+    try:
+        yield log
+    finally:
+        coll._run, coll.unshard = run, unshard
+
+
+def _serve_caches(mesh, lm, shard, whole, batch, max_len: int) -> dict:
+    """Prefill, seed and one decode step on the mesh and without it: the
+    rank's cache blocks (shapes, bytes, gathered back against the
+    mesh-less caches) after seeding and after the step, and the step's
+    collectives but the weight gathers."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import NamedSharding
+    from repro_torch.launch.dryrun import laid_out_bytes
+    from repro_torch.models.params import leaves, map_tree
+    from repro_torch.serving import seed_caches
+    B, P = batch["tokens"].shape
+    enc_len = batch["frames"].shape[1] if "frames" in batch else 0
+    prompt = P + (batch["patches"].shape[1] if "patches" in batch else 0)
+    metas = lm.decode_cache_meta(B, max_len, enc_len)
+    specs = lm.decode_cache_specs(mesh, B, max_len, enc_len)
+    dims = dict(batch=B, max_len=max_len, enc_len=enc_len)
+    out = {"reckoned_bytes": laid_out_bytes(metas, specs, mesh),
+           "block_shapes": _in_order(lambda m, sp: NamedSharding(
+               mesh, sp).shard_shape(m.shape), metas, specs)}
+    with torch.no_grad():
+        logits, pc = lm.prefill(shard, batch, mesh=mesh)
+        caches = seed_caches(lm, pc, B, max_len, prompt, enc_len, mesh=mesh)
+        wlogits, wpc = lm.prefill(whole, batch)
+        wcaches = seed_caches(lm, wpc, B, max_len, prompt, enc_len)
+
+        def record(when):
+            out[f"{when}/shapes"] = _in_order(lambda m, t: tuple(t.shape),
+                                              metas, caches)
+            out[f"{when}/bytes"] = sum(t.numel() * t.element_size()
+                                       for t in leaves(caches))
+            gathered = leaves(map_tree(lambda m, t, sp: coll.unshard(
+                t, sp, mesh), metas, caches, specs))
+            out[f"{when}/gathered_rel_err"] = max(
+                float((g.double() - w.double()).abs().max()
+                      / max(1.0, float(w.double().abs().max())))
+                for g, w in zip(gathered, leaves(wcaches)))
+
+        record("seeded")
+        cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        with _collectives_log(coll) as log:
+            lm.decode_step(shard, caches, cur, prompt, mesh=mesh, **dims)
+        lm.decode_step(whole, wcaches,
+                       torch.argmax(wlogits[:, -1], dim=-1)[:, None], prompt)
+        record("stepped")
+    out["collectives"] = log
+    return out
+
+
+def _in_order(fn, metas, *rest) -> list:
+    """``fn`` of each leaf of ``metas`` (and ``rest``'s matching leaves),
+    in one traversal order."""
+    from repro_torch.models.params import map_tree
+    got = []
+    map_tree(lambda *a: got.append(tuple(fn(*a))), metas, *rest)
+    return got
+
+
 def _group_serve(mesh, out_dir: str) -> dict:
-    """``ServeEngine`` on the mesh and without one, each config."""
+    """``ServeEngine`` on the mesh and without it for each config, its
+    edge cases, the rank's cache blocks through a decode step, and
+    ``pmax``."""
     from repro_torch import configs
     from repro_torch.convert import lm_params_from_arrays
+    from repro_torch.distributed import collectives as coll
     from repro_torch.models import LM, params
     from repro_torch.serving import ServeEngine
     res = {}
+
+    def serve(key, lm, shard, whole, batch, max_len):
+        mesh.counts.clear()
+        g = ServeEngine(lm, shard, mesh=mesh).generate(
+            batch, n_new=mc.SERVE_NEW, max_len=max_len)
+        res[f"{key}/tokens"] = g.tokens
+        res[f"{key}/logits"] = g.logits_last
+        res[f"{key}/moe_full_ep"] = mesh.counts["moe_full_ep"]
+        res[f"{key}/all_gather"] = mesh.counts["all_gather"]
+        g = ServeEngine(lm, whole, device="cpu").generate(
+            batch, n_new=mc.SERVE_NEW, max_len=max_len)
+        res[f"{key}/tokens_meshless"] = g.tokens
+        res[f"{key}/logits_meshless"] = g.logits_last
+
     for arch in mc.SERVE_ARCHS:
         cfg = configs.get_smoke_config(arch)
         lm = LM(cfg)
         tree = mc.weights(arch)
+        shard = lm_params_from_arrays(cfg, tree, "cpu", mesh=mesh,
+                                      rules=params.SERVE_RULES)
+        whole = lm_params_from_arrays(cfg, tree, "cpu")
         batch = mc.serve_inputs(arch)
-        mesh.counts.clear()
-        g = ServeEngine(lm, lm_params_from_arrays(
-            cfg, tree, "cpu", mesh=mesh, rules=params.SERVE_RULES),
-                        mesh=mesh).generate(batch, n_new=mc.SERVE_NEW,
-                                            max_len=mc.SERVE_MAX_LEN)
-        res[f"{arch}/tokens"] = g.tokens
-        res[f"{arch}/logits"] = g.logits_last
-        res[f"{arch}/moe_full_ep"] = mesh.counts["moe_full_ep"]
-        res[f"{arch}/all_gather"] = mesh.counts["all_gather"]
-        g = ServeEngine(lm, lm_params_from_arrays(cfg, tree, "cpu"),
-                        device="cpu").generate(batch, n_new=mc.SERVE_NEW,
-                                               max_len=mc.SERVE_MAX_LEN)
-        res[f"{arch}/tokens_meshless"] = g.tokens
-        res[f"{arch}/logits_meshless"] = g.logits_last
+        serve(arch, lm, shard, whole, batch, mc.SERVE_MAX_LEN)
+        for case, (B, max_len) in mc.SERVE_EDGE_CASES.items():
+            if arch in mc.SERVE_EDGE_ARCHS:
+                serve(f"{arch}/{case}", lm, shard, whole,
+                      mc.serve_inputs(arch, B=B), max_len)
+        c = _serve_caches(mesh, lm, shard, whole, batch, mc.SERVE_MAX_LEN)
+        for k in ("reckoned_bytes", "seeded/bytes", "stepped/bytes",
+                  "seeded/gathered_rel_err", "stepped/gathered_rel_err"):
+            res[f"{arch}/cache/{k}"] = c[k]
+        for when in ("seeded", "stepped"):
+            res[f"{arch}/cache/{when}/shapes_are_blocks"] = (
+                [tuple(x) for x in c[f"{when}/shapes"]]
+                == [tuple(x) for x in c["block_shapes"]])
+        # (op, values in, values out, rows in, last dim out) a collective
+        res[f"{arch}/cache/collectives"] = np.array(
+            [(COLLECTIVES.index(n), math.prod(i), math.prod(o),
+              (i or (1,))[0], (o or (1,))[-1])
+             for n, i, o in c["collectives"]], dtype=np.int64).reshape(-1, 5)
+        long = _serve_caches(mesh, lm, shard, whole, batch,
+                             mc.SERVE_LONG_MAX_LEN)
+        res[f"{arch}/cache/collectives_long_equal"] = \
+            long["collectives"] == c["collectives"]
+    # pmax over both axes against the max of every rank's tensor
+    rank = mesh.coord["data"] * mesh.shape["model"] + mesh.coord["model"]
+    draw = lambda r: torch.randn(
+        3, 5, generator=torch.Generator().manual_seed(50 + r))
+    res["pmax"] = coll.pmax(draw(rank), mesh, ("data", "model")).numpy()
+    res["pmax_want"] = torch.stack(
+        [draw(r) for r in range(mc.WORLD)]).amax(0).numpy()
+    res["pmax_model"] = coll.pmax(draw(rank), mesh, "model").numpy()
+    res["pmax_model_want"] = torch.stack(
+        [draw(mesh.coord["data"] * mesh.shape["model"] + m)
+         for m in range(mesh.shape["model"])]).amax(0).numpy()
+    x = draw(rank).requires_grad_(True)
+    res["pmax_backward_raises"] = _raises(
+        lambda: coll.pmax(x, mesh, "model").sum().backward(), RuntimeError)
     return res
 
 

@@ -14,7 +14,9 @@ in the full-EP branch (``mode="decode"``, experts placed by
 each under ``jax.jit`` (eager
 ``shard_map`` takes ~10x longer here). ``serve``: ``ServeEngine(lm,
 params, mesh=mesh).generate`` for each of ``_mesh_common.SERVE_ARCHS``,
-the parameters placed by ``SERVE_RULES``. ``train``: for each of
+the parameters placed by ``SERVE_RULES``, and for
+``_mesh_common.SERVE_EDGE_ARCHS`` each of ``SERVE_EDGE_CASES``.
+``train``: for each of
 ``_mesh_common.TRAIN_ARCHS``, ``jax.value_and_grad(lm.train_loss)`` on the
 mesh and one step of ``make_train_step(lm, mesh=mesh)`` (its ``jit`` with
 the parameter, optimizer and batch shardings) from
@@ -104,10 +106,19 @@ def main(out: str, what: str) -> None:
                 sharding_tree(lm.abstract_params(), mesh, SERVE_RULES))
             batch = {k: jnp.asarray(v)
                      for k, v in mc.serve_inputs(arch).items()}
-            g = ServeEngine(lm, params, mesh=mesh).generate(
-                batch, n_new=mc.SERVE_NEW, max_len=mc.SERVE_MAX_LEN)
+            eng = ServeEngine(lm, params, mesh=mesh)
+            g = eng.generate(batch, n_new=mc.SERVE_NEW,
+                             max_len=mc.SERVE_MAX_LEN)
             res[f"{arch}/tokens"] = np.asarray(g.tokens)
             res[f"{arch}/logits"] = np.asarray(g.logits_last)
+            if arch not in mc.SERVE_EDGE_ARCHS:
+                continue
+            for case, (B, max_len) in mc.SERVE_EDGE_CASES.items():
+                g = eng.generate({k: jnp.asarray(v) for k, v in
+                                  mc.serve_inputs(arch, B=B).items()},
+                                 n_new=mc.SERVE_NEW, max_len=max_len)
+                res[f"{arch}/{case}/tokens"] = np.asarray(g.tokens)
+                res[f"{arch}/{case}/logits"] = np.asarray(g.logits_last)
     elif what == "train":
         train(mesh, res)
     elif what == "retrieval":

@@ -53,8 +53,11 @@ def test_bundles_run_on_a_fake_mesh(ranks, kind):
 @pytest.mark.parametrize("kind", ["train", "decode"])
 def test_argument_bytes_are_the_shard_metas_and_the_batch(ranks, kind):
     """A rank is handed its shards (a quarter of olmo-1b smoke under
-    DEFAULT_RULES' FSDP x TP on (2, 2, 2), half under SERVE_RULES' TP),
-    the whole batch and, in decode, the whole caches."""
+    DEFAULT_RULES' FSDP x TP on (2, 2, 2), half under SERVE_RULES' TP);
+    in training the whole batch, in decode its rows of the tokens (2 of 8:
+    the batch over pod and data) and its blocks of the caches (its rows,
+    32 of 64 positions: the sequence over model), the bytes the
+    reference's layout reckons."""
     rec = ranks[kind]
     args = rec["arg_bytes"]
     assert args[0] == rec["shard_bytes"] < rec["whole_bytes"]
@@ -64,10 +67,12 @@ def test_argument_bytes_are_the_shard_metas_and_the_batch(ranks, kind):
         assert args[1] == 2 * rec["shard_bytes"] + 4
         assert args[2] == 2 * B * S * 4             # tokens and labels
     else:
-        assert args[2] == B * 4 and args[3] == 0    # tokens, the position
+        B_loc, S_loc = B // 4, S // 2
+        assert args[2] == B_loc * 4 and args[3] == 0  # tokens, position
         cfg = get_smoke_config("olmo-1b")
-        assert args[1] == (2 * cfg.n_layers * B * S * cfg.n_kv_heads
-                           * cfg.head_dim * 4)
+        assert args[1] == rec["cache_reckoned"] == (
+            2 * cfg.n_layers * B_loc * S_loc * cfg.n_kv_heads
+            * cfg.head_dim * 4)
 
 
 @pytest.mark.parametrize("case", ["recurrentgemma-2b|train",
@@ -113,10 +118,13 @@ def test_production_cell_record(ranks):
                                                           "model": 16}
     mem = rec["memory"]
     assert mem["argument_bytes"] == sum(mem["argument_bytes_by_arg"].values())
-    # the caches are whole on every rank and updated in place
+    # a rank's blocks of the caches, the reference's layout, updated in
+    # place: olmo-1b's (16 layers, k and v) of 8 of 128 rows and 2,048 of
+    # 32,768 positions, 16 kv heads of 128 in bfloat16
     assert mem["alias_bytes"] == mem["argument_bytes_by_arg"]["1"]
-    assert rec["cache_bytes_reference_layout"] * 256 == \
-        mem["argument_bytes_by_arg"]["1"]
+    assert rec["cache_bytes_reference_layout"] == \
+        mem["argument_bytes_by_arg"]["1"] == 2_147_483_648
+    assert mem["argument_bytes_by_arg"]["2"] == 8 * 4     # its rows' tokens
     for key in ("flops_per_device", "bytes_per_device"):
         assert rec[key] > 0
     assert rec["collective_counts"]["all-gather"] > 0

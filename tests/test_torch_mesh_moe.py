@@ -10,12 +10,13 @@ Cases:
   bit for bit, for every smoke config under both rule sets, with the
   default slab and with slabs of 97 elements (whose runs cut rows);
   ``convert.lm_params_from_arrays(..., mesh=)`` gives the same slices.
-* ``moe_apply`` on the same weights (carried by ``convert``) and input:
-  in full expert parallelism (``mode="decode"``, experts placed by
-  ``SERVE_RULES``) and in the ``shard_map`` branch (``mode="train"``,
-  ``DEFAULT_RULES``: experts over model, D over data; each rank given its
-  rows of the batch, as in training, its output rows gathered whole for
-  the comparison), every rank's output
+* ``moe_apply`` on the same weights (carried by ``convert``) and input,
+  each rank given its rows of the batch (split over data, as the model
+  hands them in every mode) and its output rows gathered whole for the
+  comparison: in full expert parallelism (``mode="decode"``, experts
+  placed by ``SERVE_RULES``) and in the ``shard_map`` branch
+  (``mode="train"``, ``DEFAULT_RULES``: experts over model, D over data),
+  every rank's output
   within rtol 1e-5 / atol 1e-6 of the scale of the reference's, and the
   aux equal to the last bit of float32 (the router's mean sums in another
   order, as on the local path). The ``shard_map`` branch reckons capacity
