@@ -121,8 +121,21 @@ Phases, each printing one JSON object per line:
    a logical D = 4 build of the same rows on rank 0 under ``tournament``
    and on every rank under ``all_gather``); ``launch.serve.main(["--shards",
    "4", "--n", "1200", "--requests", "24"])`` on every rank, 24 served, 24
-   non-empty. Reported: request ms by schedule beside the logical
-   deployment's, the collectives' calls and staged bytes a request.
+   non-empty. Then the async server on the ranks (rank 0's scheduler,
+   clock and embedder decide each round and broadcast it): (d) over the
+   flat layout (all_gather), 256 queries in four waves of 64 on rank 0's
+   ``perf_counter``, ``SLOPolicy(max_wait_ms=1.0, max_batch=64)``, shard 3
+   failed for wave 3: every rank's outcomes equal rank 0's, ids equal the
+   flat route's (wave 3's the ``sharded`` phase's shard-3-failed answer),
+   one kernel-5 launch a rank a round its shard is up, kernel 5 held
+   against its plain version at the round's shape on rank 0; (e) over the
+   build layout, its 64 queries: ids equal the batched rank answer,
+   kernels 1 and 3 on every rank; (f) ``launch.serve.main`` with
+   ``--async`` on every rank, 24 served, 24 non-empty, summaries equal but
+   ``seconds``. Reported: request ms by schedule beside the logical
+   deployment's, the collectives' calls and staged bytes a request; the
+   async rounds, steps, broadcasts and staged bytes a round, rank 0's e2e
+   and queue-wait p50 / p99 beside the logical D = 4 async server's.
 13. ``serving``: the serving front ends (``repro_torch.serving``) on the
    backends the phases above built (it pulls in ``graph`` and ``sharded``;
    it builds no index). After ``sharded``: ``RetrievalServer`` on the
@@ -1832,6 +1845,10 @@ RANKS_MERGES = ("all_gather", "tournament", "host")
 RANKS_BUILD_N, RANKS_BUILD_Q = 4_000, 64
 RANKS_SERVE_ARGV = ["--shards", str(RANKS_D), "--n", "1200",
                     "--requests", "24"]
+# the async server on the ranks: (d) the flat layout's queries in waves,
+# shard D - 1 failed for one of them
+RANKS_ASYNC_POLICY = dict(max_wait_ms=1.0, max_batch=64)
+RANKS_ASYNC_WAVES, RANKS_ASYNC_FAILED_WAVE = 4, 2
 # host threads a rank (torch's and, through OMP_NUM_THREADS, numpy's): the
 # ranks and this process's logical build share the host's CPUs
 RANKS_THREADS = 2
@@ -1924,15 +1941,95 @@ def _ranks_world1(dev, ds, qlo, qhi, k: int, flat_res) -> dict:
     return out
 
 
+def _ranks_async(dep, mesh, queries, qlo, qhi, k: int, waves: int,
+                 failed_wave=None, capture=None):
+    """The async server over ``dep``, one rank's part of an SPMD run on
+    rank 0's ``perf_counter``: the queries in ``waves`` equal waves, each
+    drained by ``run_until_idle``, shard D - 1 failed for ``failed_wave``.
+    ``capture`` names an ``ops`` entry point whose first call's arguments
+    are kept. Returns (the line's record, the outcomes as arrays, the
+    captured arguments)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ANY_OVERLAP
+    from repro_torch.kernels import ops
+    from repro_torch.serving import AsyncRetrievalServer, SLOPolicy
+    D, Q = dep.spec.n_shards, len(qlo)
+    per = Q // waves
+    embeds, rounds, alive = [0], [0], [0]
+
+    def embed(items):
+        embeds[0] += 1
+        return queries[np.asarray(items)]
+
+    srv = AsyncRetrievalServer(dep, embed, k=k, ef=64,
+                               policy=SLOPolicy(**RANKS_ASYNC_POLICY))
+    step = srv.step
+
+    def counted_step():
+        got = step()
+        if srv.step_stats["dispatched"]:
+            rounds[0] += 1
+            alive[0] += bool(dep._alive()[dep.rank])
+        return got
+
+    srv.step = counted_step
+    out = [None] * Q
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    mesh.counts.clear()
+    cap = Capture(ops, capture) if capture else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    with cap:
+        for w in range(waves):
+            if w == failed_wave:
+                dep.fail(D - 1)
+            tickets = {srv.submit(i, qlo[i], qhi[i], ANY_OVERLAP): i
+                       for i in range(w * per, (w + 1) * per)}
+            got = srv.run_until_idle()
+            if w == failed_wave:
+                dep.restore(D - 1)
+            for t, i in tickets.items():
+                out[i] = got[t]
+    wall = time.perf_counter() - t0
+    launches = launched(ops.LAUNCHES)
+    counts = dict(mesh.counts)
+    snap = srv.snapshot()
+    rec = {"rounds": rounds[0], "rounds_shard_up": alive[0],
+           "steps": snap["steps"], "embeds": embeds[0], "wall_s": wall,
+           "launches": launches, "broadcasts": counts.get("broadcast", 0),
+           "staged_bytes": counts.get("staged_bytes", 0),
+           "staged_bytes_a_round": counts.get("staged_bytes", 0)
+           / max(rounds[0], 1),
+           "served": snap["served"], "degraded": snap["degraded"],
+           "shed_total": snap["shed_total"],
+           "e2e_ms": {p: snap["e2e_ms"][p] for p in ("p50", "p99")},
+           "queue_wait_ms": {p: snap["queue_wait_ms"][p]
+                             for p in ("p50", "p99")},
+           "snapshot": json.dumps(snap, sort_keys=True)}
+    served = [bool(o) for o in out]
+    arrays = {"served": np.asarray(served)}
+    if all(served):
+        arrays.update(
+            ids=np.stack([o.hit.ids for o in out]),
+            dists=np.stack([o.hit.dists for o in out]),
+            times=np.asarray([(o.queue_ms, o.e2e_ms) for o in out]),
+            flags=np.asarray([(o.degraded, o.deadline_missed)
+                              for o in out]))
+    return rec, arrays, (cap.best if capture else None)
+
+
 def _ranks_rank(rank: int, world: int, store: str, data_dir: str, k: int,
                 device: str) -> None:
     """(b), one rank of the (data ``world``) mesh over gloo on the card:
     the flat layout over the ``.npy`` memmaps of ``data_dir`` under each
     merge (its staged bytes, one counted request, the timed ones, shard 3
-    failed), ``per_shard_k=5``, the build layout (its own slice built
-    here, graph route) under ``tournament`` and ``all_gather``, then
-    ``launch.serve.main`` with ``--shards``. Writes ``rank<r>.json`` and
-    ``rank<r>.npz``, or ``rank<r>.err`` with the traceback."""
+    failed; under ``all_gather`` the async server, (d)),
+    ``per_shard_k=5``, the build layout (its own slice built here, graph
+    route) under ``tournament`` and ``all_gather`` and then the async
+    server, (e), then ``launch.serve.main`` with ``--shards``, and with
+    ``--async`` too, (f). Writes ``rank<r>.json`` and ``rank<r>.npz``, or
+    ``rank<r>.err`` with the traceback."""
     import datetime
     import gc
     import traceback
@@ -1947,7 +2044,7 @@ def _ranks_rank(rank: int, world: int, store: str, data_dir: str, k: int,
         from repro_torch.core import ANY_OVERLAP, EngineConfig, SearchRequest
         from repro_torch.distributed import DeploymentSpec, ShardedDeployment
         from repro_torch.distributed.topk import local_flat_topk
-        from repro_torch.kernels import ops
+        from repro_torch.kernels import ops, ref
         from repro_torch.launch import make_rank_mesh, serve
         dev = torch.device(device)
         if dev.type == "cuda":
@@ -2011,6 +2108,25 @@ def _ranks_rank(rank: int, world: int, store: str, data_dir: str, k: int,
             dep.fail(world - 1)
             lost = dep.execute(req)
             dep.restore(world - 1)
+            if merge == "all_gather":
+                # (d): the async server over this deployment
+                rec, out, cap = _ranks_async(
+                    dep, mesh, load("queries"), load("qlo"), load("qhi"), k,
+                    RANKS_ASYNC_WAVES, RANKS_ASYNC_FAILED_WAVE,
+                    capture="pairwise_l2_masked" if rank == 0 else None)
+                if cap is not None:
+                    got5 = ops.pairwise_l2_masked(*cap)
+                    want5 = ref.pairwise_l2_masked_ref(*cap)
+                    err, ok = compare_dists(got5, want5,
+                                            RTOL["pairwise_l2_masked"])
+                    rec["kernel5"] = {
+                        "shape": [cap[0].shape[0], *cap[1].shape],
+                        "max_abs_err": err, "ok": ok,
+                        "rtol": RTOL["pairwise_l2_masked"]}
+                    del got5, want5, cap
+                res["async_flat"] = rec
+                arrays.update({f"async_flat/{key}": v
+                               for key, v in out.items()})
             res[merge] = {
                 "stage_s": stage_s, "request_ms": ms, "launches": launches,
                 "counts": counts, "merge": got.report.merge,
@@ -2052,6 +2168,11 @@ def _ranks_rank(rank: int, world: int, store: str, data_dir: str, k: int,
                 "routes": [s.route for s in got.report.shards],
                 "missing_shards": list(got.report.missing_shards)}
             arrays[f"build_{merge}/ids"] = got.ids
+        # (e): the async server over the all_gather build deployment
+        rec, out, _ = _ranks_async(dep, mesh, load("build_queries"),
+                                   load("build_qlo"), load("build_qhi"), k, 1)
+        res["async_build"] = rec
+        arrays.update({f"async_build/{key}": v for key, v in out.items()})
         del dep
 
         # the serving driver, one shard a rank
@@ -2063,6 +2184,13 @@ def _ranks_rank(rank: int, world: int, store: str, data_dir: str, k: int,
                         **{key: summary[key] for key in (
                             "mode", "served", "non_empty", "ranks",
                             "degraded_queries", "seconds")}}
+        # (f): launch.serve's async server on the ranks
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        summary = serve.main(RANKS_SERVE_ARGV + ["--async"])
+        res["serve_async"] = {"main_s": time.perf_counter() - t0,
+                              "launches": launched(ops.LAUNCHES),
+                              "summary": summary}
         res["peak_allocated"] = torch.cuda.max_memory_allocated()
         np.savez(os.path.join(data_dir, f"rank{rank}.npz"), **arrays)
         with open(os.path.join(data_dir, f"rank{rank}.json"), "w") as f:
@@ -2075,7 +2203,8 @@ def _ranks_rank(rank: int, world: int, store: str, data_dir: str, k: int,
 
 
 def sharded_ranks_phase(dev, ds, qlo, qhi, k: int, flat_res,
-                        flat_ms: float, sharded: dict, job) -> None:
+                        flat_ms: float, sharded: dict, job,
+                        logical_async=None) -> None:
     """The ``sharded_ranks`` line: sharded retrieval on a mesh of ranks,
     one shard a rank, the merges as collectives. (a)
     :func:`_ranks_world1`. (b) :data:`RANKS_D` gloo ranks on the card,
@@ -2092,11 +2221,22 @@ def sharded_ranks_phase(dev, ds, qlo, qhi, k: int, flat_res,
     over the other rows; the build layout launching kernels 1 and 3, its
     ids equal to the logical build's on rank 0 under ``tournament`` and on
     every rank under ``all_gather``; ``launch.serve.main`` serving 24
-    requests, 24 non-empty. Reported: request ms by schedule beside the
-    logical deployment's (gloo on one card stages every merge through the
-    host) and a rank's scan alone, the collectives' calls and staged
-    bytes a request, ``per_shard_k=5`` recall against the flat route.
-    The temporary directory is removed once the ranks' files are read."""
+    requests, 24 non-empty; the async server (:func:`_ranks_async`),
+    every rank's outcomes and snapshot equal to rank 0's: (d) on the flat
+    layout, ids equal to the flat route's (the ``sharded`` phase's
+    shard-3-failed answer in the failed wave, degraded there alone), one
+    kernel-5 launch a rank a round its shard is up, kernel 5 against its
+    plain version at the round's shape on rank 0; (e) on the build layout,
+    ids equal to the batched rank answer, kernels 1 and 3 on every rank;
+    (f) ``launch.serve.main`` with ``--async``, 24 served, 24 non-empty,
+    the summaries equal but ``seconds``. Reported: request ms by schedule
+    beside the logical deployment's (gloo on one card stages every merge
+    through the host) and a rank's scan alone, the collectives' calls and
+    staged bytes a request, ``per_shard_k=5`` recall against the flat
+    route; the async rounds, steps, broadcasts, staged bytes a round and
+    rank 0's latency percentiles beside ``logical_async``, the
+    ``serving`` phase's logical D = 4 async server. The temporary
+    directory is removed once the ranks' files are read."""
     import shutil
     import tempfile
     import numpy as np
@@ -2186,6 +2326,69 @@ def sharded_ranks_phase(dev, ds, qlo, qhi, k: int, flat_res,
         arrs[0]["build_tournament/ids"], lres.ids)),
         "all_gather_every_rank": [bool(np.array_equal(
             a["build_all_gather/ids"], lres.ids)) for a in arrs]}
+
+    # the async server on the ranks: (d) flat, (e) build, (f) launch.serve
+    per = len(qlo) // RANKS_ASYNC_WAVES
+    lost_rows = np.zeros(len(qlo), bool)
+    lost_rows[RANKS_ASYNC_FAILED_WAVE * per:
+              (RANKS_ASYNC_FAILED_WAVE + 1) * per] = True
+    want_async = np.where(lost_rows[:, None], sharded["lost_ids"],
+                          flat_res.ids)
+
+    def same_as_rank0(layout, r):
+        keys = [key for key in arrs[0] if key.startswith(f"async_{layout}/")]
+        return (all(key in arrs[r] and np.array_equal(arrs[r][key],
+                                                      arrs[0][key])
+                    for key in keys)
+                and ranks[r][f"async_{layout}"]["snapshot"]
+                == ranks[0][f"async_{layout}"]["snapshot"])
+
+    def all_served(layout):
+        return [bool(a[f"async_{layout}/served"].all()) for a in arrs]
+
+    served = {layout: all_served(layout) for layout in ("flat", "build")}
+    async_equal = {layout: [same_as_rank0(layout, r) for r in range(RANKS_D)]
+                   for layout in ("flat", "build")}
+    a0 = arrs[0]
+    flat_ids_ok = served["flat"][0] and bool(np.array_equal(
+        a0["async_flat/ids"], want_async))
+    flat_dists_equal = served["flat"][0] and bool(np.array_equal(
+        a0["async_flat/dists"][~lost_rows], flat_res.dists[~lost_rows]))
+    degraded_ok = served["flat"][0] and bool(np.array_equal(
+        a0["async_flat/flags"][:, 0].astype(bool), lost_rows))
+    build_ids_ok = [s and bool(np.array_equal(a["async_build/ids"],
+                                              a["build_all_gather/ids"]))
+                    for s, a in zip(served["build"], arrs)]
+    serve_async = [dict(r["serve_async"]["summary"]) for r in ranks]
+    for s in serve_async:
+        s.pop("seconds")
+    r0_flat = ranks[0]["async_flat"]
+    async_line = {
+        "policy": RANKS_ASYNC_POLICY, "waves": RANKS_ASYNC_WAVES,
+        "failed_wave": RANKS_ASYNC_FAILED_WAVE,
+        "flat": {key: [r["async_flat"][key] for r in ranks]
+                 for key in ("rounds", "rounds_shard_up", "steps", "embeds",
+                             "broadcasts", "staged_bytes_a_round",
+                             "launches", "wall_s")},
+        "flat_rank0": {key: r0_flat[key] for key in (
+            "served", "degraded", "shed_total", "e2e_ms", "queue_wait_ms")},
+        "logical_async_d4": logical_async,
+        "kernel5_rank0": r0_flat.get("kernel5"),
+        "build": {key: [r["async_build"][key] for r in ranks]
+                  for key in ("rounds", "steps", "broadcasts",
+                              "staged_bytes_a_round", "launches", "wall_s")},
+        "build_rank0": {key: ranks[0]["async_build"][key] for key in (
+            "e2e_ms", "queue_wait_ms")},
+        "serve": [{"main_s": r["serve_async"]["main_s"],
+                   "launches": r["serve_async"]["launches"],
+                   **r["serve_async"]["summary"]} for r in ranks],
+        "equal_rank0": async_equal,
+        "flat_ids_equal_flat_route_and_lost": flat_ids_ok,
+        "flat_dists_bit_equal_flat_route_up_waves": flat_dists_equal,
+        "flat_degraded_in_failed_wave_only": degraded_ok,
+        "build_ids_equal_batched": build_ids_ok,
+        "serve_summaries_equal": all(s == serve_async[0]
+                                     for s in serve_async)}
     emit({"phase": "sharded_ranks", "nvidia_smi": nvidia_smi_line(),
           "n": ds.n, "shards": RANKS_D, "Q": len(qlo), "k": k,
           "world1": world1,
@@ -2233,6 +2436,7 @@ def sharded_ranks_phase(dev, ds, qlo, qhi, k: int, flat_res,
                         for m in ("tournament", "all_gather")},
                     "ids_equal_logical": build_equal},
           "serve": [r["serve"] for r in ranks],
+          "async": async_line,
           "peak_allocated": [r["peak_allocated"] for r in ranks],
           "phase_s": time.perf_counter() - t_phase})
     for r, (res, a) in enumerate(zip(ranks, arrs)):
@@ -2276,6 +2480,43 @@ def sharded_ranks_phase(dev, ds, qlo, qhi, k: int, flat_res,
               f"non-empty")
     check(build_equal["tournament_rank0"], "sharded_ranks build tournament: "
           "rank 0's ids differ from the logical build's")
+    for layout in ("flat", "build"):
+        check(all(served[layout]), f"sharded_ranks async {layout}: a query "
+              f"was shed ({served[layout]})")
+        check(all(async_equal[layout]), f"sharded_ranks async {layout}: "
+              f"outcomes differ from rank 0's ({async_equal[layout]})")
+    check(flat_ids_ok, "sharded_ranks async flat: ids differ from the flat "
+          "route's, or the failed wave's from the sharded phase's "
+          "shard-3-failed answer")
+    check(degraded_ok, "sharded_ranks async flat: degraded answers outside "
+          "the failed wave, or not in it")
+    check(r0_flat.get("kernel5", {}).get("ok", False),
+          f"sharded_ranks async flat: kernel 5 differs from its plain "
+          f"version at the round's shape ({r0_flat.get('kernel5')})")
+    for r, res in enumerate(ranks):
+        fl, bl = res["async_flat"], res["async_build"]
+        check(fl["rounds"] == RANKS_ASYNC_WAVES
+              and fl["launches"] == {"pairwise_l2_masked":
+                                     fl["rounds_shard_up"]},
+              f"sharded_ranks rank {r} async flat: {fl['rounds']} rounds, "
+              f"launches {fl['launches']}, expected one pairwise_l2_masked "
+              f"a round of the {fl['rounds_shard_up']} its shard was up")
+        check(fl["embeds"] == (fl["rounds"] if r == 0 else 0),
+              f"sharded_ranks rank {r} async flat: {fl['embeds']} embeds")
+        check(bl["launches"].get("gathered_topk", 0) > 0
+              and bl["launches"].get("gathered_l2", 0) > 0,
+              f"sharded_ranks rank {r} async build: kernels 1 and 3 not "
+              f"launched ({bl['launches']})")
+        check(build_ids_ok[r], f"sharded_ranks rank {r} async build: ids "
+              f"differ from the batched rank answer")
+        sa = res["serve_async"]["summary"]
+        check(sa["mode"] == "async" and sa["served"] == 24
+              and sa["non_empty"] == 24,
+              f"sharded_ranks rank {r}: launch.serve --async served "
+              f"{sa['served']}, {sa['non_empty']} non-empty")
+    check(async_line["serve_summaries_equal"],
+          f"sharded_ranks: launch.serve --async summaries differ: "
+          f"{serve_async}")
 
 
 # ---- serving front ends -------------------------------------------------------
@@ -2323,11 +2564,13 @@ def serve_waves(srv, ds, qlo, qhi, mask, waves: int, steps_between: int):
     return out, wall
 
 
-def serving_backends(stream: dict, dep, ds, qlo, qhi, k: int) -> None:
+def serving_backends(stream: dict, dep, ds, qlo, qhi, k: int) -> dict:
     """The serving front ends over the mutable and the sharded backend:
     ``RetrievalServer`` on the streaming phase's ``SegmentedIndex``
     (upserts, deletes and queries in one tick), and the async server on the
-    sharded phase's 1M-row D = 4 deployment with shard 3 failed."""
+    sharded phase's 1M-row D = 4 deployment with shard 3 failed. Returns
+    the async server's ``serving_snapshot``, which the ``sharded_ranks``
+    line sets beside the ranks' async server."""
     import numpy as np
     from repro_torch.core import ANY_OVERLAP, SearchRequest
     from repro_torch.kernels import ops
@@ -2405,8 +2648,9 @@ def serving_backends(stream: dict, dep, ds, qlo, qhi, k: int) -> None:
     a_d = np.stack([o.hit.dists for o in out])
     degraded = sum(o.degraded for o in out)
     agree = agreement(a_ids, a_d, want.ids, want.dists, 0.0)
+    snap = serving_snapshot(asrv, wall, len(qlo))
     emit({"phase": "serving_sharded", "shards": D, "failed": [D - 1],
-          "Q": len(qlo), **serving_snapshot(asrv, wall, len(qlo)),
+          "Q": len(qlo), **snap,
           "launches": launches, "degraded_responses": degraded,
           "dists_bit_equal_batched": bool(np.array_equal(a_d, want.dists)),
           "id_agreement_batched": agree})
@@ -2416,6 +2660,7 @@ def serving_backends(stream: dict, dep, ds, qlo, qhi, k: int) -> None:
           f"serving sharded: no scan launched ({launches})")
     check(agree == 1.0, f"serving sharded: ids differ from the degraded "
                         f"batched request beyond ties ({agree})")
+    return snap
 
 
 def serving_front_ends(eng, idx, ds, qlo, qhi, k: int, F: int, gres,
@@ -5434,15 +5679,17 @@ def main() -> int:
     serving_s = {}
     if "sharded" in phases:
         sharded = sharded_phase(dev, ds, qlo, qhi, k, res.ids, f32_ms, stream)
+        logical_async = None
         if "serving" in phases:
             t0 = time.perf_counter()
-            serving_backends(stream, sharded["dep"], ds, qlo, qhi, k)
+            logical_async = serving_backends(stream, sharded["dep"], ds, qlo,
+                                             qhi, k)
             serving_s["backends"] = time.perf_counter() - t0
         del sharded["dep"]
         if "sharded_ranks" in phases:
             free_device()
             sharded_ranks_phase(dev, ds, qlo, qhi, k, res, f32_ms, sharded,
-                                ranks_job)
+                                ranks_job, logical_async)
         del sharded
     if "streaming" in phases:
         del stream

@@ -4,18 +4,20 @@
 ``lax.psum_scatter`` and ``lax.axis_index``, each over one axis or a tuple
 of axes;
 ``lax.ppermute`` over one axis; :func:`unshard`, a whole leaf from this
-rank's shard of it; and :func:`pvary`, the identity whose gradient is
-summed.
+rank's shard of it; :func:`pvary`, the identity whose gradient is
+summed; and :func:`broadcast`, one rank's tensor on every rank of the
+axes (the async server's per-step agreement; no ``lax`` op does this).
 
 A tuple of axes is one axis of their product with the last axis varying
 fastest, as in an entry of a ``PartitionSpec``. A collective runs over the
 axes one after another, each on ``DeviceMesh.get_group(axis)``, whose group
 ranks follow the coordinate on that axis. Each call adds one to
 ``mesh.counts[name]`` (``psum``, ``pmax``, ``all_gather``,
-``psum_scatter``, ``ppermute``), and each axis it runs over adds one to
-``mesh.records[(op, result bytes, group size)]``, op the collective that
-axis ran (``all-gather``, ``collective-permute``, or ``all-reduce`` for
-``psum``, ``pmax`` and ``psum_scatter``), named as in XLA's HLO.
+``psum_scatter``, ``ppermute``, ``broadcast``), and each axis it runs over
+adds one to ``mesh.records[(op, result bytes, group size)]``, op the
+collective that axis ran (``all-gather``, ``collective-permute``, or
+``all-reduce`` for ``psum``, ``pmax`` and ``psum_scatter``), named as in
+XLA's HLO, or ``broadcast``, which HLO lacks.
 
 Transport (:meth:`repro_torch.launch.mesh.Mesh.transport`): NCCL with CUDA
 tensors and gloo with CPU tensors run on the tensor's own device. Gloo with
@@ -40,8 +42,9 @@ same global loss, so the backward of each collective is:
   summed over ``axes`` (the MoE's tokens and router ahead of the experts'
   ``psum`` over ``model``) gets its cotangent summed over ``axes``;
 * :func:`psum_scatter`: the :func:`all_gather` of the cotangent;
-* :func:`pmax` has none: serving alone takes it (under
-  ``inference_mode``), and a backward through it raises.
+* :func:`pmax` and :func:`broadcast` have none: serving alone takes them
+  (under ``inference_mode``, or on host data), and a backward through
+  either raises.
 
 These are the transposes ``shard_map`` gives the reference with
 ``check_rep=False``. A leaf that no collective gathers and that is
@@ -157,6 +160,25 @@ def _ppermute(x, mesh, axis, perm):
     return _run(mesh, "ppermute", x, run, axis)
 
 
+def _broadcast(x, mesh, axes, src):
+    # the source's coordinate on each axis; along the last axis first, so
+    # that the ranks sharing the source's coordinates on the earlier axes
+    # hold its tensor before those axes carry it on
+    coords = []
+    for a in reversed(_axes(axes)):
+        coords.append((a, src % mesh.shape[a]))
+        src //= mesh.shape[a]
+
+    def run(t):
+        t = t.clone()
+        for a, c in coords:
+            group = mesh.device_mesh.get_group(a)
+            dist.broadcast(t, dist.get_global_rank(group, c), group=group)
+            mesh.records["broadcast", _nbytes(t), mesh.shape[a]] += 1
+        return t
+    return _run(mesh, "broadcast", x, run, axes)
+
+
 def _psum_scatter(x, mesh, axes, dim):
     # an all-reduce, then this rank's block: gloo has no reduce-scatter,
     # and one path serves every backend
@@ -222,6 +244,17 @@ class _PMax(torch.autograd.Function):
                            "step's softmax, which runs under inference_mode")
 
 
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, src):
+        return _broadcast(x, mesh, axes, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError("broadcast has no backward: it carries the async "
+                           "server's decisions, which nothing differentiates")
+
+
 class _PVary(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes):
@@ -276,6 +309,19 @@ def pmax(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     if not _axes(axes):
         return x
     return _PMax.apply(x, mesh, axes)
+
+
+def broadcast(x: torch.Tensor, mesh, axes: Axes, src: int = 0
+              ) -> torch.Tensor:
+    """The ``x`` of the rank whose index on ``axes`` (as one axis, the last
+    varying fastest) is ``src``, on every rank of ``axes``; every rank
+    passes a tensor of the same shape and dtype. ``x`` itself over no
+    axes. Forward only: a backward through it raises ``RuntimeError``."""
+    if not _axes(axes):
+        return x
+    if not 0 <= src < axis_size(mesh, axes):
+        raise ValueError(f"src {src} is not an index on {axes!r}")
+    return _Broadcast.apply(x, mesh, axes, int(src))
 
 
 def pvary(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:

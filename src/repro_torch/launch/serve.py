@@ -6,6 +6,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --shards 4    # sharded corpus
   PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
       -m repro_torch.launch.serve --shards 4 --device cpu   # one a rank
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.serve --shards 4 --async --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --route graph # pin a route
 
 Builds an MSTG index over a synthetic corpus, stands up the LM endpoint
@@ -19,13 +21,13 @@ a mesh of ranks (:func:`repro_torch.launch.make_rank_mesh`) when the
 process is one of a default ``torch.distributed`` group of world size N
 (as under ``torch.distributed.run``), else N logical shards of one device
 (:func:`repro_torch.launch.make_mesh`). On ranks every rank runs the same
-program, each builds and scans only its own shard, and rank 0 prints;
-``--async`` is refused there (the async server's lockstep across ranks is
-not ported). ``--async`` routes the
-traffic through the continuous-batching
+program, each builds and scans only its own shard, and rank 0 prints.
+``--async`` routes the traffic through the continuous-batching
 :class:`repro_torch.serving.AsyncRetrievalServer` and prints its metrics
-snapshot. ``--route`` pins the engine's route (``auto``, the work-model
-router, by default; at the default corpus size it picks ``pruned``).
+snapshot; on ranks rank 0's scheduler, clock and embedder decide each
+round and every rank executes it. ``--route`` pins the engine's route
+(``auto``, the work-model router, by default; at the default corpus size
+it picks ``pruned``).
 Everything runs on ``--device`` (the card by default; ``cpu``
 runs the plain versions).
 
@@ -97,9 +99,6 @@ def main(argv: Optional[List[str]] = None) -> dict:
         if ranks != args.shards:
             ap.error(f"--shards {args.shards} on a process group of "
                      f"{ranks} ranks: one shard a rank needs as many")
-        if args.use_async:
-            ap.error("--shards with --async on more than one rank: the "
-                     "async server's lockstep across ranks is not ported")
     dev = resolve_device(args.device)
 
     http = None

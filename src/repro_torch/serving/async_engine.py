@@ -32,6 +32,19 @@ micro-batch through their ``execute()``: they still get admission control,
 deadlines, shedding and metrics; a sharded backend that loses a shard
 degrades per response (``Served.degraded``) without stalling the scheduler.
 
+On a mesh of ranks (a :class:`repro_torch.distributed.ShardedDeployment`
+whose ``rank`` is not None), where ``execute`` is an SPMD call, the server
+is one too: every rank makes the same ``submit*``, :meth:`step`,
+:meth:`run_until_idle`, :meth:`collect` and :meth:`close` calls in the same
+order. Rank 0 (coordinate 0 of the deployment's ``corpus_axis``) decides
+every round on its own scheduler and clock as one process would, embeds
+it, and broadcasts the decision (:class:`_Lockstep`); the other ranks take
+exactly the named tickets from their queues (:meth:`Scheduler.take`) and
+never call ``embed_fn``. Queue waits, finish times and deadline flags are
+rank 0's, so every rank's outcomes, ``snapshot()`` and ``step_stats`` (but
+``step_s``) are rank 0's; under ``tournament`` each rank's hit is its own
+lane's, as ``execute`` returns it.
+
 Mutation semantics match the sync server: a round applies its mutations in
 submit order *before* its queries, and the scheduler never reorders a query
 across a mutation barrier, so a query sees exactly the mutations submitted
@@ -52,10 +65,13 @@ from ..core import QueryEngine, QueryHit, Rejected, SearchRequest, Served
 from ..core import as_mask
 from ..core.engine import _empty_result
 from ..core.search import WavefrontStream, merge_topk
+from ..distributed import collectives as coll
+from ..distributed.deployment import ShardedDeployment
 
 from .engine import _Embedder
 from .ops import DeleteOp, QueryOp, UpsertOp
-from .scheduler import Round, Scheduler, ServerMetrics, SLOPolicy
+from .scheduler import (_SHED_REASONS, Round, Scheduler, ServerMetrics,
+                        SLOPolicy, _kind)
 
 __all__ = ["AsyncRetrievalServer"]
 
@@ -96,7 +112,8 @@ class AsyncRetrievalServer:
     padding every chunk to full width.
 
     ``clock`` (seconds) times queue waits, deadlines and latencies; tests
-    inject a fake one.
+    inject a fake one. On a mesh of ranks rank 0's decides (see the module
+    docstring).
     """
 
     def __init__(self, engine, embed_fn, k: int = 10, ef: int = 64,
@@ -125,6 +142,9 @@ class AsyncRetrievalServer:
         self._tags: Dict[int, Tuple[int, int]] = {}  # row tag -> (ticket, slot)
         self._next_tag = 0
         self._outcomes: Dict[int, Any] = {}       # resolved, not yet collected
+        self._lockstep = (_Lockstep(engine.mesh, engine.spec.corpus_axis)
+                          if isinstance(engine, ShardedDeployment)
+                          and engine.rank is not None else None)
 
     @classmethod
     def from_index(cls, index, embed_fn, k: int = 10, ef: int = 64,
@@ -193,16 +213,10 @@ class AsyncRetrievalServer:
                  "admitted_rows": 0, "harvested_rows": 0}
         resolved: Dict[int, Any] = {}
         with obs.span("round") as rsp:
-            rows_inflight = sum(s.inflight + s.n_pending
-                                for s in self._streams.values())
-            want_dispatch = self.scheduler.due() or (
-                self.scheduler.depth > 0 and rows_inflight == 0)
-            if want_dispatch:
-                capacity = (self.max_inflight - rows_inflight
-                            if self._continuous else None)
+            got = self._next_round()
+            if got is not None:
                 with obs.span("admission") as asp:
-                    rnd = self.scheduler.next_round(capacity=capacity)
-                    self._run_round(rnd, resolved, stats)
+                    self._run_round(*got, resolved, stats)
                     asp.set("dispatched", stats["dispatched"])
                     asp.set("mutations", stats["mutations"])
                     asp.set("shed", stats["shed"])
@@ -262,22 +276,47 @@ class AsyncRetrievalServer:
         return self.metrics.snapshot(list(self._streams.values()))
 
     # ---- round execution ----
-    def _run_round(self, rnd: Round, resolved: Dict[int, Any],
-                   stats: Dict[str, Any]) -> None:
-        now = self.clock()
+    def _next_round(self):
+        """This step's round, its start time and its vectors by ticket, or
+        None: due by the scheduler's clock, or on a mesh of ranks by rank
+        0's, whose decision every other rank receives."""
+        lock = self._lockstep
+        if lock is not None and not lock.leader:
+            return lock.follow(self.scheduler)
+        got = None
+        rows_inflight = sum(s.inflight + s.n_pending
+                            for s in self._streams.values())
+        if self.scheduler.due() or (self.scheduler.depth > 0
+                                    and rows_inflight == 0):
+            capacity = (self.max_inflight - rows_inflight
+                        if self._continuous else None)
+            rnd = self.scheduler.next_round(capacity=capacity)
+            now = self.clock()
+            # one batched embed for the round: upsert items + queries
+            need = _needs_vector(rnd)
+            vec_of: Dict[int, np.ndarray] = {}
+            if need:
+                vecs = self._embed([e.op.item for e in need])
+                vec_of = {e.ticket: vecs[i] for i, e in enumerate(need)}
+            got = (rnd, now, vec_of)
+        if lock is not None:
+            lock.lead(got)
+        return got
+
+    def _now(self) -> float:
+        """The clock's reading; on a mesh of ranks rank 0's."""
+        if self._lockstep is None:
+            return self.clock()
+        return self._lockstep.now(self.clock)
+
+    def _run_round(self, rnd: Round, now: float, vec_of: Dict[int, Any],
+                   resolved: Dict[int, Any], stats: Dict[str, Any]) -> None:
         for e, rej in rnd.shed:
             self.metrics.record_shed(rej.reason)
             resolved[e.ticket] = rej
             stats["shed"] += 1
         if not (rnd.mutations or rnd.queries):
             return
-        # one batched embed for the round: queries + upsert items
-        need = [e for e in rnd.mutations if isinstance(e.op, UpsertOp)] + \
-               list(rnd.queries)
-        vec_of: Dict[int, np.ndarray] = {}
-        if need:
-            vecs = self._embed([e.op.item for e in need])
-            vec_of = {e.ticket: vecs[i] for i, e in enumerate(need)}
         # mutations first, strictly in submit order (the scheduler already
         # guarantees no query in this round was submitted after them)
         mutated = 0
@@ -291,7 +330,7 @@ class AsyncRetrievalServer:
                 self.engine.delete(np.array([op.ext_id], np.int64),
                                    strict=False)
             mutated += 1
-            done = self.clock()
+            done = self._now()
             self.metrics.record_served((now - e.t_submit) * 1e3,
                                        (done - e.t_submit) * 1e3,
                                        deadline_missed=_missed(e, done),
@@ -385,7 +424,7 @@ class AsyncRetrievalServer:
                             max_steps=self.max_steps)
         res = self.engine.execute(req)
         degraded = bool(getattr(res, "degraded", False))
-        done = self.clock()
+        done = self._now()
         for j, e in enumerate(entries):
             self.metrics.record_served(
                 (now - e.t_submit) * 1e3, (done - e.t_submit) * 1e3,
@@ -463,6 +502,122 @@ class AsyncRetrievalServer:
         stats["served"] += 1
         self._outcomes[ticket] = out
         return out
+
+
+# a round's entries as the broadcast codes them: the role, the op's kind
+_ROLES = ("shed", "mutation", "query")
+_KINDS = ("query", "upsert", "delete")
+
+
+def _needs_vector(rnd: Round) -> List[Any]:
+    """The entries of ``rnd`` that need an embedding, in the order of the
+    round's one embed call: upserts, then queries."""
+    return [e for e in rnd.mutations if isinstance(e.op, UpsertOp)] + \
+        list(rnd.queries)
+
+
+def _bits(x: float) -> int:
+    return int(np.float64(x).view(np.int64))
+
+
+def _unbits(b) -> float:
+    return float(np.int64(b).view(np.float64))
+
+
+class _Lockstep:
+    """The async server's agreement on a mesh of ranks: rank 0 (index 0 on
+    ``axis``) decides, the others follow. Every message is a
+    :func:`repro_torch.distributed.collectives.broadcast` from rank 0 on
+    the mesh's device.
+
+    Each step sends a fixed-width int64 header, (run, entries, vectors,
+    d, the round's start time as float64 bits); a step that dispatches
+    nothing sends it with run 0. A round then sends its entries, one int64
+    row each in the order shed, mutations, queries: (ticket, role in
+    :data:`_ROLES`, kind in :data:`_KINDS`, reason code in the scheduler's
+    shed reasons or -1, the queue depth its ``Rejected`` saw, rank 0's
+    submit time and absolute deadline as float64 bits, NaN for none); then
+    the round's float32 (vectors, d) embeddings, upserts first, as rank 0
+    embedded them; and, once for each mutation applied and each
+    micro-batch executed, rank 0's clock reading after it (:meth:`now`).
+    A follower sets its entries' submit times and deadlines to rank 0's,
+    so queue waits, latencies and deadline flags are rank 0's floats."""
+
+    _HEADER = 5
+
+    def __init__(self, mesh, axis: str):
+        self.mesh, self.axis = mesh, axis
+        self.leader = coll.axis_index(mesh, axis) == 0
+
+    def _send(self, x: np.ndarray) -> np.ndarray:
+        """Rank 0's ``x`` (every other rank passes a buffer of its shape
+        and dtype)."""
+        t = torch.from_numpy(np.ascontiguousarray(x)).to(self.mesh.device)
+        return coll.broadcast(t, self.mesh, self.axis).cpu().numpy()
+
+    def lead(self, got) -> None:
+        """Rank 0: send this step's decision, ``(round, start time,
+        vectors by ticket)`` or None."""
+        if got is None:
+            self._send(np.zeros(self._HEADER, np.int64))
+            return
+        rnd, now, vec_of = got
+        rows = ([(e, "shed", rej) for e, rej in rnd.shed]
+                + [(e, "mutation", None) for e in rnd.mutations]
+                + [(e, "query", None) for e in rnd.queries])
+        need = _needs_vector(rnd)
+        d = len(vec_of[need[0].ticket]) if need else 0
+        self._send(np.array([1, len(rows), len(need), d, _bits(now)],
+                            np.int64))
+        if rows:
+            self._send(np.array(
+                [(e.ticket, _ROLES.index(role), _KINDS.index(_kind(e.op)),
+                  -1 if rej is None else _SHED_REASONS.index(rej.reason),
+                  0 if rej is None else rej.queue_depth, _bits(e.t_submit),
+                  _bits(float("nan") if e.deadline_abs is None
+                        else e.deadline_abs))
+                 for e, role, rej in rows], np.int64))
+        if need:
+            self._send(np.stack([vec_of[e.ticket] for e in need]))
+
+    def follow(self, scheduler: Scheduler):
+        """A follower: rank 0's decision for this step, its entries taken
+        from ``scheduler``'s queue; ``RuntimeError`` where one is missing
+        or is of another kind than rank 0's."""
+        run, n, n_vec, d, now = self._send(np.zeros(self._HEADER, np.int64))
+        if not run:
+            return None
+        rows = (self._send(np.zeros((n, 7), np.int64)) if n
+                else np.zeros((0, 7), np.int64))
+        rnd = Round([], [], [])
+        for e, (ticket, role, kind, reason, depth, t_submit, deadline) in \
+                zip(scheduler.take(rows[:, 0]), rows):
+            if _kind(e.op) != _KINDS[kind]:
+                raise RuntimeError(f"ticket {ticket} is a {_kind(e.op)} "
+                                   f"here and a {_KINDS[kind]} on rank 0")
+            e.t_submit = _unbits(t_submit)
+            e.deadline_abs = _unbits(deadline)
+            if np.isnan(e.deadline_abs):
+                e.deadline_abs = None
+            if _ROLES[role] == "shed":
+                rnd.shed.append((e, Rejected(_SHED_REASONS[reason],
+                                             op=_KINDS[kind],
+                                             queue_depth=int(depth))))
+            elif _ROLES[role] == "mutation":
+                rnd.mutations.append(e)
+            else:
+                rnd.queries.append(e)
+        need = _needs_vector(rnd)
+        vec_of = {}
+        if n_vec:
+            vecs = self._send(np.zeros((n_vec, d), np.float32))
+            vec_of = {e.ticket: vecs[i] for i, e in enumerate(need)}
+        return rnd, _unbits(now), vec_of
+
+    def now(self, clock) -> float:
+        """Rank 0's ``clock()``, read there alone, on every rank."""
+        t = clock() if self.leader else 0.0
+        return float(self._send(np.array([t], np.float64))[0])
 
 
 def _missed(entry, now: float) -> bool:

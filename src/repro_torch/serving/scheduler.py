@@ -181,7 +181,9 @@ class Round:
 
 class Scheduler:
     """Bounded admission queue + micro-batch former. Host-only: it never
-    touches the engine; the async server drives it and executes rounds."""
+    touches the engine; the async server drives it and executes rounds.
+    :meth:`next_round` decides a round on this scheduler's clock;
+    :meth:`take` pops one decided elsewhere."""
 
     def __init__(self, policy: Optional[SLOPolicy] = None,
                  clock: Callable[[], float] = time.perf_counter):
@@ -265,6 +267,21 @@ class Scheduler:
         taken = {e.ticket for e in take}
         self._queue = [e for e in self._queue if e.ticket not in taken]
         return Round(mutations, take, shed)
+
+    def take(self, tickets) -> List[_Entry]:
+        """Pop the entries of ``tickets``, in that order: a round another
+        scheduler decided (on a mesh of ranks, rank 0's). A ticket not in
+        the queue raises ``RuntimeError`` naming it, and nothing is
+        popped."""
+        by_ticket = {e.ticket: e for e in self._queue}
+        tickets = [int(t) for t in tickets]
+        for t in tickets:
+            if t not in by_ticket:
+                raise RuntimeError(f"ticket {t} is not in this scheduler's "
+                                   f"queue")
+        gone = set(tickets)
+        self._queue = [e for e in self._queue if e.ticket not in gone]
+        return [by_ticket[t] for t in tickets]
 
     def close(self) -> List[Tuple[_Entry, Rejected]]:
         """Stop admitting; shed everything still queued as

@@ -256,8 +256,7 @@ def retrieval_data():
 
 def retrieval_request(ds, mask: int, request_cls, route=None):
     """A request of the retrieval cases in either package."""
-    from repro_torch.data import make_queries
-    qlo, qhi = make_queries(ds, mask, 0.2, seed=mask)
+    qlo, qhi = retrieval_ranges(ds, mask)
     return request_cls(ds.queries, (qlo, qhi), mask, k=RET_K, ef=RET_EF,
                        fanout=RET_FANOUT, route=route)
 
@@ -299,3 +298,176 @@ def retrieval_lists(seed: int):
 
 RET_LIST_ALIVE = {"all": None, "one_dead": np.array([True, False, True,
                                                      True])}
+
+
+# ---- the async server on the (data 4) mesh ---------------------------------
+
+# every clock read advances a rank's script time by ASYNC_TICK_S, so that
+# a server reading its clock more or less often than the reference's
+# would give other times; rank r's clock starts at ASYNC_OFFSET_S * r and
+# runs (1 + r) times as fast as rank 0's
+ASYNC_TICK_S = 2.5e-4
+ASYNC_OFFSET_S = 100.0
+ASYNC_POLICY = dict(max_queue=8, max_wait_ms=2.0, max_batch=4)
+ASYNC_LAYOUTS = ("flat", "build")
+ASYNC_REASONS = ("queue_full", "deadline_expired", "shutdown", "not_mutable")
+# (item, mask, deadline_ms, priority) of each wave's queries; items index
+# the retrieval queries, masks pick their (qlo, qhi)
+ASYNC_WAVES = (
+    # wave 1: 0.5 ms expires before the first dispatch; 1.8 ms does not on
+    # rank 0's clock, but would on a follower's
+    ((0, 15, None, 0), (1, 48, 0.5, 0), (2, 15, None, 1), (3, 48, 50.0, 0),
+     (4, 15, 1.8, 0), (5, 48, None, 0)),
+    # wave 2, shard 3 failed: the queue holds 8, so the last one is
+    # refused; EDF dispatches the four earliest deadlines first, and 5.5 ms
+    # expires in the queue behind them (one mask a wave from here: each
+    # mask of a round is one execute, seconds each on the reference's
+    # mesh)
+    ((6, 48, 5.0, 0), (7, 48, 5.1, 0), (0, 48, 5.2, 0), (1, 48, 5.3, 0),
+     (2, 48, 5.5, 0), (3, 48, None, 0), (4, 48, None, 2), (5, 48, None, 0),
+     (6, 48, None, 0)),
+    # wave 3: one young query, 0.1 ms old at its step
+    ((6, 15, None, 0),),
+    # wave 4: one round, then close() with two still queued
+    ((7, 15, 30.0, 0), (0, 15, None, 0), (1, 15, None, 0), (2, 15, None, 0),
+     (3, 15, None, 1), (4, 15, None, 0)),
+)
+
+
+class ScriptClock:
+    """Rank ``rank``'s injected clock (seconds): ``ASYNC_OFFSET_S * rank +
+    (1 + rank) * t``, where the script time ``t`` moves by
+    :meth:`advance` and by ``ASYNC_TICK_S`` at every read."""
+
+    def __init__(self, rank: int = 0):
+        self.offset, self.rate, self.t = ASYNC_OFFSET_S * rank, 1 + rank, 0.0
+
+    def peek(self) -> float:
+        return self.offset + self.rate * self.t
+
+    def __call__(self) -> float:
+        self.t += ASYNC_TICK_S
+        return self.peek()
+
+    def advance(self, s: float) -> None:
+        self.t += s
+
+
+def async_script(server_cls, policy_cls, dep, clock: ScriptClock) -> dict:
+    """Serve :data:`ASYNC_WAVES` through ``server_cls`` (either package's
+    ``AsyncRetrievalServer``) over ``dep`` (a (data 4) deployment of the
+    retrieval corpus) on ``clock``: wave 1 and two steps; shard 3 failed,
+    wave 2 with an upsert (refused: not mutable) and a query too many
+    (refused: queue full), drained by ``run_until_idle``; shard 3
+    restored, wave 3 and one step; wave 4, one step, ``close()``, a query
+    after it, ``run_until_idle`` and ``collect``. Returns arrays: each
+    submit's ticket or reason, each step's record, every outcome by
+    ticket, the snapshot, the embed and execute calls, and the tickets
+    this rank's own clock would have shed at the first dispatch."""
+    import json
+    ds = retrieval_data()
+    ranges = {m: retrieval_ranges(ds, m) for m in (15, 48)}
+    embeds, executes = [0], [0]
+
+    def embed(items):
+        embeds[0] += 1
+        return ds.queries[np.asarray(items)]
+
+    srv = server_cls(dep, embed, k=RET_K, ef=RET_EF,
+                     policy=policy_cls(**ASYNC_POLICY), clock=clock)
+    execute = dep.execute
+
+    def counted_execute(request):
+        executes[0] += 1
+        return execute(request)
+
+    dep.execute = counted_execute
+    steps, outcomes, submits = [], {}, []
+    step = srv.step
+
+    def recorded_step():
+        before = executes[0]
+        got = step()
+        steps.append([srv.step_stats[k] for k in (
+            "dispatched", "shed", "served", "queue_depth", "inflight")]
+            + [executes[0] - before, len(got)])
+        return got
+
+    srv.step = recorded_step        # run_until_idle steps through it too
+
+    def submit(wave):
+        for item, mask, deadline, prio in ASYNC_WAVES[wave]:
+            qlo, qhi = ranges[mask]
+            t = srv.submit(item, qlo[item], qhi[item], mask,
+                           deadline_ms=deadline, priority=prio)
+            submits.append(_code(t))
+
+    def keep(got):
+        for t, o in got.items():
+            outcomes[t] = o
+
+    try:
+        submit(0)
+        clock.advance(1e-3)
+        # what this rank's own clock says has expired at the first round
+        would_shed = [e.ticket for e in srv.scheduler._queue
+                      if e.deadline_abs is not None
+                      and clock.peek() + 2 * ASYNC_TICK_S > e.deadline_abs]
+        keep(srv.step())
+        keep(srv.step())
+        dep.fail(3)
+        submit(1)
+        submits.append(_code(srv.submit_upsert(999, 0, 0.2, 0.4)))
+        clock.advance(1e-3)
+        keep(srv.step())
+        clock.advance(5e-3)
+        keep(srv.run_until_idle())
+        dep.restore(3)
+        submit(2)
+        clock.advance(1e-4)
+        keep(srv.step())
+        submit(3)
+        clock.advance(5e-4)
+        keep(srv.step())
+        keep(srv.close())
+        submits.append(_code(srv.submit(0, 0.2, 0.4, 15)))
+        keep(srv.run_until_idle())
+        keep(srv.collect())
+    finally:
+        dep.execute = execute
+    tickets = sorted(outcomes)
+    k = RET_K
+    out = {"submits": np.asarray(submits, np.int64),
+           "steps": np.asarray(steps, np.int64),
+           "tickets": np.asarray(tickets, np.int64),
+           "snapshot": json.dumps(srv.snapshot(), sort_keys=True),
+           "embeds": embeds[0], "executes": executes[0],
+           "would_shed": np.asarray(would_shed, np.int64)}
+    ids = np.full((len(tickets), k), -2, np.int64)
+    dists = np.full((len(tickets), k), np.nan, np.float32)
+    times = np.full((len(tickets), 2), np.nan, np.float64)
+    flags = np.zeros((len(tickets), 4), np.int64)
+    for j, t in enumerate(tickets):
+        o = outcomes[t]
+        if o:
+            ids[j] = np.asarray(o.hit.ids)
+            dists[j] = np.asarray(o.hit.dists)
+            times[j] = (o.queue_ms, o.e2e_ms)
+            flags[j] = (-1, int(o.degraded), int(o.deadline_missed), 0)
+        else:
+            flags[j] = (ASYNC_REASONS.index(o.reason),
+                        ("query", "upsert", "delete").index(o.op), 0,
+                        o.queue_depth)
+    out.update(ids=ids, dists=dists, times=times, flags=flags)
+    return out
+
+
+def _code(t) -> int:
+    """A submit's ticket, or -1 - its refusal's reason code."""
+    return t if isinstance(t, int) else -1 - ASYNC_REASONS.index(t.reason)
+
+
+def retrieval_ranges(ds, mask: int):
+    """The query ranges of :func:`retrieval_request`'s ``mask``."""
+    from repro_torch.data import make_queries
+    return make_queries(ds, mask, 0.2, seed=mask)

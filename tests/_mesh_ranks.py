@@ -417,6 +417,12 @@ def _group_serve(mesh, out_dir: str) -> dict:
     x = draw(rank).requires_grad_(True)
     res["pmax_backward_raises"] = _raises(
         lambda: coll.pmax(x, mesh, "model").sum().backward(), RuntimeError)
+    # broadcast over both axes from the last rank, and over model from
+    # index 1: the source's tensor on every rank of the axes
+    res["broadcast_both"] = coll.broadcast(draw(rank), mesh,
+                                           ("data", "model"), src=3).numpy()
+    res["broadcast_model"] = coll.broadcast(draw(rank), mesh, "model",
+                                            src=1).numpy()
     return res
 
 
@@ -628,8 +634,11 @@ def _group_retrieval(mesh, out_dir: str) -> dict:
     shard a rank, the cases of ``_mesh_reference.retrieval``; the merges
     alone on the same tie-laden lists; ``ppermute``; what each rank
     stages; a rank whose search raises and one whose heartbeat is stale;
-    then ``launch.serve.main`` with ``--shards 2`` on two pairs of ranks,
-    each its own default group of two."""
+    the async server's script (``_mesh_common.async_script``) over the
+    ``all_gather`` flat and build deployments, on this rank's skewed clock;
+    ``broadcast``; then ``launch.serve.main`` with ``--shards 2``, and
+    with ``--async``, on two pairs of ranks, each its own default group of
+    two."""
     import json
     import time
     import torch.distributed as dist
@@ -640,6 +649,7 @@ def _group_retrieval(mesh, out_dir: str) -> dict:
     from repro_torch.distributed import collectives as coll
     from repro_torch.launch import make_rank_mesh
     from repro_torch.launch import serve
+    from repro_torch.serving import AsyncRetrievalServer, SLOPolicy
     from repro_torch.streaming import SegmentedIndex
 
     mesh = make_rank_mesh(mc.RET_SHAPE, mc.RET_AXES, device="cpu")
@@ -690,6 +700,14 @@ def _group_retrieval(mesh, out_dir: str) -> dict:
                 d.fail(D - 1)
                 put(f"{layout}/{merge}/failed3", d, ask(route=route))
                 d.restore(D - 1)
+            if merge == "all_gather":
+                for layout, d in (("flat", flat), ("build", built)):
+                    mesh.counts.clear()
+                    got = mc.async_script(AsyncRetrievalServer, SLOPolicy, d,
+                                          mc.ScriptClock(r))
+                    got["broadcasts"] = mesh.counts["broadcast"]
+                    for key, v in got.items():
+                        res[f"async/{layout}/{key}"] = v
         # each rank holds its own shard's rows only
         res["shape/flat"] = np.asarray(flat._flat[0].shape)
         res["shape/flat_ranges"] = np.asarray([t.shape[0]
@@ -763,6 +781,18 @@ def _group_retrieval(mesh, out_dir: str) -> dict:
         lambda: coll.ppermute(x, mesh, "data", [(0, 1), (0, 2)]),
         ValueError)
 
+    # broadcast from rank 0 and from rank 2 of the axis; no backward
+    mesh.counts.clear()
+    res["broadcast/from0"] = coll.broadcast(x, mesh, "data").numpy()
+    res["broadcast/from2"] = coll.broadcast(x, mesh, "data", src=2).numpy()
+    res["broadcast/count"] = mesh.counts["broadcast"]
+    res["broadcast/records"] = np.asarray(
+        [[n, P, c] for (op, n, P), c in mesh.records.items()
+         if op == "broadcast"])
+    res["broadcast/backward_raises"] = _raises(
+        lambda: coll.broadcast(x.clone().requires_grad_(), mesh,
+                               "data").sum().backward(), RuntimeError)
+
     # launch.serve on two pairs of ranks, each pair its own group of two
     dist.barrier()
     dist.destroy_process_group()
@@ -771,8 +801,8 @@ def _group_retrieval(mesh, out_dir: str) -> dict:
         rank=r % 2, world_size=2,
         timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
     res["serve/summary"] = json.dumps(serve.main(mc.RET_SERVE_ARGS))
-    res["serve/async_refused"] = _raises(
-        lambda: serve.main(mc.RET_SERVE_ARGS + ["--async"]), SystemExit)
+    res["serve/async_summary"] = json.dumps(serve.main(mc.RET_SERVE_ARGS
+                                                       + ["--async"]))
     return res
 
 

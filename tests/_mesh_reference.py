@@ -26,7 +26,11 @@ the parameter, optimizer and batch shardings) from
 gradient a data rank. ``retrieval``: the reference's
 ``ShardedDeployment`` in its three layouts on the (data 4) mesh, under
 ``all_gather`` and ``tournament`` with ``per_shard_k`` 0 and 2, with
-shards lost, and its merges on tie-laden lists (:func:`retrieval`). The
+shards lost, and its merges on tie-laden lists (:func:`retrieval`).
+``retrieval_async``: the async server's script
+(``_mesh_common.async_script``) over the flat and build layouts on rank
+0's clock (:func:`retrieval_async`; a process of its own, which runs
+beside ``retrieval``'s). The
 outputs go to ``OUT.npz``.
 The flag must be set before jax is imported; jax's ``shard_map``
 deprecation warning is ignored in this process.
@@ -123,6 +127,8 @@ def main(out: str, what: str) -> None:
         train(mesh, res)
     elif what == "retrieval":
         retrieval(res)
+    elif what == "retrieval_async":
+        retrieval_async(res)
     else:
         raise SystemExit(f"unknown case group {what!r}")
     np.savez(out, **res)
@@ -271,6 +277,29 @@ def retrieval(res: dict) -> None:
                     alive=alive)
                 res[f"{key}/mesh/ids"] = gi
                 res[f"{key}/mesh/dists"] = gd
+
+
+def retrieval_async(res: dict) -> None:
+    """The ``AsyncRetrievalServer`` script over the ``all_gather`` flat and
+    build deployments on a (data 4) mesh, one process on rank 0's
+    clock."""
+    from repro.core import IndexSpec
+    from repro.distributed import deployment as dep
+    from repro.launch.mesh import make_mesh
+    from repro.serving import AsyncRetrievalServer, SLOPolicy
+
+    mesh = make_mesh(mc.RET_SHAPE, mc.RET_AXES)
+    ds = mc.retrieval_data()
+    spec = dep.DeploymentSpec(
+        n_shards=mc.RET_SHAPE[0], merge="all_gather",
+        index=IndexSpec(**mc.RET_INDEX), shard_timeout_s=mc.NEVER_S)
+    for layout in mc.ASYNC_LAYOUTS:
+        d = getattr(dep.ShardedDeployment, layout)(
+            ds.vectors, ds.lo, ds.hi, spec=spec, mesh=mesh)
+        got = mc.async_script(AsyncRetrievalServer, SLOPolicy, d,
+                              mc.ScriptClock(0))
+        for key, v in got.items():
+            res[f"async/{layout}/{key}"] = v
 
 
 if __name__ == "__main__":

@@ -15,8 +15,18 @@ run on tie-laden integer distances: rank r's list equals the reference's
 lane r under ``jax.vmap`` (and rank 0's its ``shard_map`` result). Then
 ``ppermute`` directly; a rank whose local search raises and one whose
 heartbeat is stale, which every rank must answer degraded within the
-harness's time limits; and ``launch.serve.main`` with ``--shards 2`` on two
-pairs of the ranks, whose summaries equal the one-process logical run's.
+harness's time limits; ``broadcast``; and ``launch.serve.main`` with
+``--shards 2``, and with ``--async``, on two pairs of the ranks, whose
+summaries equal the one-process logical runs'.
+
+The async server on the ranks (``_mesh_common.async_script`` over the
+flat and build layouts): each rank runs the same script on its own
+injected clock, rank r's offset and (1 + r) times as fast as rank 0's,
+which is the reference's. Every rank's outcomes, steps and snapshot equal
+rank 0's bit for bit, though a follower's own clock would shed otherwise;
+rank 0's equal the reference server's (ids, reasons, flags, counts and
+times; dists within the tolerances above); only rank 0 embeds; and the
+ranks broadcast as the server's ``_Lockstep`` says.
 """
 import json
 import os
@@ -51,13 +61,24 @@ LISTS = [f"{seed}/{name}/{merge}" for seed in (0, 1)
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
+    """The reference's two processes (the async script in its own, beside
+    the rest) and the ranks, all at once."""
     d = str(tmp_path_factory.mktemp("mesh_retrieval"))
-    out = os.path.join(d, "ref.npz")
-    ref = mr.run_reference(out, "retrieval")
+    outs = {w: os.path.join(d, f"{w}.npz")
+            for w in ("retrieval", "retrieval_async")}
+    refs = {w: mr.run_reference(out, w) for w, out in outs.items()}
     try:
         ranks = mr.run_ranks("retrieval", d)
     finally:
-        want = mr.finish_reference(ref, out)
+        try:
+            want = {}
+            for w, ref in refs.items():
+                want.update(mr.finish_reference(ref, outs[w]))
+        finally:
+            for ref in refs.values():      # the other, where one raised
+                if ref.poll() is None:
+                    ref.kill()
+                    ref.communicate()
     return want, ranks
 
 
@@ -188,13 +209,103 @@ def test_a_stale_heartbeat_degrades_every_rank(runs):
 
 def test_serve_on_rank_pairs_equals_the_logical_run(runs):
     from repro_torch.launch import serve
-    logical = serve.main(mc.RET_SERVE_ARGS)
-    assert logical["ranks"] == 1 and logical["mode"] == "sharded"
-    for res in runs[1]:
-        got = json.loads(str(res["serve/summary"]))
-        assert got.pop("ranks") == 2
-        for s in (got, logical):
-            s.pop("seconds", None)
-        assert got == {k: v for k, v in logical.items() if k != "ranks"}
-        assert got["served"] == got["non_empty"] == 8
-        assert res["serve/async_refused"]
+    for key, extra, mode in (("summary", [], "sharded"),
+                             ("async_summary", ["--async"], "async")):
+        logical = serve.main(mc.RET_SERVE_ARGS + extra)
+        assert logical["ranks"] == 1 and logical["mode"] == mode
+        for res in runs[1]:
+            got = json.loads(str(res[f"serve/{key}"]))
+            assert got.pop("ranks") == 2
+            for s in (got, logical):
+                s.pop("seconds", None)
+            assert got == {k: v for k, v in logical.items() if k != "ranks"}
+            assert got["served"] == got["non_empty"] == 8
+
+
+def test_broadcast(runs):
+    ranks = runs[1]
+    x = lambda r: np.arange(6, dtype=np.float32).reshape(2, 3) + 10 * r
+    for res in ranks:
+        np.testing.assert_array_equal(res["broadcast/from0"], x(0))
+        np.testing.assert_array_equal(res["broadcast/from2"], x(2))
+        assert res["broadcast/count"] == 2
+        np.testing.assert_array_equal(res["broadcast/records"], [[24, D, 2]])
+        assert res["broadcast/backward_raises"]
+
+
+# what every rank's async script must give as rank 0's does, and rank 0's
+# as the reference's
+ASYNC_KEYS = ("submits", "steps", "tickets", "ids", "dists", "times",
+              "flags", "snapshot", "executes")
+
+
+def _script(res: dict, layout: str) -> dict:
+    pre = f"async/{layout}/"
+    return {k[len(pre):]: v for k, v in res.items() if k.startswith(pre)}
+
+
+@pytest.mark.parametrize("layout", mc.ASYNC_LAYOUTS)
+def test_async_every_rank_equals_rank_zero(runs, layout):
+    ranks = [_script(res, layout) for res in runs[1]]
+    for r, got in enumerate(ranks[1:], 1):
+        for key in ASYNC_KEYS:
+            np.testing.assert_array_equal(got[key], ranks[0][key],
+                                          err_msg=f"rank {r}: {key}")
+
+
+@pytest.mark.parametrize("layout", mc.ASYNC_LAYOUTS)
+def test_async_rank_zero_equals_reference(runs, layout):
+    want = _script(runs[0], layout)
+    got = _script(runs[1][0], layout)
+    for key in ASYNC_KEYS:
+        if key != "dists":
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    tol = _tol(f"{layout}/async")
+    np.testing.assert_allclose(got["dists"], want["dists"], rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("layout", mc.ASYNC_LAYOUTS)
+def test_async_followers_never_embed(runs, layout):
+    want = _script(runs[0], layout)
+    ranks = [_script(res, layout) for res in runs[1]]
+    assert ranks[0]["embeds"] == want["embeds"] > 0
+    assert [got["embeds"] for got in ranks[1:]] == [0] * (D - 1)
+
+
+@pytest.mark.parametrize("layout", mc.ASYNC_LAYOUTS)
+def test_async_broadcasts_as_designed(runs, layout):
+    """A step's header; a round's entries; its vectors where it dispatches
+    queries; rank 0's clock after each ``execute``."""
+    for got in (_script(res, layout) for res in runs[1]):
+        want = 0
+        for dispatched, shed, *_, executes, _ in got["steps"]:
+            want += (1 + (dispatched + shed > 0) + (dispatched > 0)
+                     + executes)
+        assert got["broadcasts"] == want
+
+
+@pytest.mark.parametrize("layout", mc.ASYNC_LAYOUTS)
+def test_async_script_exercises_the_rules(runs, layout):
+    """Sheds at dispatch, at submit and at close, late answers, shard 3
+    lost and restored, a young query dispatched at once (the reference
+    holds none behind ``max_wait_ms`` when no stream rows are in flight),
+    and followers whose own clocks would have shed otherwise."""
+    ranks = [_script(res, layout) for res in runs[1]]
+    got = ranks[0]
+    reason = {r: i for i, r in enumerate(mc.ASYNC_REASONS)}
+    flags, subs = got["flags"], list(got["submits"])
+    shed_at = {r: set(got["tickets"][flags[:, 0] == i])
+               for r, i in reason.items()}
+    assert shed_at["deadline_expired"] and len(shed_at["shutdown"]) == 2
+    for r in ("queue_full", "not_mutable", "shutdown"):
+        assert -1 - reason[r] in subs, r
+    served = flags[:, 0] == -1
+    assert 0 < flags[served, 1].sum() < served.sum()      # degraded
+    assert flags[served, 2].any()                          # deadline missed
+    young = subs[sum(len(w) for w in mc.ASYNC_WAVES[:2]) + 1]
+    j = list(got["tickets"]).index(young)
+    assert served[j] and got["times"][j, 0] < mc.ASYNC_POLICY["max_wait_ms"]
+    first_shed = set(got["would_shed"])
+    assert first_shed == shed_at["deadline_expired"] & set(range(6))
+    assert any(set(res["would_shed"]) != first_shed for res in ranks[1:])

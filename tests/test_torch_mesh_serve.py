@@ -29,6 +29,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import _mesh_common as mc
 import _mesh_ranks as mr
@@ -165,3 +166,15 @@ def test_pmax_equals_a_whole_max(runs):
         np.testing.assert_array_equal(res["pmax_model"],
                                       res["pmax_model_want"])
         assert res["pmax_backward_raises"]
+
+
+def test_broadcast_over_one_and_two_axes(runs):
+    """``broadcast`` over (data, model) from index 3 and over model from
+    index 1: every rank holds the source rank's tensor."""
+    draws = [torch.randn(3, 5, generator=torch.Generator().manual_seed(
+        50 + r)).numpy() for r in range(4)]
+    for r, res in enumerate(runs[1]):
+        np.testing.assert_array_equal(res["broadcast_both"], draws[3])
+        data = r // 2
+        np.testing.assert_array_equal(res["broadcast_model"],
+                                      draws[data * 2 + 1])

@@ -16,6 +16,7 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 from hypothesis import given, settings, strategies as hst
 
 from repro_torch.core import (ANY_OVERLAP, MSTGIndex, QueryEngine, Rejected,
@@ -279,3 +280,88 @@ def test_async_step_stats_metrics_and_frozen_backend():
     assert isinstance(rej, Rejected) and rej.reason == "not_mutable"
     assert srv.submit_delete(1).reason == "not_mutable"
     assert srv.snapshot()["shed"]["not_mutable"] == 2
+
+
+# ---- the lockstep's pieces, one process ----------------------------------
+
+def test_scheduler_take_pops_the_named_tickets_in_order():
+    from repro_torch.serving import QueryOp, Scheduler
+    sch = Scheduler(SLOPolicy(), clock=FakeClock())
+    tickets = [sch.offer(QueryOp(i, 0.0, 1.0, ANY_OVERLAP)) for i in range(5)]
+    got = sch.take([tickets[3], tickets[0], tickets[4]])
+    assert [e.ticket for e in got] == [tickets[3], tickets[0], tickets[4]]
+    assert [e.op.item for e in got] == [3, 0, 4]
+    assert [e.ticket for e in sch._queue] == [tickets[1], tickets[2]]
+    assert sch.take([]) == [] and sch.depth == 2
+
+
+def test_scheduler_take_of_a_missing_ticket_raises():
+    from repro_torch.serving import QueryOp, Scheduler
+    sch = Scheduler(SLOPolicy(), clock=FakeClock())
+    tickets = [sch.offer(QueryOp(i, 0.0, 1.0, ANY_OVERLAP)) for i in range(3)]
+    with pytest.raises(RuntimeError, match="ticket 7"):
+        sch.take([tickets[1], 7])
+    assert sch.depth == 3                          # nothing popped
+    sch.take([tickets[1]])
+    with pytest.raises(RuntimeError, match=f"ticket {tickets[1]}"):
+        sch.take([tickets[1]])
+
+
+def test_one_process_backends_never_broadcast(monkeypatch):
+    """A ``QueryEngine`` and a deployment on a logical mesh decide every
+    round on the server's own clock: no broadcast."""
+    from repro_torch.distributed import DeploymentSpec, ShardedDeployment
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch import make_mesh
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("broadcast in one process")
+
+    monkeypatch.setattr(coll, "broadcast", refuse)
+    monkeypatch.setattr(coll, "_broadcast", refuse)
+    ds, eng, _ = _grid_ctx()
+    qlo, qhi = make_queries(ds, ANY_OVERLAP, 0.2, seed=3)
+    dep = ShardedDeployment.flat(
+        ds.vectors, ds.lo, ds.hi, mesh=make_mesh((2,), ("data",),
+                                                 device="cpu"),
+        spec=DeploymentSpec(n_shards=2))
+    for backend in (eng, dep):
+        srv = _server(backend, ds, FakeClock(),
+                      policy=SLOPolicy(max_wait_ms=0.0, max_batch=3))
+        assert srv._lockstep is None
+        tickets = [srv.submit(i, qlo[i], qhi[i], ANY_OVERLAP)
+                   for i in range(6)]
+        got = srv.run_until_idle()
+        assert all(isinstance(got[t], Served) for t in tickets)
+
+
+def test_broadcast_over_no_axes_returns_its_input():
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch import make_mesh
+    mesh = make_mesh((2,), ("data",), device="cpu")
+    x = torch.arange(4.0)
+    for axes in (None, ()):
+        assert coll.broadcast(x, mesh, axes) is x
+    assert not mesh.counts
+
+
+def test_broadcast_backward_raises(tmp_path):
+    """On a one-rank gloo group, a backward through ``broadcast`` raises;
+    forward it returns the tensor, counted once."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch import make_rank_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_rank_mesh((1,), ("data",), device="cpu")
+        x = torch.arange(4.0, requires_grad=True)
+        y = coll.broadcast(x, mesh, "data")
+        assert torch.equal(y.detach(), x.detach())
+        assert mesh.counts["broadcast"] == 1
+        with pytest.raises(RuntimeError, match="no backward"):
+            y.sum().backward()
+        with pytest.raises(ValueError, match="src"):
+            coll.broadcast(x, mesh, "data", src=1)
+    finally:
+        dist.destroy_process_group()
