@@ -469,7 +469,8 @@ class QueryEngine:
                                          chunk=request.chunk)
             else:
                 raise ValueError(f"unknown route {route!r}")
-            ids, d = _host(ids)[:Q], _host(d)[:Q]
+            with obs.span("to_host"):
+                ids, d = _host(ids)[:Q], _host(d)[:Q]
         report = RouteReport(route=route, requested=requested,
                              est_selectivity=est, slot_count=len(slots),
                              variants=tuple(s.variant for s in slots),
@@ -553,6 +554,14 @@ class QueryEngine:
     def _queries(self, queries: np.ndarray) -> torch.Tensor:
         return as_tensor(queries, self.device, torch.float32).contiguous()
 
+    def _stage(self, queries: np.ndarray, qlo: np.ndarray, qhi: np.ndarray):
+        """The batch's queries and query ranges on the device, under a
+        ``stage`` span (each copy from pageable memory waits for it)."""
+        with obs.span("stage"):
+            return (self._queries(queries),
+                    as_tensor(qlo, self.device, torch.float32),
+                    as_tensor(qhi, self.device, torch.float32))
+
     def _rerank_width(self, k: int, upper: Optional[int] = None) -> int:
         """Approximate candidates per query that reach the exact re-rank:
         ``rerank_k`` (default ``max(4k, 32)``) clamped to [k, n] and to
@@ -584,7 +593,8 @@ class QueryEngine:
             chunk = 16 if queries_p.shape[0] >= 64 else None
         slots = self._padded_slots(slots, queries_p.shape[0])
         steps = max_steps or ((4 * ef + 64) // F + 8)
-        qdev = self._queries(queries_p)
+        with obs.span("stage"):
+            qdev = self._queries(queries_p)
         # compressed tier: the beam ranks approximate (dequantized) distances,
         # so carry the top R of the pool through the merge and re-rank once
         kq = k if self._store is None else self._rerank_width(k, upper=ef)
@@ -626,9 +636,7 @@ class QueryEngine:
         n = self.index.vectors.shape[0]
         queries_p, qlo_p, qhi_p = self._padded(queries, qlo, qhi)
         slots = self._padded_slots(slots, queries_p.shape[0])
-        qdev = self._queries(queries_p)
-        qlo_t = as_tensor(qlo_p, self.device, torch.float32)
-        qhi_t = as_tensor(qhi_p, self.device, torch.float32)
+        qdev, qlo_t, qhi_t = self._stage(queries_p, qlo_p, qhi_p)
         # compressed tier: scan distances are approximate, so keep the top R
         # per slot and through the merge, then re-rank exactly once
         kq = k if self._store is None else self._rerank_width(k)
@@ -650,11 +658,13 @@ class QueryEngine:
                 continue  # every query's task in this slot is empty
             with obs.span("slot") as ssp:
                 ssp.set("variant", s.variant).set("candidates", cap)
+                with obs.span("stage"):
+                    version = as_tensor(s.version, self.device)
+                    key_lo = as_tensor(s.key_lo, self.device)
+                    key_hi = as_tensor(s.key_hi, self.device)
                 ids, d = _pruned_search_variant(
                     self.pruned_dev(s.variant), self.lo, self.hi, qdev,
-                    qlo_t, qhi_t, as_tensor(s.version, self.device),
-                    as_tensor(s.key_lo, self.device),
-                    as_tensor(s.key_hi, self.device),
+                    qlo_t, qhi_t, version, key_lo, key_hi,
                     pred_mask_bits=mask, k=kq, Kpad=fv.Kpad, block=block,
                     max_blocks=-(-cap // block))
             res = (ids, d) if res is None else merge_topk(res[0], res[1], ids,
@@ -667,9 +677,7 @@ class QueryEngine:
 
     def _run_flat(self, queries, qlo, qhi, mask, k):
         queries_p, qlo_p, qhi_p = self._padded(queries, qlo, qhi)
-        qdev = self._queries(queries_p)
-        qlo_t = as_tensor(qlo_p, self.device, torch.float32)
-        qhi_t = as_tensor(qhi_p, self.device, torch.float32)
+        qdev, qlo_t, qhi_t = self._stage(queries_p, qlo_p, qhi_p)
         if self._store is None:
             return flat_search(self.corpus, self.lo, self.hi, qdev, qlo_t,
                                qhi_t, mask=mask, k=k)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from ..kernels import ops
 from . import intervals as iv
 from . import segment_tree as st
@@ -65,7 +66,8 @@ def flat_search(corpus, lo, hi, queries, ql, qh, *, mask: int, k: int):
     (+inf / NO_EDGE pad when fewer than k objects qualify). Among equal
     distances the lower row comes first, as ``lax.top_k`` orders them."""
     d = ops.pairwise_l2_masked(queries, corpus, lo, hi, ql, qh, mask)
-    vals, idx = _smallest_stable(d, k)
+    with obs.span("topk"):
+        vals, idx = _smallest_stable(d, k)
     ids = torch.where(torch.isfinite(vals), idx, NO_EDGE).to(torch.int32)
     return ids, vals
 

@@ -250,10 +250,12 @@ def _step(arrays, queries, version, nodes, state, *, F: int, packed: bool):
 
 def _prepare(arrays, queries, version, key_lo, key_hi, Kpad: int):
     dev = arrays["vectors"].device
-    queries = torch.as_tensor(queries, dtype=torch.float32).to(dev).contiguous()
-    version = torch.as_tensor(version).to(dev, torch.int32)
-    key_lo = torch.as_tensor(key_lo).to(dev, torch.int32)
-    key_hi = torch.as_tensor(key_hi).to(dev, torch.int32)
+    with obs.span("stage"):
+        queries = torch.as_tensor(queries,
+                                  dtype=torch.float32).to(dev).contiguous()
+        version = torch.as_tensor(version).to(dev, torch.int32)
+        key_lo = torch.as_tensor(key_lo).to(dev, torch.int32)
+        key_hi = torch.as_tensor(key_hi).to(dev, torch.int32)
     return queries, version, _plan_nodes(key_lo, key_hi, Kpad)
 
 
@@ -341,12 +343,13 @@ def mstg_graph_search_chunked(arrays: dict, queries, version, key_lo, key_hi,
     def harvest(rows: np.ndarray) -> None:
         if rows.size == 0:
             return
-        r = torch.as_tensor(rows, device=qs.device)
-        orig = perm[rows]
-        out_ids[orig] = state[0][r, :k].cpu().numpy()
-        out_d[orig] = state[1][r, :k].cpu().numpy()
-        conv_steps[orig] = state[4][r].cpu().numpy()
-        harvested[orig] = True
+        with obs.span("harvest"):
+            r = torch.as_tensor(rows, device=qs.device)
+            orig = perm[rows]
+            out_ids[orig] = state[0][r, :k].cpu().numpy()
+            out_d[orig] = state[1][r, :k].cpu().numpy()
+            conv_steps[orig] = state[4][r].cpu().numpy()
+            harvested[orig] = True
 
     while True:
         live = np.flatnonzero(active_h)

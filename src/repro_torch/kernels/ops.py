@@ -12,13 +12,21 @@ each); a wrapper adds one where it launches its kernel and nowhere else,
 so CPU runs leave it at 0.
 
 When a trace is active (:mod:`repro_torch.obs`), each wrapper runs inside
-a ``kernel:<name>`` span: the current stream is synchronized before and
-after the call, so the span times the kernel and not its enqueue, and the
-span carries ``bytes``, ``gb_per_s`` and ``frac_of_peak``
-(:func:`repro_torch.obs.profile.bandwidth_annotation`, from the byte
-models below and the card's HBM peak; None on the CPU or an unknown card)
-and ``impl`` (``"cuda"`` or ``"plain"``). With tracing off the wrappers
-stay asynchronous and add no work.
+a ``kernel:<name>`` span, in one of two modes:
+
+* under a per-request or scoped trace (:func:`repro_torch.obs.timing_kernels`
+  is True) the current stream is synchronized before and after the call,
+  so the span times the kernel and not its enqueue, and the span carries
+  ``bytes``, ``gb_per_s`` and ``frac_of_peak``
+  (:func:`repro_torch.obs.profile.bandwidth_annotation`, from the byte
+  models below and the card's HBM peak; None on the CPU or an unknown
+  card) and ``impl`` (``"cuda"`` or ``"plain"``);
+* under a window capture (``obs.capture(timeline=True)``) the span covers
+  the enqueue alone and carries nothing: it waits for nothing, so the
+  device's timeline is the untraced one, and a profiler of the window
+  holds the kernel's own time.
+
+With tracing off the wrappers stay asynchronous and add no work.
 """
 from __future__ import annotations
 
@@ -175,16 +183,21 @@ def _step_bytes(queries, table, ids, avail, b, e, version, pool_d,
 def _traced(name: str, nbytes):
     """Run the wrapped entry point inside a ``kernel:<name>`` span when a
     trace is active; ``nbytes`` takes the entry point's arguments and
-    returns its byte model. The traced call returns exactly what an
-    untraced one returns."""
+    returns its byte model (read only when the span times the kernel).
+    The traced call returns exactly what an untraced one returns."""
+    span_name = f"kernel:{name}"
+
     def wrap(fn):
         @functools.wraps(fn)
         def run(*args, **kwargs):
             if not obs.tracing():
                 return fn(*args, **kwargs)
+            if not obs.timing_kernels():
+                with obs.span(span_name):
+                    return fn(*args, **kwargs)
             dev = args[0].device
             cuda = dev.type == "cuda"
-            with obs.span(f"kernel:{name}") as sp:
+            with obs.span(span_name) as sp:
                 if cuda:
                     torch.cuda.current_stream(dev).synchronize()
                 t0 = time.perf_counter()

@@ -7,9 +7,9 @@ distributed (and the benchmark drivers):
   :class:`MetricsRegistry` of labeled :class:`Counter` / :class:`Gauge` /
   :class:`Histogram` families with a typed, round-trippable ``snapshot()``
   schema and Prometheus text exposition
-  (:func:`start_metrics_server`, ``repro.launch.serve --metrics-port``).
-  :class:`StreamingHistogram` (formerly ``repro.serving.scheduler``) is the
-  shared percentile structure.
+  (:func:`start_metrics_server`, ``repro_torch.launch.serve
+  --metrics-port``). :class:`StreamingHistogram` is the shared percentile
+  structure.
 * **traces** (:mod:`repro_torch.obs.trace`) — per-request span trees. Library
   code calls :func:`span` unconditionally; with no tracer installed it
   returns a no-op singleton (one thread-local read, zero allocation), so
@@ -17,7 +17,10 @@ distributed (and the benchmark drivers):
   (or ``EngineConfig(trace_sample=...)``) rides a finished :class:`Trace`
   back on ``SearchResult.trace`` — export Chrome-trace JSON with
   ``.save()`` or print ``result.explain()``; ``with obs.capture() as tr:``
-  scopes a trace around arbitrary code (serving steps, flush/compact).
+  scopes a trace around arbitrary code (serving steps, flush/compact);
+  ``obs.capture(timeline=True)`` records a window of a running system on
+  the profiler's epoch clock without waiting for the device
+  (:func:`timing_kernels` tells the two kinds apart).
 * **logs** (:mod:`repro_torch.obs.log`) — rate-limited structured progress
   logging (:func:`get_logger`).
 
@@ -30,7 +33,7 @@ from .metrics import (Counter, Gauge, Histogram, MetricsRegistry, REGISTRY,
                       StreamingHistogram, get_registry, start_metrics_server)
 from .trace import (NULL_SPAN, Span, Trace, Tracer, active_tracer,
                     begin_request_trace, capture, end_request_trace, span,
-                    tracing)
+                    timing_kernels, tracing)
 from .log import StructuredLogger, get_logger
 from .profile import (DevicePeaks, PEAKS, bandwidth_annotation, device_peaks,
                       profiler_capture)
@@ -41,7 +44,8 @@ __all__ = [
     "StreamingHistogram", "get_registry", "start_metrics_server",
     # traces
     "NULL_SPAN", "Span", "Trace", "Tracer", "active_tracer",
-    "begin_request_trace", "capture", "end_request_trace", "span", "tracing",
+    "begin_request_trace", "capture", "end_request_trace", "span",
+    "timing_kernels", "tracing",
     # logs
     "StructuredLogger", "get_logger",
     # profiling

@@ -12,16 +12,28 @@ no allocation, no dict churn — so always-on instrumentation costs nothing on
 untraced requests. Annotations attach via ``sp.set("key", value)``
 (positional, so the disabled path never builds a kwargs dict) and should sit
 behind ``if obs.tracing():`` when computing the value itself is not free.
+Work that waits for the device to time a region sits behind
+:func:`timing_kernels` instead.
 
-Two activation styles:
+Three activation styles:
 
 * **per request** — ``SearchRequest(trace=True)``; the outermost engine
-  (:class:`repro_torch.core.QueryEngine`, :class:`repro.distributed.\
-ShardedDeployment`, :class:`repro.streaming.SegmentedIndex`) installs a
+  (:class:`repro_torch.core.QueryEngine`, :class:`repro_torch.distributed.\
+ShardedDeployment`, :class:`repro_torch.streaming.SegmentedIndex`) installs a
   tracer via :func:`begin_request_trace`, inner layers add spans into it, and
   the finished :class:`Trace` rides back on ``SearchResult.trace``;
 * **scoped** — ``with obs.capture() as tr: ...`` around any code (serving
-  steps, flush/compact, benchmarks); ``tr.trace()`` afterwards.
+  steps, flush/compact, benchmarks); ``tr.trace()`` afterwards. Both time
+  each kernel alone (:func:`timing_kernels`: its wrapper waits for the
+  device before and after it);
+* **window** — ``with obs.capture(timeline=True) as tr: ...`` around a
+  stretch of a running system, such as a ``torch.profiler`` window. Spans
+  read ``time.time_ns()``, the epoch clock of the profiler's events, so
+  each can be laid over the device's timeline; nothing waits for the
+  device (:func:`timing_kernels` is False), so the requests inside run as
+  untraced ones do. Requests inside join the window's tracer, so
+  ``SearchResult.trace`` stays None; ``tr.spans()`` afterwards lists every
+  closed span flat.
 
 Spans support both ``with`` blocks and explicit start/stop (``sp =
 obs.span("jit_region"); ...; sp.stop()``) for regions whose boundaries do
@@ -32,13 +44,15 @@ from __future__ import annotations
 import json
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from types import MappingProxyType
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 __all__ = ["Span", "Tracer", "Trace", "NULL_SPAN", "span", "tracing",
-           "active_tracer", "capture", "begin_request_trace",
-           "end_request_trace"]
+           "timing_kernels", "active_tracer", "capture",
+           "begin_request_trace", "end_request_trace"]
 
 _STATE = threading.local()
+_NO_ARGS: Mapping[str, Any] = MappingProxyType({})
 
 
 def active_tracer() -> Optional["Tracer"]:
@@ -49,6 +63,14 @@ def active_tracer() -> Optional["Tracer"]:
 def tracing() -> bool:
     """True when a tracer is installed — guard for non-free annotations."""
     return getattr(_STATE, "tracer", None) is not None
+
+
+def timing_kernels() -> bool:
+    """True under a per-request or scoped trace, False under a window
+    capture and with no tracer — guard for work that waits for the device
+    to time a region."""
+    t = getattr(_STATE, "tracer", None)
+    return t is not None and not t.timeline
 
 
 class _NullSpan:
@@ -76,20 +98,33 @@ NULL_SPAN = _NullSpan()
 class Span:
     """One timed region. Started at construction; closed by ``stop()`` or
     leaving its ``with`` block. ``set(key, value)`` attaches an annotation
-    (rendered in Chrome-trace ``args`` and ``explain()``)."""
+    (rendered in Chrome-trace ``args`` and ``explain()``). ``args`` and
+    ``children`` are read-only views; their storage is made on first
+    use, so a bare span allocates nothing beyond itself."""
 
-    __slots__ = ("name", "t_start", "t_stop", "args", "children", "_tracer")
+    __slots__ = ("name", "t_start", "t_stop", "_args", "_children",
+                 "_tracer")
 
     def __init__(self, tracer: "Tracer", name: str):
         self._tracer = tracer
         self.name = name
         self.t_start = tracer.clock()
-        self.t_stop: Optional[float] = None
-        self.args: Dict[str, Any] = {}
-        self.children: List["Span"] = []
+        self.t_stop = None
+        self._args: Optional[Dict[str, Any]] = None
+        self._children: Optional[List["Span"]] = None
+
+    @property
+    def args(self) -> Mapping[str, Any]:
+        return _NO_ARGS if self._args is None else self._args
+
+    @property
+    def children(self) -> Sequence["Span"]:
+        return () if self._children is None else self._children
 
     def set(self, key: str, value: Any) -> "Span":
-        self.args[key] = value
+        if self._args is None:
+            self._args = {}
+        self._args[key] = value
         return self
 
     def stop(self) -> "Span":
@@ -108,38 +143,61 @@ class Span:
     @property
     def duration_ms(self) -> float:
         end = self.t_stop if self.t_stop is not None else self._tracer.clock()
-        return (end - self.t_start) * 1e3
+        return (end - self.t_start) * self._tracer.tick_s * 1e3
 
 
 class Tracer:
     """Collects a span tree for one capture. Not thread-safe (one tracer per
-    thread by construction — :func:`capture` installs thread-locally)."""
+    thread by construction — :func:`capture` installs thread-locally).
 
-    def __init__(self, clock=time.perf_counter):
-        self.clock = clock
-        self.t0 = clock()
+    ``timeline`` makes it a window capture's (:func:`capture` with
+    ``timeline=True``): ``clock`` is then the epoch clock in integer
+    nanoseconds (``tick_s``, the seconds of one unit, 1e-9), and no span
+    waits for the device."""
+
+    def __init__(self, clock=time.perf_counter, timeline: bool = False):
+        self.clock = time.time_ns if timeline else clock
+        self.tick_s = 1e-9 if timeline else 1.0
+        self.timeline = timeline
+        self.t0 = self.clock()
         self.roots: List[Span] = []
         self._stack: List[Span] = []
 
     def span(self, name: str) -> Span:
         sp = Span(self, name)
         if self._stack:
-            self._stack[-1].children.append(sp)
+            parent = self._stack[-1]
+            if parent._children is None:
+                parent._children = [sp]
+            else:
+                parent._children.append(sp)
         else:
             self.roots.append(sp)
         self._stack.append(sp)
         return sp
 
     def _close(self, sp: Span) -> None:
+        stack = self._stack
+        if stack and stack[-1] is sp:
+            stack.pop()
+            return
         # tolerate out-of-lexical-order stops (explicit start/stop regions):
         # unwind to the stopped span, force-closing anything it encloses
-        if sp in self._stack:
-            while self._stack:
-                top = self._stack.pop()
+        if sp in stack:
+            while stack:
+                top = stack.pop()
                 if top is sp:
                     break
                 if top.t_stop is None:
                     top.t_stop = top._tracer.clock()
+
+    def spans(self) -> List[Tuple[str, Any, Any, int, Mapping[str, Any]]]:
+        """Every closed span as ``(name, start, stop, depth, args)``, in
+        start order, times in the clock's units (epoch nanoseconds for a
+        window capture)."""
+        return [(sp.name, sp.t_start, sp.t_stop, d, sp.args)
+                for sp, d in Trace(self.roots, self.t0).walk()
+                if sp.t_stop is not None]
 
     def trace(self) -> "Trace":
         """Freeze into a Trace (open spans are closed at the current time)."""
@@ -147,15 +205,16 @@ class Tracer:
             if sp.t_stop is None:
                 sp.t_stop = self.clock()
         self._stack.clear()
-        return Trace(self.roots, self.t0)
+        return Trace(self.roots, self.t0, self.tick_s)
 
 
 class Trace:
     """A finished span tree: export as Chrome-trace JSON or a text tree."""
 
-    def __init__(self, roots: List[Span], t0: float):
+    def __init__(self, roots: List[Span], t0: float, tick_s: float = 1.0):
         self.roots = list(roots)
         self.t0 = t0
+        self.tick_s = tick_s
 
     def __len__(self) -> int:
         return sum(1 for _ in self.walk())
@@ -180,8 +239,8 @@ class Trace:
             end = sp.t_stop if sp.t_stop is not None else sp.t_start
             events.append({
                 "name": sp.name, "cat": "repro", "ph": "X",
-                "ts": round((sp.t_start - self.t0) * 1e6, 3),
-                "dur": round((end - sp.t_start) * 1e6, 3),
+                "ts": round((sp.t_start - self.t0) * self.tick_s * 1e6, 3),
+                "dur": round((end - sp.t_start) * self.tick_s * 1e6, 3),
                 "pid": 0, "tid": 0,
                 "args": {k: _jsonable(v) for k, v in sp.args.items()},
             })
@@ -237,10 +296,15 @@ def span(name: str) -> Any:
 class capture:
     """``with obs.capture() as tr:`` — install a fresh tracer for the block
     (no-op passthrough if one is already active: nested captures join the
-    outer trace). ``tr.trace()`` afterwards returns the finished Trace."""
+    outer trace). ``tr.trace()`` afterwards returns the finished Trace.
 
-    def __init__(self, clock=time.perf_counter):
+    ``timeline=True`` makes it a window capture: spans on the profiler's
+    epoch clock (``time.time_ns()``), kernels not timed alone
+    (:func:`timing_kernels` is False), and ``tr.spans()`` for the flat list."""
+
+    def __init__(self, clock=time.perf_counter, timeline: bool = False):
         self._clock = clock
+        self._timeline = timeline
         self._installed = False
         self.tracer: Optional[Tracer] = None
 
@@ -249,7 +313,7 @@ class capture:
         if cur is not None:
             self.tracer = cur
             return cur
-        self.tracer = Tracer(clock=self._clock)
+        self.tracer = Tracer(clock=self._clock, timeline=self._timeline)
         _STATE.tracer = self.tracer
         self._installed = True
         return self.tracer

@@ -207,13 +207,20 @@ class AsyncRetrievalServer:
 
     def step(self) -> Dict[str, Any]:
         """One scheduling round + one wavefront chunk. Returns every outcome
-        that resolved during this step, keyed by ticket."""
+        that resolved during this step, keyed by ticket. The step records a
+        ``round`` span only when it has a round to run or a stream to
+        advance, so an empty poll leaves a trace as it found it."""
         t0 = self.clock()
         stats = {"dispatched": 0, "mutations": 0, "served": 0, "shed": 0,
                  "admitted_rows": 0, "harvested_rows": 0}
         resolved: Dict[int, Any] = {}
-        with obs.span("round") as rsp:
-            got = self._next_round()
+        rows_inflight = sum(s.inflight + s.n_pending
+                            for s in self._streams.values())
+        ready = self._round_ready(rows_inflight)
+        busy = (ready or self._lockstep is not None
+                or any(not s.idle for s in self._streams.values()))
+        with (obs.span("round") if busy else obs.NULL_SPAN) as rsp:
+            got = self._next_round(ready, rows_inflight)
             if got is not None:
                 with obs.span("admission") as asp:
                     self._run_round(*got, resolved, stats)
@@ -276,18 +283,21 @@ class AsyncRetrievalServer:
         return self.metrics.snapshot(list(self._streams.values()))
 
     # ---- round execution ----
-    def _next_round(self):
+    def _round_ready(self, rows_inflight: int) -> bool:
+        """Is a round to run now: due by the scheduler's clock, or queued
+        with nothing in flight?"""
+        return self.scheduler.due() or (self.scheduler.depth > 0
+                                        and rows_inflight == 0)
+
+    def _next_round(self, ready: bool, rows_inflight: int):
         """This step's round, its start time and its vectors by ticket, or
-        None: due by the scheduler's clock, or on a mesh of ranks by rank
-        0's, whose decision every other rank receives."""
+        None: ``ready`` (:meth:`_round_ready`), or on a mesh of ranks rank
+        0's decision, which every other rank receives."""
         lock = self._lockstep
         if lock is not None and not lock.leader:
             return lock.follow(self.scheduler)
         got = None
-        rows_inflight = sum(s.inflight + s.n_pending
-                            for s in self._streams.values())
-        if self.scheduler.due() or (self.scheduler.depth > 0
-                                    and rows_inflight == 0):
+        if ready:
             capacity = (self.max_inflight - rows_inflight
                         if self._continuous else None)
             rnd = self.scheduler.next_round(capacity=capacity)
