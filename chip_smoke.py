@@ -55,11 +55,13 @@ Phases, each printing one JSON object per line:
    distance) and an empty kernel: S = 1 shows the fixed cost of a launch,
    S = 88 to 176 the rate from L2, S = 2048 (268 MB) the rate from device
    memory.
-4. ``flat``: the flat route at n = 1M, d = 128 (the SIFT1M shape), checked
-   against a float64 NumPy brute force; then ``fused_topk_l2`` on the
-   inputs the route handed to ``pairwise_l2_masked``, held against the
-   route's result, without a (Q, N) buffer; each launch's device time
-   over a float32 and a float16 corpus.
+4. ``flat``: the flat route at n = 1M, d = 128 (the SIFT1M shape), one
+   ``fused_topk_l2`` launch, checked against a float64 NumPy brute force;
+   then the unfused path (``pairwise_l2_masked``, then a select, as k > 32
+   runs it) on the inputs the route handed to ``fused_topk_l2``: ids
+   equal to the route's, distances bit-equal; the fused kernel without a
+   (Q, N) buffer; each of its launches' device time over a float32 and a
+   float16 corpus.
 5. ``graph``: an MSTG index built by the port's bulk builder (on the host,
    in the background from the run's start: the phases before ``graph``
    run beside the build), served on the graph route with Q = 256,
@@ -95,24 +97,25 @@ Phases, each printing one JSON object per line:
    external id, pruned recall 1.0 against flat, graph agreement ≥ 0.99
    with the port's CPU run of the same index on 32 queries; kernels 1 and
    3 held against their plain versions at the widest beam (1,010, from
-   the tombstones), kernel 5 at the delta's scan. Then a size-tiered
+   the tombstones), kernel 7 at the flat route's widest scan (kernel 5
+   where a segment's tombstones widen k past 32). Then a size-tiered
    compaction: the policy must pick the two small segments, the exact
    routes' ids must not change and allocated device bytes must fall.
 12. ``sharded``: ``repro_torch.distributed.ShardedDeployment.flat`` over
    the flat phase's corpus on D = 4 logical shards of the card, under the
    ``all_gather``, ``tournament`` and ``host`` merges: ids bit-equal to one
-   another and to the flat route, four ``pairwise_l2_masked`` launches a
+   another and to the flat route, four ``fused_topk_l2`` launches a
    request; shard 3 failed (degraded, the flat answer over the other
    rows, three launches); ``per_shard_k = 5``; and ``from_segmented`` over
    the streaming phase's index on D = 2, equal to the index's own pruned
    answer. Asking for it pulls in ``flat`` and ``streaming``.
    ``sharded_ranks`` (pulls in ``sharded``): the same corpus one shard a
    rank. (a) ``ShardedDeployment.flat`` on a one-rank NCCL mesh: ids and
-   dists bit-equal to the flat route's, one ``pairwise_l2_masked``
+   dists bit-equal to the flat route's, one ``fused_topk_l2``
    launch. (b) Four gloo ranks on the card (NCCL refuses two ranks on one
    GPU), a (data 4) mesh started with the ``spawn`` method, the corpus
    passed as ``.npy`` memmaps: under each merge each rank's ids and dists
-   equal the ``sharded`` phase's answer and the flat route's, one kernel-5
+   equal the ``sharded`` phase's answer and the flat route's, one kernel-7
    launch a rank, 130,000,000 staged corpus bytes a rank (a fourth of the
    float32 rows and ranges), shard 3 failed giving ``(3,)`` on every rank
    and the answer over the other rows; ``per_shard_k=5`` (recall
@@ -127,7 +130,7 @@ Phases, each printing one JSON object per line:
    ``perf_counter``, ``SLOPolicy(max_wait_ms=1.0, max_batch=64)``, shard 3
    failed for wave 3: every rank's outcomes equal rank 0's, ids equal the
    flat route's (wave 3's the ``sharded`` phase's shard-3-failed answer),
-   one kernel-5 launch a rank a round its shard is up, kernel 5 held
+   one kernel-7 launch a rank a round its shard is up, kernel 7 held
    against its plain version at the round's shape on rank 0; (e) over the
    build layout, its 64 queries: ids equal the batched rank answer,
    kernels 1 and 3 on every rank; (f) ``launch.serve.main`` with
@@ -152,7 +155,7 @@ Phases, each printing one JSON object per line:
    kernels 1 and 3 launched and held against their plain versions at the
    shapes the stream handed them; the same queries on the flat route
    (ids and dists equal to the batched flat route's, ties included;
-   kernel 5 held at its micro-batch shape); and ``RetrievalServer`` over
+   kernel 7 held at its micro-batch shape); and ``RetrievalServer`` over
    two masks on an engine whose config routes graph (each mask group
    equal to ``execute``, kernels 1 and 3 launched). Each line has the wall
    time, QPS and the server's e2e and queue-wait p50 / p99 (host clock).
@@ -217,8 +220,8 @@ Phases, each printing one JSON object per line:
    ``--arch qwen3-moe-30b-a3b`` with ``--route graph`` and with ``--route
    flat``, ``--arch seamless-m4t-large-v2 --route graph`` and ``--arch
    llava-next-mistral-7b --route flat``): 24 of 24 requests served, none
-   empty; the streaming mode launches kernel 5 on its delta, each graph
-   mode kernels 1 and 3 and each flat mode kernel 5, all through
+   empty; the streaming mode launches kernel 7 on its delta, each graph
+   mode kernels 1 and 3 and each flat mode kernel 7, all through
    ``QueryEngine``. The LM path runs no hand-written kernel (the
    reference's has no Pallas kernel).
 16. ``train``: training (no hand-written kernel either: the reference's
@@ -332,7 +335,7 @@ Phases, each printing one JSON object per line:
 
 Launch counts are set to 0 just before each main-path run (flat, graph,
 each tier's flat and graph run, the ``trace`` phase's kernel calls, the
-path of ``gathered_l2_dot`` and ``fused_topk_l2``, which no route calls,
+path of ``gathered_l2_dot``, which no route calls,
 each streaming and sharded request, each serving run, the baselines' card
 search, each ``launch.serve`` mode and the blocked scan) and read just
 after. The kernel
@@ -579,6 +582,29 @@ def step_live(*args):
     from repro_torch.kernels import ops
     first = 4 if len(args) == 12 else 2
     return ops.live_rows(*args[first:first + 5], args[1].shape[0])
+
+
+def flat_route_kernel(k: int, n: int) -> str:
+    """The scan ``flat_search`` launches for the k nearest of n float32
+    rows: ``fused_topk_l2`` (kernel 7, scan and top-k in one pass) for
+    1 <= k <= min(32, n), else ``pairwise_l2_masked`` (kernel 5, then a
+    select over its (Q, N) matrix)."""
+    from repro_torch.kernels import ops
+    return ("fused_topk_l2" if 1 <= k <= min(ops.FUSED_TOPK_MAX_K, n)
+            else "pairwise_l2_masked")
+
+
+def unfused_flat(scan_args, k: int):
+    """The flat route's path for k > 32, called directly at any k: kernel
+    5's (Q, N) matrix over ``scan_args`` (``pairwise_l2_masked``'s), then
+    ``_smallest_stable``. Returns ((Q, k) int32 ids, NO_EDGE where the
+    distance is not finite, and (Q, k) float32 dists)."""
+    import torch
+    from repro_torch.core.flat import _smallest_stable
+    from repro_torch.kernels import ops
+    vals, cols = _smallest_stable(ops.pairwise_l2_masked(*scan_args), k)
+    ids = torch.where(torch.isfinite(vals), cols, ops.NO_EDGE)
+    return ids.to(torch.int32), vals
 
 
 # ---- kernel measurements at the main path's shapes ---------------------------
@@ -1585,28 +1611,39 @@ def streaming_phase(dev, args, Qn: int, k: int, job) -> dict:
         with Capture(ops, "gathered_topk", lambda *a: a[-2].shape[1]) as ct, \
                 Capture(ops, "gathered_l2", lambda q, c: c.shape[1]) as cl, \
                 Capture(ops, "pairwise_l2_masked",
-                        lambda q, c, *a: c.shape[0]) as cp:
+                        lambda q, c, *a: c.shape[0]) as cp, \
+                Capture(ops, "fused_topk_l2",
+                        lambda q, c, *a: c.shape[0]) as cf:
             res[route] = sidx.execute(request(route, trace=route == "graph"))
         launches[route] = launched(ops.LAUNCHES)
         _, sec = timed_execute(sidx, request(route),
                                reps=1 if route == "graph" else 3)
         ms[route] = sec * 1e3
         # each kernel at its widest call on this path: the graph route's
-        # beam over A's tombstones, the delta's scan
+        # beam over A's tombstones; the flat route's scans, kernel 7 where
+        # k is at most 32 (the delta, a segment without tombstones), kernel
+        # 5 where a segment's tombstones widen k past it
         for cap in ((ct, cl) if route == "graph"
-                    else (cp,) if route == "flat" else ()):
-            measure_kernel(cap.name, cap.best,
-                           launches[route].get(cap.name, 0),
-                           phase="streaming_kernel")
-        del ct, cl, cp
+                    else (cf, cp) if route == "flat" else ()):
+            if cap.best is not None:
+                measure_kernel(cap.name, cap.best,
+                               launches[route].get(cap.name, 0),
+                               phase="streaming_kernel")
+        del ct, cl, cp, cf
     g = launches["graph"]
+    delta_scan = flat_route_kernel(k, len(sidx.delta))
     check(g.get("gathered_topk", 0) > 0 and g.get("gathered_l2", 0) > 0
-          and g.get("pairwise_l2_masked") == 1,
+          and g.get(delta_scan) == 1,
           f"streaming graph request: expected kernels 1 and 3 and one delta "
-          f"scan, got {g}")
-    check(launches["flat"] == {"pairwise_l2_masked": len(sidx.segments) + 1},
+          f"scan ({delta_scan}), got {g}")
+    want = collections.Counter(flat_route_kernel(min(k + len(s.tombs), s.n),
+                                                 s.n)
+                               for s in sidx.segments)
+    want[delta_scan] += 1
+    check(launches["flat"] == dict(want),
           f"streaming flat request: {launches['flat']} for "
-          f"{len(sidx.segments)} segments and the delta")
+          f"{len(sidx.segments)} segments and the delta, expected "
+          f"{dict(want)}")
 
     # the exact routes against float64 over the live rows, by external id
     bf_ids, bf_d = brute_force64(live, qlo, qhi, ANY_OVERLAP, k,
@@ -1736,6 +1773,7 @@ def sharded_phase(dev, ds, qlo, qhi, k: int, flat_ids, flat_ms: float,
         return out, launches, sec * 1e3
 
     out, ms, launches, stage_s = {}, {}, {}, {}
+    scan = flat_route_kernel(k, ds.n // D)
     for merge in ("all_gather", "tournament", "host"):
         t0 = time.perf_counter()
         dep = ShardedDeployment.flat(ds.vectors, ds.lo, ds.hi, mesh=mesh,
@@ -1745,9 +1783,9 @@ def sharded_phase(dev, ds, qlo, qhi, k: int, flat_ids, flat_ms: float,
         out[merge], launches[merge], ms[merge] = served(dep)
         check(out[merge].report.merge == merge,
               f"sharded: asked for {merge}, ran {out[merge].report.merge}")
-        check(launches[merge] == {"pairwise_l2_masked": D},
-              f"sharded {merge}: expected {D} pairwise_l2_masked launches, "
-              f"got {launches[merge]}")
+        check(launches[merge] == {scan: D},
+              f"sharded {merge}: expected {D} {scan} launches, got "
+              f"{launches[merge]}")
     a = out["all_gather"]
     schedules_equal = all(np.array_equal(o.ids, a.ids)
                           and np.array_equal(o.dists, a.dists)
@@ -1819,7 +1857,7 @@ def sharded_phase(dev, ds, qlo, qhi, k: int, flat_ids, flat_ms: float,
     check(equal_flat, "sharded: ids differ from the single-device flat route")
     check(lost.report.missing_shards == (D - 1,) and lost.degraded,
           f"sharded: lost shard reported as {lost.report.missing_shards}")
-    check(lost_launches == {"pairwise_l2_masked": D - 1},
+    check(lost_launches == {scan: D - 1},
           f"sharded: a lost shard was scanned ({lost_launches})")
     check(lost_equal, "sharded: the degraded answer differs from the flat "
                       "route over the live shards' rows")
@@ -1892,8 +1930,9 @@ def ranks_logical_build(dev, args) -> dict:
 def _ranks_world1(dev, ds, qlo, qhi, k: int, flat_res) -> dict:
     """(a): ``ShardedDeployment.flat`` over the whole corpus on a one-rank
     NCCL process group (a ``file://`` store) and a (data 1) mesh. Held:
-    ids and dists bit-equal to the flat route's, one kernel-5 launch. The
-    group is destroyed after."""
+    ids and dists bit-equal to the flat route's, one launch of the flat
+    route's scan (:func:`flat_route_kernel`). The group is destroyed
+    after."""
     import shutil
     import tempfile
     import numpy as np
@@ -1935,9 +1974,9 @@ def _ranks_world1(dev, ds, qlo, qhi, k: int, flat_res) -> dict:
           and out["dists_bit_equal_flat_route"],
           "sharded_ranks (a): the one-rank NCCL mesh's answer differs from "
           "the flat route's")
-    check(launches == {"pairwise_l2_masked": 1},
-          f"sharded_ranks (a): expected one pairwise_l2_masked launch, got "
-          f"{launches}")
+    scan = flat_route_kernel(k, ds.n)
+    check(launches == {scan: 1},
+          f"sharded_ranks (a): expected one {scan} launch, got {launches}")
     return out
 
 
@@ -2109,21 +2148,26 @@ def _ranks_rank(rank: int, world: int, store: str, data_dir: str, k: int,
             lost = dep.execute(req)
             dep.restore(world - 1)
             if merge == "all_gather":
-                # (d): the async server over this deployment
+                # (d): the async server over this deployment, and the flat
+                # route's scan at a round's shape against its plain version
+                scan = flat_route_kernel(k, dep._flat[0].shape[0])
                 rec, out, cap = _ranks_async(
                     dep, mesh, load("queries"), load("qlo"), load("qhi"), k,
                     RANKS_ASYNC_WAVES, RANKS_ASYNC_FAILED_WAVE,
-                    capture="pairwise_l2_masked" if rank == 0 else None)
+                    capture=scan if rank == 0 else None)
                 if cap is not None:
-                    got5 = ops.pairwise_l2_masked(*cap)
-                    want5 = ref.pairwise_l2_masked_ref(*cap)
-                    err, ok = compare_dists(got5, want5,
-                                            RTOL["pairwise_l2_masked"])
-                    rec["kernel5"] = {
+                    got_s = getattr(ops, scan)(*cap)
+                    want_s = getattr(ref, scan + "_ref")(*cap)
+                    if scan == "fused_topk_l2":
+                        err, bad = compare_beams(got_s, want_s, RTOL[scan])
+                        ok = bad == 0
+                    else:
+                        err, ok = compare_dists(got_s, want_s, RTOL[scan])
+                    rec["round_scan"] = {
+                        "kernel": scan,
                         "shape": [cap[0].shape[0], *cap[1].shape],
-                        "max_abs_err": err, "ok": ok,
-                        "rtol": RTOL["pairwise_l2_masked"]}
-                    del got5, want5, cap
+                        "max_abs_err": err, "ok": ok, "rtol": RTOL[scan]}
+                    del got_s, want_s, cap
                 res["async_flat"] = rec
                 arrays.update({f"async_flat/{key}": v
                                for key, v in out.items()})
@@ -2215,7 +2259,8 @@ def sharded_ranks_phase(dev, ds, qlo, qhi, k: int, flat_res,
     background) serves first on the card. Held, on every rank: the flat
     layout's ids and dists equal to
     the ``sharded`` phase's logical D = 4 answer and to the flat route's
-    under each merge, one kernel-5 launch a request, the staged corpus
+    under each merge, one launch of the flat route's scan
+    (:func:`flat_route_kernel`) a request, the staged corpus
     bytes a D-th of the corpus's and its float32 ranges', shard 3 failed
     giving ``missing_shards == (3,)`` and the ``sharded`` phase's answer
     over the other rows; the build layout launching kernels 1 and 3, its
@@ -2225,9 +2270,10 @@ def sharded_ranks_phase(dev, ds, qlo, qhi, k: int, flat_res,
     every rank's outcomes and snapshot equal to rank 0's: (d) on the flat
     layout, ids equal to the flat route's (the ``sharded`` phase's
     shard-3-failed answer in the failed wave, degraded there alone), one
-    kernel-5 launch a rank a round its shard is up, kernel 5 against its
-    plain version at the round's shape on rank 0; (e) on the build layout,
-    ids equal to the batched rank answer, kernels 1 and 3 on every rank;
+    launch of the flat route's scan a rank a round its shard is up, that
+    scan against its plain version at the round's shape on rank 0; (e) on
+    the build layout, ids equal to the batched rank answer, kernels 1 and
+    3 on every rank;
     (f) ``launch.serve.main`` with ``--async``, 24 served, 24 non-empty,
     the summaries equal but ``seconds``. Reported: request ms by schedule
     beside the logical deployment's (gloo on one card stages every merge
@@ -2363,6 +2409,7 @@ def sharded_ranks_phase(dev, ds, qlo, qhi, k: int, flat_res,
     for s in serve_async:
         s.pop("seconds")
     r0_flat = ranks[0]["async_flat"]
+    scan = flat_route_kernel(k, ds.n // RANKS_D)
     async_line = {
         "policy": RANKS_ASYNC_POLICY, "waves": RANKS_ASYNC_WAVES,
         "failed_wave": RANKS_ASYNC_FAILED_WAVE,
@@ -2373,7 +2420,7 @@ def sharded_ranks_phase(dev, ds, qlo, qhi, k: int, flat_res,
         "flat_rank0": {key: r0_flat[key] for key in (
             "served", "degraded", "shed_total", "e2e_ms", "queue_wait_ms")},
         "logical_async_d4": logical_async,
-        "kernel5_rank0": r0_flat.get("kernel5"),
+        "round_scan_rank0": r0_flat.get("round_scan"),
         "build": {key: [r["async_build"][key] for r in ranks]
                   for key in ("rounds", "steps", "broadcasts",
                               "staged_bytes_a_round", "launches", "wall_s")},
@@ -2446,9 +2493,9 @@ def sharded_ranks_phase(dev, ds, qlo, qhi, k: int, flat_res,
             check(flat_equal[m][r], f"sharded_ranks rank {r} {m}: ids or "
                   f"dists differ from the logical D = {RANKS_D} answer or "
                   f"the flat route's")
-            check(res[m]["launches"] == {"pairwise_l2_masked": 1},
-                  f"sharded_ranks rank {r} {m}: expected one "
-                  f"pairwise_l2_masked launch, got {res[m]['launches']}")
+            check(res[m]["launches"] == {scan: 1},
+                  f"sharded_ranks rank {r} {m}: expected one {scan} "
+                  f"launch, got {res[m]['launches']}")
             check(res[m]["staged_corpus_bytes"] == want_staged
                   and res[m]["staged_allocated_bytes"] <= want_staged
                   + (1 << 20),
@@ -2490,17 +2537,17 @@ def sharded_ranks_phase(dev, ds, qlo, qhi, k: int, flat_res,
           "shard-3-failed answer")
     check(degraded_ok, "sharded_ranks async flat: degraded answers outside "
           "the failed wave, or not in it")
-    check(r0_flat.get("kernel5", {}).get("ok", False),
-          f"sharded_ranks async flat: kernel 5 differs from its plain "
-          f"version at the round's shape ({r0_flat.get('kernel5')})")
+    check(r0_flat.get("round_scan", {}).get("ok", False),
+          f"sharded_ranks async flat: the flat route's scan differs from "
+          f"its plain version at the round's shape "
+          f"({r0_flat.get('round_scan')})")
     for r, res in enumerate(ranks):
         fl, bl = res["async_flat"], res["async_build"]
         check(fl["rounds"] == RANKS_ASYNC_WAVES
-              and fl["launches"] == {"pairwise_l2_masked":
-                                     fl["rounds_shard_up"]},
+              and fl["launches"] == {scan: fl["rounds_shard_up"]},
               f"sharded_ranks rank {r} async flat: {fl['rounds']} rounds, "
-              f"launches {fl['launches']}, expected one pairwise_l2_masked "
-              f"a round of the {fl['rounds_shard_up']} its shard was up")
+              f"launches {fl['launches']}, expected one {scan} a round of "
+              f"the {fl['rounds_shard_up']} its shard was up")
         check(fl["embeds"] == (fl["rounds"] if r == 0 else 0),
               f"sharded_ranks rank {r} async flat: {fl['embeds']} embeds")
         check(bl["launches"].get("gathered_topk", 0) > 0
@@ -2656,7 +2703,7 @@ def serving_backends(stream: dict, dep, ds, qlo, qhi, k: int) -> dict:
           "id_agreement_batched": agree})
     check(degraded == len(qlo), f"serving sharded: {degraded} of "
                                 f"{len(qlo)} responses degraded")
-    check(launches.get("pairwise_l2_masked", 0) > 0,
+    check(launches.get(flat_route_kernel(k, ds.n // D), 0) > 0,
           f"serving sharded: no scan launched ({launches})")
     check(agree == 1.0, f"serving sharded: ids differ from the degraded "
                         f"batched request beyond ties ({agree})")
@@ -2738,7 +2785,8 @@ def serving_front_ends(eng, idx, ds, qlo, qhi, k: int, F: int, gres,
     serve_waves(srv, ds, qlo, qhi, ANY_OVERLAP, waves, 1)
     srv = server("flat")
     ops.reset_launches()
-    with Capture(ops, "pairwise_l2_masked") as cap_p:
+    scan = flat_route_kernel(k, ds.n)
+    with Capture(ops, scan) as cap_p:
         out, wall = serve_waves(srv, ds, qlo, qhi, ANY_OVERLAP, waves, 1)
     launches = launched(ops.LAUNCHES)
     f_ids = np.stack([o.hit.ids for o in out])
@@ -2755,8 +2803,7 @@ def serving_front_ends(eng, idx, ds, qlo, qhi, k: int, F: int, gres,
     check(d_equal, "serving flat: dists differ from the batched flat route")
     check(ids_equal, "serving flat: ids differ from the batched flat "
                      "route's")
-    measure_kernel("pairwise_l2_masked", cap_p.best,
-                   launches.get("pairwise_l2_masked", 0),
+    measure_kernel(scan, cap_p.best, launches.get(scan, 0),
                    phase="serving_kernel")
     del cap_p
 
@@ -3684,11 +3731,13 @@ def lm_phase(dev, seed: int, with_mesh: bool = False,
     # the encoder-decoder and the vision front end. At the driver's 1,500
     # rows the work-model router sends both mask groups to the pruned
     # route (plain torch): the plain mode launches no kernel, the streaming
-    # mode kernel 5 on its delta. The other modes pin the route, so
-    # QueryEngine launches kernels 1 and 3 (graph) and kernel 5 (flat)
-    # behind each model's LM endpoint.
+    # mode the flat route's scan on its delta. The other modes pin the
+    # route, so QueryEngine launches kernels 1 and 3 (graph) and the flat
+    # route's scan (flat) behind each model's LM endpoint; that scan is
+    # kernel 7 at launch.serve's default k of 10 (:func:`flat_route_kernel`).
+    scan = flat_route_kernel(10, 400)
     route_kernels = {"graph": ("gathered_topk", "gathered_l2"),
-                     "flat": ("pairwise_l2_masked",)}
+                     "flat": (scan,)}
     for mode in ([], ["--async"], ["--streaming", "--n", "400"],
                  ["--shards", "4", "--n", "1200"],
                  ["--arch", "qwen3-moe-30b-a3b", "--route", "graph"],
@@ -3706,9 +3755,9 @@ def lm_phase(dev, seed: int, with_mesh: bool = False,
               f"launch.serve {mode}: served {res['served']}, non-empty "
               f"{res['non_empty']} of 24")
         if "--streaming" in mode:
-            check(launches.get("pairwise_l2_masked"),
-                  "launch.serve --streaming: kernel 5 not launched on the "
-                  "delta")
+            check(launches.get(scan),
+                  f"launch.serve --streaming: {scan} not launched on the "
+                  f"delta")
         if "--route" in mode:
             route = mode[mode.index("--route") + 1]
             check(res["routes"][route] == 2
@@ -5246,8 +5295,8 @@ def tools_dryrun_job() -> list:
 def tools_blocked(args, flat_ids, flat_d, Qn: int, k: int, bf_d,
                   check_rows, flat_ms: float) -> None:
     """The ``tools_blocked`` line: ``flat_search_blocked`` on the flat
-    route's scan arguments (``args``, captured from its
-    ``pairwise_l2_masked`` call) with blocks of :data:`TOOLS_BLOCK` rows.
+    route's scan arguments (``args``, ``pairwise_l2_masked``'s, from the
+    route's ``fused_topk_l2`` call) with blocks of :data:`TOOLS_BLOCK` rows.
     Held: one kernel-5 launch a block, distances bit-equal to the flat
     route's, ids equal wherever a row's distances are distinct, and within
     1e-4 of the float64 brute force on its check rows."""
@@ -5550,11 +5599,14 @@ def main() -> int:
         torch.cuda.synchronize()
         staged_f32 = torch.cuda.memory_allocated() - mem0
         ops.reset_launches()
-        with Capture(ops, "pairwise_l2_masked") as cap:
+        with Capture(ops, "fused_topk_l2") as cap:
             res = eng.execute(req)
         launches = dict(ops.LAUNCHES)
-        check(launches["pairwise_l2_masked"] > 0,
-              "flat route did not launch pairwise_l2_masked")
+        check(launched(launches) == {"fused_topk_l2": 1},
+              f"flat route: expected one fused_topk_l2 launch and no other, "
+              f"got {launched(launches)}")
+        fused_args = cap.best
+        scan_args = fused_args[:7]
         _, sec = timed_execute(eng, req, reps=5)
         f32_ms = sec * 1e3
         check_rows = list(range(16))
@@ -5578,54 +5630,52 @@ def main() -> int:
         if "profile" in phases:
             emit({"phase": "profile", "route": "flat", "n": ds.n,
                   **profile_request(eng, req)})
+        # kernel 5 on the route's inputs: the path k > 32 takes
         rows["pairwise_l2_masked"] = measure_kernel(
-            "pairwise_l2_masked", cap.best, launches["pairwise_l2_masked"])
-        # fused_topk_l2 on the scan's inputs, against the route's result
-        fused_args = cap.best + (k,)
-        Qp, Np = cap.best[0].shape[0], cap.best[1].shape[0]
+            "pairwise_l2_masked", scan_args, launches["pairwise_l2_masked"])
+        # the route (kernel 7) against its unfused path on the same inputs
+        Qp, Np = fused_args[0].shape[0], fused_args[1].shape[0]
         torch.cuda.synchronize()
         mem0 = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        f_ids, f_d = ops.fused_topk_l2(*fused_args)
+        ops.fused_topk_l2(*fused_args)
         torch.cuda.synchronize()
         extra = torch.cuda.max_memory_allocated() - mem0
-        f_ids = f_ids[:Qn].cpu().numpy()
-        f_d = f_d[:Qn].cpu().numpy()
-        fin_r = np.isfinite(res.dists)
-        f_rel = float((np.abs(f_d[fin_r] - res.dists[fin_r])
-                       / np.maximum(res.dists[fin_r], 1e-30)).max())
-        f_agree = agreement(f_ids, f_d.astype(np.float64), res.ids,
-                            res.dists.astype(np.float64), 1e-4)
-        # the route's own scan and top-k, timed beside the fused kernel;
-        # the kernel's launches' device split over the float32 and the
-        # float16 corpus
-        scan_topk_ms = time_ms(lambda: torch.topk(
-            ops.pairwise_l2_masked(*cap.best), k, dim=1, largest=False))
+        u_ids, u_d = (t[:Qn].cpu().numpy() for t in unfused_flat(scan_args,
+                                                                 k))
+        fin_u = np.isfinite(u_d)
+        u_rel = float((np.abs(res.dists[fin_u] - u_d[fin_u])
+                       / np.maximum(u_d[fin_u], 1e-30)).max())
+        # the unfused path timed beside the fused kernel; the kernel's
+        # launches' device split over the float32 and the float16 corpus
+        unfused_ms = time_ms(lambda: unfused_flat(scan_args, k))
         fused16_args = (fused_args[0], fused_args[1].half(), *fused_args[2:])
         split = {row: device_split(lambda a=a: ops.fused_topk_l2(*a))
                  for row, a in (("fused_topk_l2", fused_args),
                                 ("fused_topk_l2_f16", fused16_args))}
         emit({"phase": "flat_fused", "Q": Qp, "N": Np, "k": k,
-              "scan_topk_ms": scan_topk_ms, "device_split_ms": split,
-              "id_agreement_vs_flat": f_agree, "max_rel_err_vs_flat": f_rel,
-              "dists_bit_equal_vs_flat": bool(np.array_equal(
-                  f_d[fin_r], res.dists[fin_r])),
-              "ids_equal_vs_flat": bool(np.array_equal(f_ids, res.ids)),
+              "unfused_ms": unfused_ms, "device_split_ms": split,
+              "max_rel_err_vs_unfused": u_rel,
+              "dists_bit_equal_vs_unfused": bool(np.array_equal(
+                  res.dists[fin_u], u_d[fin_u])),
+              "ids_equal_vs_unfused": bool(np.array_equal(res.ids, u_ids)),
               "extra_device_bytes": extra, "qn_matrix_bytes": 4 * Qp * Np,
               "route_launches": launches["fused_topk_l2"]})
-        check(bool(np.array_equal(np.isfinite(f_d), fin_r)),
-              "fused_topk_l2: +inf pattern differs from the flat route's")
-        check(f_agree == 1.0, f"fused_topk_l2: ids disagree with the flat "
-                              f"route's ({f_agree})")
-        check(f_rel <= 1e-4, f"fused_topk_l2: dists off by {f_rel}")
+        check(bool(np.array_equal(np.isfinite(res.dists), fin_u)),
+              "flat route: +inf pattern differs from the unfused path's")
+        check(bool(np.array_equal(res.ids, u_ids)),
+              "flat route: ids differ from the unfused path's")
+        check(bool(np.array_equal(res.dists[fin_u], u_d[fin_u])),
+              f"flat route: dists differ from the unfused path's (by "
+              f"{u_rel} relative)")
         check(extra < Qp * Np, f"fused_topk_l2 allocated {extra} bytes, a "
                                f"(Q, N)-sized buffer")
-        rows["fused_topk_l2"] = measure_kernel("fused_topk_l2", fused_args,
-                                               0)
+        rows["fused_topk_l2"] = measure_kernel(
+            "fused_topk_l2", fused_args, launches["fused_topk_l2"])
         rows["fused_topk_l2_f16"] = measure_kernel("fused_topk_l2_f16",
                                                    fused16_args, 0)
         if "tools" in phases:
-            tools_blocked(cap.best, res.ids, res.dists, Qn, k, bf_d,
+            tools_blocked(scan_args, res.ids, res.dists, Qn, k, bf_d,
                           check_rows, f32_ms)
         del eng, cap
         torch.cuda.empty_cache()

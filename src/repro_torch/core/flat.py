@@ -1,7 +1,8 @@
 """Exact predicate-filtered search engines.
 
 * ``flat_search`` — the fused predicate + pairwise squared L2 kernel over
-  the whole corpus, then a top-k (the ground truth of the other routes).
+  the whole corpus, then a top-k (the ground truth of the other routes);
+  on a card with k <= 32, one scan-and-top-k kernel that does both.
 * ``flat_search_blocked`` — the same answer with a running (Q, k) top-k
   over blocks of the corpus, so the (Q, N) matrix never exists: one scan
   kernel a block.
@@ -64,7 +65,17 @@ def _resort_unsure(dists, vals, cols, sure, R: int) -> None:
 def flat_search(corpus, lo, hi, queries, ql, qh, *, mask: int, k: int):
     """Exact filtered k-NN: (Q, k) int32 ids + float32 squared distances
     (+inf / NO_EDGE pad when fewer than k objects qualify). Among equal
-    distances the lower row comes first, as ``lax.top_k`` orders them."""
+    distances the lower row comes first, as ``lax.top_k`` orders them.
+
+    On a card, with 1 <= k <= min(:data:`ops.FUSED_TOPK_MAX_K`, N) and a
+    float32 or float16 corpus, one pass of :func:`ops.fused_topk_l2` gives
+    that answer without the (Q, N) matrix; its distances are the masked
+    scan's bit for bit. Elsewhere the scan writes the matrix and
+    :func:`_smallest_stable` selects from it."""
+    if (queries.is_cuda and 1 <= k <= min(ops.FUSED_TOPK_MAX_K,
+                                          corpus.shape[0])
+            and corpus.dtype in (torch.float32, torch.float16)):
+        return ops.fused_topk_l2(queries, corpus, lo, hi, ql, qh, mask, k)
     d = ops.pairwise_l2_masked(queries, corpus, lo, hi, ql, qh, mask)
     with obs.span("topk"):
         vals, idx = _smallest_stable(d, k)

@@ -2,7 +2,7 @@
 
 Freshly upserted objects land here and are served by an exact predicate-masked
 brute-force scan (:func:`repro_torch.core.flat.flat_search`, the same
-``pairwise_l2_masked`` kernel as the static flat route) until
+kernels as the static flat route) until
 ``SegmentedIndex.flush()`` freezes them into an immutable MSTG segment.
 
 Storage is a capacity-doubling host arena: rows are appended in arrival order

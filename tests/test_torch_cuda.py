@@ -16,9 +16,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (the edge inputs the card check also runs)
 from repro_torch.core import (ANY_OVERLAP, QUERY_CONTAINED, EngineConfig,
                               MSTGIndex, QueryEngine, SearchRequest)
+from repro_torch.core.flat import flat_search
 from repro_torch.core.quant import QuantizedStore
 from repro_torch.data import make_queries, make_range_dataset
 from repro_torch.kernels import ops, ref
+
+from _flat_cases import tied_corpus
 
 pytestmark = pytest.mark.cuda
 
@@ -369,6 +372,58 @@ def test_fused_topk_filter_edges(dev, case, k, dtype):
         assert bool((ids == ops.NO_EDGE).all())
 
 
+def _flat_route_inputs(case, Q, seed):
+    """(q, c, lo, hi, ql, qh) of a flat request, in the kernels' order:
+    ``tied_corpus``'s exact ties (N = 3000), a filtered-epilogue edge case
+    at N = 20077, or "few", 20 rows (fewer than k); no N is a multiple of
+    the 128-row tile. The last Q // 4 queries are padding as the engine
+    pads a batch: zero vectors with the range [0, -1]."""
+    if case == "tied":
+        c, lo, hi, q, ql, qh = tied_corpus(seed, q=Q)
+        arrays = q, c, lo, hi, ql, qh
+    else:
+        N = 20 if case == "few" else 20077
+        arrays = chip_smoke.fused_edge_inputs(
+            "sel1" if case == "few" else case, Q, N, 64, seed)
+    q, c, lo, hi, ql, qh = (a.copy() for a in arrays)
+    pad = Q // 4
+    if pad:
+        q[-pad:], ql[-pad:], qh[-pad:] = 0, 0, -1
+    return [torch.from_numpy(a) for a in (q, c, lo, hi, ql, qh)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("Q", [1, 37, 64, 256])
+@pytest.mark.parametrize("case,k", [
+    *[("tied", k) for k in (1, 10, 32, 33, 150)],
+    *[(case, k) for case in ("falling", "ties", "sel0", "sel1", "nan")
+      for k in (1, 10, 32, 33)],
+    ("few", 10), ("few", 32)])
+def test_flat_route_equals_its_unfused_path(dev, case, k, Q, dtype):
+    """``flat_search`` on the card: kernel 7 alone for k <= 32 (and k at
+    most N), else kernel 5 then ``_smallest_stable``; either way the ids
+    of the unfused path at every position and its finite distances bit for
+    bit."""
+    args = [a.to(dev) for a in _flat_route_inputs(case, Q, seed=k + Q)]
+    args[1] = args[1].to(dtype)
+    suffix = "_f16" if dtype == torch.float16 else ""
+    ops.reset_launches()
+    q, c, lo, hi, ql, qh = args
+    got_i, got_d = flat_search(c, lo, hi, q, ql, qh, mask=ANY_OVERLAP, k=k)
+    fused = k <= min(ops.FUSED_TOPK_MAX_K, c.shape[0])
+    assert ops.LAUNCHES["fused_topk_l2" + suffix] == int(fused)
+    assert ops.LAUNCHES["pairwise_l2_masked" + suffix] == int(not fused)
+    assert sum(ops.LAUNCHES.values()) == 1
+    want_i, want_d = chip_smoke.unfused_flat((*args, ANY_OVERLAP), k)
+    got_i, got_d, want_i, want_d = (t.cpu() for t in (got_i, got_d, want_i,
+                                                      want_d))
+    assert got_i.dtype == torch.int32 and got_i.shape == want_i.shape
+    assert torch.equal(got_i, want_i)
+    fin = torch.isfinite(want_d)
+    assert torch.equal(torch.isfinite(got_d), fin)
+    assert torch.equal(got_d[fin], want_d[fin])
+
+
 def test_new_wrappers_refuse_bad_input(dev):
     args = [a.to(dev) for a in _fused_inputs(4, 50, 8, seed=0)]
     ops.reset_launches()
@@ -523,10 +578,10 @@ def test_gathered_kernels_at_the_card_checks_edges(dev, dtype, shape):
 
 
 def test_delta_scan_with_dead_rows_on_cuda_agrees_with_cpu(dev):
-    """The streaming delta's scan (one ``pairwise_l2_masked`` launch) over
-    an arena with NaN-dead rows (upserts and kills) and NaN unused rows,
-    k past the live rows and past the capacity, against the same scan's
-    plain version on the CPU."""
+    """The streaming delta's scan (one launch: ``fused_topk_l2`` for k up
+    to 32, else ``pairwise_l2_masked``) over an arena with NaN-dead rows
+    (upserts and kills) and NaN unused rows, k past the live rows and past
+    the capacity, against the same scan's plain version on the CPU."""
     from repro_torch.streaming import DeltaBuffer
     ds = make_range_dataset(n=300, d=24, n_queries=9, quantize=32, seed=2)
     delta = DeltaBuffer()
@@ -540,7 +595,9 @@ def test_delta_scan_with_dead_rows_on_cuda_agrees_with_cpu(dev):
     for k in (10, 250, 300):
         ops.reset_launches()
         a = delta.search(ds.queries, qlo, qhi, ANY_OVERLAP, k, device=dev)
-        assert ops.LAUNCHES["pairwise_l2_masked"] == 1
+        scan = ("fused_topk_l2" if k <= ops.FUSED_TOPK_MAX_K
+                else "pairwise_l2_masked")
+        assert ops.LAUNCHES[scan] == 1
         assert sum(ops.LAUNCHES.values()) == 1
         b = delta.search(ds.queries, qlo, qhi, ANY_OVERLAP, k, device="cpu")
         assert a[0].shape == b[0].shape == (9, min(k, 256))
@@ -592,8 +649,8 @@ def test_sharded_flat_on_cuda_launches_once_per_live_shard(dev):
             cpu.fail(failed)
         ops.reset_launches()
         a = gpu.execute(req)
-        assert ops.LAUNCHES["pairwise_l2_masked"] == (4 if failed is None
-                                                      else 3)
+        assert ops.LAUNCHES["fused_topk_l2"] == (4 if failed is None
+                                                 else 3)
         b = cpu.execute(req)
         np.testing.assert_array_equal(a.ids, b.ids)
         np.testing.assert_allclose(a.dists, b.dists, rtol=1e-4, atol=1e-4)

@@ -18,22 +18,7 @@ from repro.core.flat import flat_search as ref_flat_search
 
 from repro_torch.core.flat import flat_search
 
-N_DISTINCT, N, D, Q = 40, 3000, 8, 12
-
-
-def _tied_corpus(seed: int):
-    """Corpus rows drawn with repetition from N_DISTINCT (vector, lo, hi)
-    rows; queries near some of them with random ranges."""
-    rng = np.random.default_rng(seed)
-    base = rng.normal(size=(N_DISTINCT, D)).astype(np.float32)
-    blo = rng.uniform(0, 1, N_DISTINCT).astype(np.float32)
-    bhi = (blo + rng.uniform(0, 0.5, N_DISTINCT)).astype(np.float32)
-    pick = rng.integers(0, N_DISTINCT, N)
-    q = (base[rng.integers(0, N_DISTINCT, Q)]
-         + rng.normal(scale=0.05, size=(Q, D))).astype(np.float32)
-    ql = rng.uniform(0, 1, Q).astype(np.float32)
-    qh = (ql + rng.uniform(0, 0.6, Q)).astype(np.float32)
-    return base[pick], blo[pick], bhi[pick], q, ql, qh
+from _flat_cases import tied_corpus
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])
@@ -42,7 +27,7 @@ def _tied_corpus(seed: int):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_flat_search_orders_exact_ties_as_lax_top_k(seed, k, mask,
                                                     use_kernel):
-    arrays = _tied_corpus(seed)
+    arrays = tied_corpus(seed)
     want_i, want_d = ref_flat_search(*map(jnp.asarray, arrays), mask=mask,
                                      k=k, use_kernel=use_kernel)
     want_i, want_d = np.asarray(want_i), np.asarray(want_d)
